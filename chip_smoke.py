@@ -19,8 +19,10 @@ card's name and power limit first, then one JSON line per phase:
          full decodes of plm/rmi lists on the guided_search and plm_decode
          kernels, asserted equal to the host numpy probe and decode
   C      each kernel against its plain PyTorch version on the card, on the
-         largest inputs phases A and B handed it: the difference, the time
-         from CUDA events, and the bound from its bytes and operations
+         largest inputs phases A and B handed it: the difference, the
+         device time (CUDA-graph replay) and the time of calls issued one
+         by one, and the bound from its bytes and operations;
+         and the time of Algorithm 3's whole candidate step on one batch
 
 then the ``kernels`` line (launch counts from phases A and B, times,
 bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
@@ -108,6 +110,25 @@ def learned_regime_index(rng):
     return offsets, np.concatenate(lists).astype(np.int32)
 
 
+def host_probe(tm, cands):
+    """The epsilon-window probe of a learned-codec term in host numpy
+    (decode each bracket's ranks, compare): the independent check of the
+    guided_search kernel's verdicts and ranks."""
+    import numpy as np
+
+    from repro_torch.postings.search import decode_window, flatten_windows
+
+    d = np.asarray(cands, np.int64)
+    seg, r_lo, _, probe_of, _, ranks = flatten_windows(tm, d)
+    if len(ranks) == 0:
+        return np.zeros(len(d), bool), r_lo
+    ids = decode_window(tm, seg[probe_of], ranks)
+    found = np.zeros(len(d), bool)
+    np.logical_or.at(found, probe_of, ids == d[probe_of])
+    lt = ids < d[probe_of]
+    return found, r_lo + np.bincount(probe_of, weights=lt, minlength=len(d)).astype(np.int64)
+
+
 # ------------------------------------------------------------ helpers
 class Recorder:
     """Keeps the largest inputs each kernel wrapper was called with (by
@@ -148,6 +169,32 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end) / ITERS
 
 
+def graph_ms(fn) -> float:
+    """Mean device milliseconds per call: ITERS calls captured in one CUDA
+    graph and replayed, so the host's launch cost between calls is gone."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(ITERS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    log(f"[C] graph of {ITERS} calls: {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / ITERS
+
+
 def bits_of(words, n: int):
     """(N, W) int32 packed words -> (N, n) bool, bit i of word w = column 32w+i."""
     import torch
@@ -158,7 +205,7 @@ def bits_of(words, n: int):
 
 
 # ------------------------------------------------------------ phases
-def phase_a(args, dev, launches) -> dict:
+def phase_a(args, dev, launches, keep: dict) -> dict:
     import numpy as np
     import torch
 
@@ -208,6 +255,8 @@ def phase_a(args, dev, launches) -> dict:
         if bad:
             raise AssertionError(f"K={k}: {len(bad)} queries differ from brute force, first {bad[:5]}")
         timed(f"serve_warm_k{k}", lambda: eng.query_batch(q))
+        if k == 1:  # for phase C's time of the whole candidate step
+            keep["state"], keep["queries"] = eng.shards[0].state, q
         stats = eng.serving_stats()
         shards[f"k{k}"] = {
             "launches_per_batch": per_batch,
@@ -287,7 +336,7 @@ def phase_b(dev) -> dict:
                     and np.array_equal(rank, truth_rank)):
                 raise AssertionError(f"query {qi} term {t}: probe differs from the host decode")
             if gp.is_guided(t):
-                hf, hr = gp.probe_host(t, out)
+                hf, hr = host_probe(gp.term_model(t), out)
                 if not (np.array_equal(found, hf) and np.array_equal(rank, hr)):
                     raise AssertionError(f"query {qi} term {t}: probe differs from the host probe")
             out = out[found]
@@ -325,14 +374,16 @@ def phase_c(rec: Recorder, launch_counts: dict) -> list[dict]:
     rows = []
 
     def row(name, replaces, fn, ref, err, bytes_, flops, library=None, extra=None):
-        ms, plain_ms = cuda_ms(fn), cuda_ms(ref)
+        # ms, plain_ms, library_ms: device time (graph replay); the eager_*
+        # keys time the same calls issued one by one from Python
         b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launch_counts[name], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+            "ms": graph_ms(fn), "plain_ms": graph_ms(ref), "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "library_ms": cuda_ms(library) if library is not None else None,
+            "library_ms": graph_ms(library) if library is not None else None,
+            "eager_ms": cuda_ms(fn), "plain_eager_ms": cuda_ms(ref),
             **(extra or {}),
         })
         log(f"[C] {rows[-1]}")
@@ -386,21 +437,14 @@ def phase_c(rec: Recorder, launch_counts: dict) -> list[dict]:
 
     tabs = rec.inputs["plm_decode"]
     got, want = decode_batch(*tabs), decode_ref(*tabs)
-    # compared wherever the decode is defined: past a list's end a steep
-    # segment line can leave int32, and the bridge trims those ranks
-    starts, _, slopes, _ = tabs
-    B, S = starts.shape
-    R = tabs[3].shape[1]
-    ranks = torch.arange(R, device=starts.device, dtype=torch.int32).expand(B, R).contiguous()
-    seg = (torch.searchsorted(starts, ranks, right=True) - 1).clamp(min=0)
-    defined = (slopes.gather(1, seg) * (ranks - starts.gather(1, seg)).float()).abs() < 2**30
-    err = int((got.long() - want.long())[defined].abs().max())
+    err = int((got.long() - want.long()).abs().max())
     if err:
         raise AssertionError("plm_decode differs from its plain version")
+    S, N = tabs[0].shape[0], tabs[3].shape[0]  # the batch is ragged: N postings in all
     row("plm_decode", "src/repro/kernels/plm_decode/kernel.py:48",
         lambda: decode_batch(*tabs), lambda: decode_ref(*tabs),
-        float(err), 4 * (3 * B * S + 2 * B * R), 0,
-        extra={"shape": {"B": B, "S": S, "R": R}})
+        float(err), 4 * (3 * S + 2 * N), 0,
+        extra={"shape": {"S": S, "N": N}})
     return rows
 
 
@@ -457,8 +501,9 @@ def main() -> int:
     def launches() -> dict[str, int]:
         return {n: k.launches for n, k in kernels.items()}
 
-    counts = {}
-    for name, run in (("A", lambda: phase_a(args, dev, launches)), ("B", lambda: phase_b(dev))):
+    counts, keep = {}, {}
+    for name, run in (("A", lambda: phase_a(args, dev, launches, keep)),
+                      ("B", lambda: phase_b(dev))):
         for k in kernels.values():
             k.launches = 0
         result = run()
@@ -474,7 +519,11 @@ def main() -> int:
             raise AssertionError(f"{n} did not launch on the main path (phase A)")
 
     rows = phase_c(rec, total)
-    emit({"phase": "C", "kernels": [r["name"] for r in rows], "launches": total})
+    # Algorithm 3's whole candidate step on one K=1 batch (both kernels, the
+    # block expansion and the AND), beside its kernels' own times
+    block_ms = cuda_ms(lambda: algorithms.run_queries(keep["state"], keep["queries"], "block"))
+    emit({"phase": "C", "kernels": [r["name"] for r in rows], "launches": total,
+          "block_query_ms": block_ms})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -29,7 +29,7 @@ from repro_torch.core.membership import MembershipModel
 from repro_torch.index.build import InvertedIndex, block_lists
 from repro_torch.kernels.bitset.kernel import bitset_and_popcount
 from repro_torch.kernels.membership.kernel import membership_bitmask
-from repro_torch.kernels.membership.ref import LANE, pack_bool_words
+from repro_torch.kernels.membership.ref import LANE
 
 
 @dataclass
@@ -51,6 +51,9 @@ class EngineState:
 def build_engine(
     model: MembershipModel, tau: torch.Tensor, inv: InvertedIndex, *, block_size: int
 ) -> EngineState:
+    if block_size % LANE:
+        # block_query expands surviving blocks a packed word at a time
+        raise ValueError(f"block_size {block_size} is not a multiple of {LANE}")
     dev = tau.device
     bitmaps, n_blocks = block_lists(inv, block_size)
     return EngineState(
@@ -111,11 +114,12 @@ def block_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     valid = (q >= 0).to(torch.int32)
     qmaps = state.block_bitmaps[q.clamp(min=0)].contiguous()  # (Q, T, Wb)
     inter, _ = bitset_and_popcount(qmaps, valid.contiguous())
-    # expand the surviving-block bitmap to docs, pack 32 docs per word
-    docs = torch.arange(state.n_docs, device=dev)
-    blk = docs // state.block_size
-    in_block = (inter[:, blk // 32] >> (blk % 32).to(torch.int32)) & 1
-    cand = pack_bool_words(in_block.to(torch.bool))
+    # every word's 32 docs lie in one block: a surviving block's words are
+    # all-ones (-1), the rest zero.  The tail bits of the last word come out
+    # zero from the AND, since the membership rows leave them zero.
+    words = -(-state.n_docs // LANE)
+    wb = torch.arange(words, device=dev) * LANE // state.block_size
+    cand = -((inter[:, wb // 32] >> (wb % 32).to(torch.int32)) & 1)
     return _and_terms(_term_rows(state, queries), queries) & cand
 
 

@@ -6,30 +6,28 @@ import torch
 from repro_torch.kernels.cuda import I, P, CudaKernel, check
 from repro_torch.kernels.plm_decode.ref import decode_ref
 
-KERNEL = CudaKernel("plm_decode", "decode_batch_launch", [P, P, P, P, P, I, I, I])
+KERNEL = CudaKernel("plm_decode", "decode_batch_launch", [P, P, P, P, P, I, I])
 
 
 def decode_batch(
-    starts: torch.Tensor,  # (B, S) int32, SENTINEL-padded
-    bases: torch.Tensor,  # (B, S) int32
-    slopes: torch.Tensor,  # (B, S) float32
-    corr: torch.Tensor,  # (B, R) int32
+    seg_pos: torch.Tensor,  # (S,) int32 flat position of each segment's first posting
+    bases: torch.Tensor,  # (S,) int32
+    slopes: torch.Tensor,  # (S,) float32
+    corr: torch.Tensor,  # (N,) int32, the batch's lists end to end
 ) -> torch.Tensor:
-    """Decode B padded lists -> (B, R) int32 doc ids."""
+    """Decode a ragged batch of lists -> (N,) int32 doc ids."""
     dev = corr.device
     if dev.type == "cpu":
-        return decode_ref(starts, bases, slopes, corr)
+        return decode_ref(seg_pos, bases, slopes, corr)
     if dev.type != "cuda":
         raise ValueError(f"decode_batch: unsupported device {dev}")
-    check(starts, "starts", torch.int32, 2, dev)
-    check(bases, "bases", torch.int32, 2, dev)
-    check(slopes, "slopes", torch.float32, 2, dev)
-    check(corr, "corr", torch.int32, 2, dev)
-    (B, S), R = starts.shape, corr.shape[1]
-    if tuple(bases.shape) != (B, S) or tuple(slopes.shape) != (B, S) or corr.shape[0] != B:
-        raise ValueError("segment tables and corrections disagree on shape")
-    if B > 65535:
-        raise ValueError(f"{B} lists exceed the kernel's grid (65535)")
-    out = torch.empty((B, R), dtype=torch.int32, device=dev)
-    KERNEL.launch(*(t.data_ptr() for t in (starts, bases, slopes, corr, out)), B, S, R)
+    check(seg_pos, "seg_pos", torch.int32, 1, dev)
+    check(bases, "bases", torch.int32, 1, dev)
+    check(slopes, "slopes", torch.float32, 1, dev)
+    check(corr, "corr", torch.int32, 1, dev)
+    S, N = seg_pos.shape[0], corr.shape[0]
+    if bases.shape[0] != S or slopes.shape[0] != S:
+        raise ValueError("segment positions, bases and slopes disagree on length")
+    out = torch.empty(N, dtype=torch.int32, device=dev)
+    KERNEL.launch(*(t.data_ptr() for t in (seg_pos, bases, slopes, corr, out)), S, N)
     return out

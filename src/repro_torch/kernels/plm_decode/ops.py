@@ -1,17 +1,17 @@
-"""Host bridge: plm/rmi word streams -> padded batches -> batched decode.
+"""Host bridge: plm/rmi word streams -> one ragged batch -> batched decode.
 
 Parses each stream (postings/plm.py layout), bit-unpacks corrections on the
-host, pads segment tables to the batch max S and rank axes to a multiple of
-128, decodes the whole batch in one ``decode_batch`` call on ``device`` and
-trims each list.  The uint32 stream fields are reinterpreted as int32 (doc
-ids < 2^31 by the index contract, enforced in the host decoder)."""
+host, lays the lists end to end with each segment start shifted to its flat
+position, decodes the whole batch in one ``decode_batch`` call on ``device``
+and splits it back into lists.  No list is padded.  The uint32 stream fields
+are reinterpreted as int32 (doc ids < 2^31 by the index contract, enforced
+in the host decoder)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.plm_decode.kernel import decode_batch
-from repro_torch.kernels.plm_decode.ref import SENTINEL
 from repro_torch.postings.plm import parse_stream
 
 
@@ -23,27 +23,26 @@ def decode_lists(
     out: list[np.ndarray] = [np.zeros(0, np.int32)] * len(lens)
     if not nonempty:
         return out
+    offsets = np.zeros(len(nonempty) + 1, np.int64)
+    np.cumsum([lens[i] for i in nonempty], out=offsets[1:])
+    if offsets[-1] >= 2**31:
+        raise ValueError(f"{offsets[-1]} postings exceed the kernel's int32 positions")
     parsed = [parse_stream(streams[i], lens[i]) for i in nonempty]
-    S = max(len(p[0]) for p in parsed)
-    R = -(-max(lens[i] for i in nonempty) // 128) * 128
-    B = len(parsed)
-    starts = np.full((B, S), SENTINEL, np.int32)
-    bases = np.zeros((B, S), np.int32)
-    slopes = np.zeros((B, S), np.float32)
-    corr = np.zeros((B, R), np.int32)
-    for row, (st, ba, sl, co) in enumerate(parsed):
-        s = len(st)
-        starts[row, :s] = st.astype(np.int32)
-        bases[row, :s] = ba.astype(np.int32)
-        slopes[row, :s] = sl
-        corr[row, : len(co)] = co.astype(np.int32)
+    for i, (st, *_) in zip(nonempty, parsed):
+        if st[0] != 0:
+            raise ValueError(f"stream {i}: first segment starts at rank {st[0]}, not 0")
+    seg_pos = np.concatenate([st + off for (st, *_), off in zip(parsed, offsets)])
+    bases = np.concatenate([p[1] for p in parsed])
+    slopes = np.concatenate([p[2] for p in parsed])
+    corr = np.concatenate([p[3] for p in parsed])
     dev = torch.device(device)
+
+    def put(a: np.ndarray, dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
     ids = decode_batch(
-        torch.from_numpy(starts).to(dev),
-        torch.from_numpy(bases).to(dev),
-        torch.from_numpy(slopes).to(dev),
-        torch.from_numpy(corr).to(dev),
+        put(seg_pos, np.int32), put(bases, np.int32), put(slopes, np.float32), put(corr, np.int32)
     ).cpu().numpy()
     for row, i in enumerate(nonempty):
-        out[i] = ids[row, : lens[i]].astype(np.int32)
+        out[i] = ids[offsets[row] : offsets[row + 1]]
     return out

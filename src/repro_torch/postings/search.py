@@ -36,7 +36,6 @@ guided probe touches against what a full decode would have read.  Its
 candidate set) on the prober's ``device``: the CUDA kernel on a card, the
 plain PyTorch version on the CPU.  Full decodes of learned-codec terms
 (``full_decode``) run on the ``plm_decode`` kernel the same way.
-``probe_host`` keeps the numpy path as an independent check.
 """
 from __future__ import annotations
 
@@ -172,7 +171,7 @@ def flatten_windows(
     -> (seg, r_lo, lens, probe_of, col, flat_ranks): probe_of[i] is the
     candidate index owning flat rank i, col[i] its position inside that
     candidate's window (flat_ranks = r_lo[probe_of] + col).  The single
-    source of truth for the host probe, the Pallas bridge, and tests.
+    source of truth for the kernel bridge, host checks, and tests.
     """
     seg, r_lo, r_hi = rank_windows(tm, cands)
     lens = np.maximum(r_hi - r_lo + 1, 0)
@@ -208,6 +207,8 @@ class ProbeStats:
     metadata_bytes: int = 0  # header/segment-table bytes (once per term)
     fallback_bytes: int = 0  # full stream bytes of classical-codec decodes
     full_equiv_bytes: int = 0  # what full decode would have touched instead
+    wide_probes: int = 0  # guided probes whose window exceeded the main launch's MAX_W
+    wide_ranks: int = 0  # ranks those windows decoded (in launches of their own)
 
     def guided_bytes(self) -> int:
         return self.window_bytes + self.metadata_bytes + self.fallback_bytes
@@ -216,6 +217,7 @@ class ProbeStats:
         d = {k: int(getattr(self, k)) for k in (
             "probes", "guided_terms", "fallback_terms", "routed_terms",
             "window_bytes", "metadata_bytes", "fallback_bytes", "full_equiv_bytes",
+            "wide_probes", "wide_ranks",
         )}
         d["guided_bytes"] = int(self.guided_bytes())
         d["bytes_ratio"] = (
@@ -322,8 +324,10 @@ class GuidedPostings:
     def _probe_guided(self, tm: TermModel, cands: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         from repro_torch.kernels.guided_search.ops import probe_windows
 
-        found, rank, touched = probe_windows(tm, cands, device=self.device)
+        found, rank, touched, wide = probe_windows(tm, cands, device=self.device)
         self.stats.window_bytes += touched
+        self.stats.wide_probes += len(wide)
+        self.stats.wide_ranks += int(wide.sum())
         return found, rank
 
     def probe(
@@ -344,23 +348,6 @@ class GuidedPostings:
             found = (sel < len(p)) & (p[np.minimum(sel, len(p) - 1)] == cands)
             return found, sel.astype(np.int64)
         return self._probe_guided(tm, cands)
-
-    def probe_host(self, t: int, cands: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """The ε-window probe of a learned-codec term in host numpy, outside
-        the byte accounting: an independent check of ``probe``."""
-        tm = self.term_model(t)
-        if tm is None:
-            raise ValueError(f"term {t} has no learned-codec model")
-        d = np.asarray(cands, np.int64)
-        seg, r_lo, _, probe_of, _, ranks = flatten_windows(tm, d)
-        if len(ranks) == 0:
-            return np.zeros(len(d), bool), r_lo
-        ids = decode_window(tm, seg[probe_of], ranks)
-        found = np.zeros(len(d), bool)
-        np.logical_or.at(found, probe_of, ids == d[probe_of])
-        lt = ids < d[probe_of]
-        rank = r_lo + np.bincount(probe_of, weights=lt, minlength=len(d)).astype(np.int64)
-        return found, rank
 
     def contains(
         self, t: int, cands: np.ndarray, *, route: str | None = None

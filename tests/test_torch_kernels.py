@@ -8,8 +8,8 @@ bits must be equal too, except a bit whose logit lies within
 NUMERIC_MARGIN * (1 + |tau|) of tau: the two float32 products sum in
 different orders, and that margin is what the thresholds reserve for it.
 
-The ``cuda``-marked tests hold each CUDA kernel against its plain version
-on a card; they decide inside the test whether one exists.
+tests/test_torch_cuda.py holds each CUDA kernel against its plain version on
+a card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +21,7 @@ from repro.kernels.guided_search.kernel import probe_batch as ref_probe
 from repro.kernels.membership.kernel import D_BLK, Q_BLK, membership_bitmask as ref_membership
 from repro.kernels.membership.ops import score_terms_bitmask as ref_score_terms
 from repro.kernels.plm_decode.kernel import decode_batch as ref_decode
+from repro.kernels.plm_decode.ref import SENTINEL
 from repro.postings.plm import parse_stream as ref_parse_stream, plm_encode as ref_plm_encode
 from repro.postings.rmi import rmi_encode as ref_rmi_encode
 from repro_torch.core.learned_bloom import NUMERIC_MARGIN
@@ -31,7 +32,7 @@ from repro_torch.kernels.guided_search.ref import probe_ref
 from repro_torch.kernels.membership.kernel import membership_bitmask
 from repro_torch.kernels.membership.ref import membership_bitmask_ref, pack_bool_words
 from repro_torch.kernels.plm_decode.kernel import decode_batch
-from repro_torch.kernels.plm_decode.ref import SENTINEL, decode_ref
+from repro_torch.kernels.plm_decode.ref import decode_ref
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -149,10 +150,12 @@ def test_guided_search_plain_matches_pallas(p, w):
 
 # ----------------------------------------------------------- plm_decode
 def _decode_tables(lists, encode):
+    """The reference's padded (B, S) / (B, R) batch, one all-padding row
+    last, and the port's ragged batch of the same lists."""
     parsed = [ref_parse_stream(encode(ids), len(ids)) for ids in lists]
     S = max(len(p[0]) for p in parsed)
     R = -(-max(len(x) for x in lists) // 128) * 128
-    B = len(parsed) + 1  # one all-padding row
+    B = len(parsed) + 1
     starts = np.full((B, S), SENTINEL, np.int32)
     bases = np.zeros((B, S), np.int32)
     slopes = np.zeros((B, S), np.float32)
@@ -162,36 +165,32 @@ def _decode_tables(lists, encode):
         bases[row, : len(st)] = ba
         slopes[row, : len(st)] = sl
         corr[row, : len(co)] = co
-    return starts, bases, slopes, corr
-
-
-def _defined(tabs) -> np.ndarray:
-    """(B, R) mask of the ranks whose decode is defined: every rank of a
-    list, and padding ranks except where the segment line leaves int32 (a
-    short list's steep line far past its end).  That float-to-int32
-    conversion is undefined in both frameworks, and the bridge trims those
-    ranks."""
-    starts, _, slopes, corr = (np.asarray(a) for a in tabs)
-    ranks = np.arange(corr.shape[1])
-    seg = np.maximum(np.array([np.searchsorted(s, ranks, side="right") - 1 for s in starts]), 0)
-    line = np.take_along_axis(slopes, seg, 1) * (ranks - np.take_along_axis(starts, seg, 1))
-    return np.abs(line) < 2**30
+    offsets = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
+    ragged = (
+        np.concatenate([p[0] + off for p, off in zip(parsed, offsets)]).astype(np.int32),
+        np.concatenate([p[1] for p in parsed]).astype(np.int32),
+        np.concatenate([p[2] for p in parsed]).astype(np.float32),
+        np.concatenate([p[3] for p in parsed]).astype(np.int32),
+    )
+    return (starts, bases, slopes, corr), ragged, offsets
 
 
 @pytest.mark.parametrize("encode", [ref_plm_encode, ref_rmi_encode], ids=["plm", "rmi"])
 def test_plm_decode_plain_matches_pallas(encode):
+    """Every rank of every list decodes as the Pallas kernel decodes it; the
+    port's batch is ragged, so the reference's padding ranks have no
+    counterpart."""
     rng = np.random.default_rng(400)
     lists = [np.sort(rng.choice(1 << 24, n, replace=False)).astype(np.int32)
              for n in (1, 5, 127, 129, 700, 2000)]
     lists.append((np.arange(3000) * 37 + rng.integers(0, 9, 3000)).astype(np.int32))
-    tabs = _decode_tables(lists, encode)
-    want = np.asarray(ref_decode(*(jnp.asarray(a) for a in tabs), interpret=True))
-    got = decode_batch(*(_t(a) for a in tabs)).numpy()
-    defined = _defined(tabs)
-    assert defined.mean() > 0.8
-    assert np.array_equal(got[defined], want[defined])
+    padded, ragged, offsets = _decode_tables(lists, encode)
+    want = np.asarray(ref_decode(*(jnp.asarray(a) for a in padded), interpret=True))
+    got = decode_batch(*(_t(a) for a in ragged)).numpy()
+    assert got.shape == (offsets[-1],)
     for row, ids in enumerate(lists):
-        assert np.array_equal(got[row, : len(ids)], ids)
+        assert np.array_equal(got[offsets[row] : offsets[row + 1]], want[row, : len(ids)])
+        assert np.array_equal(got[offsets[row] : offsets[row + 1]], ids)
 
 
 # ----------------------------------------------------------- host bridges
@@ -210,50 +209,3 @@ def test_decode_lists_matches_reference_bridge():
         want = ref_decode_lists(streams, lens)
         for ids, g, w in zip(lists, got, want):
             assert np.array_equal(g, w) and np.array_equal(g, ids)
-
-
-# ----------------------------------------------------------- on the card
-def _card() -> torch.device:
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_membership_kernel_matches_plain_on_card():
-    dev = _card()
-    qe, de, tau, bias = _membership_inputs(np.random.default_rng(1), 300, 5000, 128)
-    args = (_t(qe).to(dev), _t(de).to(dev), _t(tau).to(dev), float(bias))
-    got = membership_bitmask(*args).cpu().numpy().view(np.uint32)
-    want = membership_bitmask_ref(*args).cpu().numpy().view(np.uint32)
-    _assert_bits_within_margin(got, want, qe, de, tau, bias, 5000)
-
-
-@pytest.mark.cuda
-def test_bitset_kernel_matches_plain_on_card():
-    dev = _card()
-    rng = np.random.default_rng(2)
-    maps = _t(rng.integers(-2**31, 2**31, (64, 8, 3000)).astype(np.int32)).to(dev)
-    valid = _t(rng.integers(0, 2, (64, 8)).astype(np.int32)).to(dev)
-    (ga, gc), (wa, wc) = bitset_and_popcount(maps, valid), bitset_and_popcount_ref(maps, valid)
-    assert torch.equal(ga, wa) and torch.equal(gc, wc)
-
-
-@pytest.mark.cuda
-def test_guided_search_kernel_matches_plain_on_card():
-    dev = _card()
-    cols = [_t(c).to(dev) for c in _probe_inputs(np.random.default_rng(3), 5000, 512)]
-    (gf, gl), (wf, wl) = probe_batch(*cols), probe_ref(*cols)
-    assert torch.equal(gf, wf) and torch.equal(gl, wl)
-
-
-@pytest.mark.cuda
-def test_plm_decode_kernel_matches_plain_on_card():
-    dev = _card()
-    rng = np.random.default_rng(4)
-    lists = [np.sort(rng.choice(1 << 24, n, replace=False)).astype(np.int32)
-             for n in (1, 300, 5000, 20000)]
-    host = _decode_tables(lists, ref_plm_encode)
-    tabs = [_t(a).to(dev) for a in host]
-    defined = _t(_defined(host)).to(dev)
-    assert torch.equal(decode_batch(*tabs)[defined], decode_ref(*tabs)[defined])

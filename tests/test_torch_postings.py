@@ -14,7 +14,9 @@ from repro.postings import hybrid as ref_hybrid
 from repro.postings.search import GuidedPostings as RefGuided, load_term_model as ref_load_model
 from repro_torch.index import compress
 from repro_torch.postings import hybrid
-from repro_torch.postings.search import GuidedPostings, full_decode, load_term_model
+from repro_torch.postings.search import (
+    GuidedPostings, decode_window, flatten_windows, full_decode, load_term_model,
+)
 
 UNIVERSE = 1 << 20
 
@@ -130,6 +132,19 @@ def test_term_models_match_reference(stores):
             b.width, b.corr_min, b.corr_max, b.meta_bytes, b.avg_window)
 
 
+def _host_probe(tm, cands):
+    """The epsilon-window probe in host numpy: decode each window, compare."""
+    d = np.asarray(cands, np.int64)
+    seg, r_lo, _, probe_of, _, ranks = flatten_windows(tm, d)
+    if len(ranks) == 0:
+        return np.zeros(len(d), bool), r_lo
+    ids = decode_window(tm, seg[probe_of], ranks)
+    found = np.zeros(len(d), bool)
+    np.logical_or.at(found, probe_of, ids == d[probe_of])
+    lt = ids < d[probe_of]
+    return found, r_lo + np.bincount(probe_of, weights=lt, minlength=len(d)).astype(np.int64)
+
+
 @pytest.mark.parametrize("route", [None, "guided", "decode"])
 def test_guided_probes_match_reference(stores, route):
     port, ref = stores
@@ -143,7 +158,47 @@ def test_guided_probes_match_reference(stores, route):
         assert np.array_equal(gp.contains(t, cands, route=route),
                               gr.contains(t, cands, route=route))
         if gp.is_guided(t):
-            hf, hr = gp.probe_host(t, cands)
+            hf, hr = _host_probe(gp.term_model(t), cands)
             assert np.array_equal(hf, found) and np.array_equal(hr, rank)
-    assert gp.stats.as_dict() == gr.stats.as_dict()
+    got, want = gp.stats.as_dict(), gr.stats.as_dict()
+    assert {k: got[k] for k in want} == want
     assert gp.stats.guided_terms > 0 or route == "decode"
+
+
+def test_wide_windows_run_on_the_kernel_path(monkeypatch):
+    """Brackets wider than MAX_W (slope 0: every bracket is the whole list)
+    go to launches of their own, cut at WIDE_CELLS corrections, and give the
+    reference's verdicts; the prober counts them."""
+    from repro.postings.search import ProbeStats as RefStats
+    from repro_torch.kernels.guided_search import ops
+    from repro_torch.postings.plm import emit_stream
+    from repro_torch.postings.search import ProbeStats
+
+    rng = np.random.default_rng(19)
+    ids = np.sort(rng.choice(UNIVERSE, 1500, replace=False)).astype(np.int32)
+    words = emit_stream(ids, np.array([0], np.int64), np.array([int(ids[0])], np.int64),
+                        np.array([0.0], np.float32), eps=0)
+    tm = load_term_model(words, len(ids))
+    cands = _cands(rng, ids)
+    ref_gp = RefGuided.__new__(RefGuided)
+    ref_gp.stats = RefStats()
+    want_found, want_rank = ref_gp._probe_host(ref_load_model(words, len(ids)), cands)
+
+    rows_per_launch = []
+    launch = ops._launch
+
+    def counted(tm_, d, seg, r_lo, lens, rows, *rest):
+        rows_per_launch.append(len(rows))
+        return launch(tm_, d, seg, r_lo, lens, rows, *rest)
+
+    monkeypatch.setattr(ops, "_launch", counted)
+    monkeypatch.setattr(ops, "WIDE_CELLS", 2048 * 20)  # 20 wide rows per launch
+    gp = GuidedPostings.__new__(GuidedPostings)
+    gp.stats, gp.device = ProbeStats(), "cpu"
+    found, rank = gp._probe_guided(tm, cands)
+    assert np.array_equal(found, want_found) and np.array_equal(rank, want_rank)
+    lens = flatten_windows(tm, cands)[2]
+    wide = lens[lens > ops.MAX_W]
+    assert len(wide) > 20 and gp.stats.window_bytes > 0
+    assert (gp.stats.wide_probes, gp.stats.wide_ranks) == (len(wide), int(wide.sum()))
+    assert sum(rows_per_launch) == int((lens > 0).sum()) and max(rows_per_launch) <= 20
