@@ -8,23 +8,33 @@ It needs a CUDA card, ``nvcc`` and the repository checkout it lives in; it
 exits non-zero without a result when either is missing.  It prints the
 card's name and power limit first, then one JSON line per phase:
 
-  build  the four kernels compiled from ``src/repro_torch/kernels/csrc``
+  build  the seven kernels compiled from ``src/repro_torch/kernels/csrc``
   A      the main path at Robust scale: corpus, inverted index, 300 training
          steps of the membership model, zero-false-negative thresholds, then
          128 conjunctive queries through ``BooleanEngine.query_batch`` at one
          and four shards (Algorithm 3 candidates on the bitset and membership
-         kernels, exact verification against the compressed tier-2 store),
-         asserted equal to brute force; wall-clock seconds per phase
+         kernels, exact verification against the compressed tier-2 store,
+         optpfd lists decoded on the pfor kernel), asserted equal to brute
+         force; wall-clock seconds per phase
   B      the verify layer in the learned-codec regime: guided probes and
          full decodes of plm/rmi lists on the guided_search and plm_decode
          kernels, asserted equal to the host numpy probe and decode
+  R      ranked serving, the reference launcher's ranked batch (64 Zipf OR
+         queries, top-10) through ``BooleanEngine.query_topk``: on phase A's
+         K=1 engine with 8-bit payloads in configuration (a) (multi-phase
+         MaxScore, exhaustive queries on bm25_score) and (b) (fused_topk
+         launches), (b) again on the K=4 engine, then (a) and (c) (the dense
+         arena loop, with mixed-required queries on fused_topk) on the
+         launcher's default collection of 2,000 docs; every result list
+         asserted equal to ``brute_force_topk``
   C      each kernel against its plain PyTorch version on the card, on the
-         largest inputs phases A and B handed it: the difference, the
+         largest inputs phases A, B and R handed it: the difference, the
          device time (CUDA-graph replay) and the time of calls issued one
-         by one, and the bound from its bytes and operations;
-         and the time of Algorithm 3's whole candidate step on one batch
+         by one, and the bound from its bytes and operations; the time of
+         Algorithm 3's whole candidate step on one batch, and of one dense
+         arena pass
 
-then the ``kernels`` line (launch counts from phases A and B, times,
+then the ``kernels`` line (launch counts from phases A, B and R, times,
 bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero.
 """
@@ -42,6 +52,13 @@ ROOT = Path(__file__).resolve().parent
 # published H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+
+# phase R: the reference launcher's ranked batch (launch/serve.py), and its
+# default collection for the dense arena branch
+R_QUERIES = 64
+R_TOPK = 10
+R_SEED = 7
+R_SMALL = dict(n_docs=2000, n_terms=8000, avg_doc_len=80)
 
 # phase B: the learned-regime collection of benchmarks/guided_intersect.py
 B_UNIVERSE = 8_000_000
@@ -137,6 +154,7 @@ class Recorder:
 
     def __init__(self):
         self.inputs: dict[str, tuple] = {}
+        self.kwargs: dict[str, dict] = {}
         self._size: dict[str, int] = {}
 
     def wrap(self, module, attr: str, kernel: str) -> None:
@@ -144,11 +162,12 @@ class Recorder:
 
         fn = getattr(module, attr)
 
-        def recorded(*args):
+        def recorded(*args, **kwargs):
             size = sum(a.numel() for a in args if isinstance(a, torch.Tensor))
             if size > self._size.get(kernel, -1):
                 self._size[kernel], self.inputs[kernel] = size, args
-            return fn(*args)
+                self.kwargs[kernel] = kwargs
+            return fn(*args, **kwargs)
 
         setattr(module, attr, recorded)
 
@@ -257,6 +276,7 @@ def phase_a(args, dev, launches, keep: dict) -> dict:
         timed(f"serve_warm_k{k}", lambda: eng.query_batch(q))
         if k == 1:  # for phase C's time of the whole candidate step
             keep["state"], keep["queries"] = eng.shards[0].state, q
+        keep.setdefault("engines", {})[k] = eng  # phase R serves ranked on them
         stats = eng.serving_stats()
         shards[f"k{k}"] = {
             "launches_per_batch": per_batch,
@@ -265,6 +285,7 @@ def phase_a(args, dev, launches, keep: dict) -> dict:
             "guided": stats["guided"],
             "results": int(sum(len(r) for r in res)),
         }
+    keep["inv"] = inv
     return {
         "phase": "A",
         "docs": corpus.n_docs,
@@ -357,6 +378,120 @@ def phase_b(dev) -> dict:
         "seconds": {"store_build": build_s, "decode_learned": decode_s, "verify": verify_s},
     }
 
+def _check_topk(got, want, what: str) -> None:
+    import numpy as np
+
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not (np.array_equal(g.ids, w.ids) and np.array_equal(g.scores, w.scores))]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{what}: {len(bad)} ranked results differ from brute force, "
+                             f"first {bad[:5]}")
+
+
+def phase_r(dev, launches, keep: dict) -> dict:
+    """The reference launcher's ranked batch on phase A's engines and on its
+    default collection, each configuration asserted equal to brute force."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.config import CorpusConfig, LearnedIndexConfig
+    from repro_torch.core.learned_bloom import fit_thresholds
+    from repro_torch.core.membership import MembershipModel
+    from repro_torch.data.corpus import synthesize_corpus
+    from repro_torch.data.queries import zipf_disjunctions
+    from repro_torch.index.build import build_inverted_index
+    from repro_torch.kernels.fused_query import dense
+    from repro_torch.rank.score import brute_force_topk
+    from repro_torch.serve import BooleanEngine, ServeConfig
+
+    secs: dict[str, float] = {}
+    runs: dict[str, dict] = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"[R] {name}: {secs[name]:.2f}s")
+        return out
+
+    def serve(name, eng, queries, oracle, **kw):
+        eng.reset_stats()
+        before, dense_before = launches(), dense.launches
+        got = timed(name, lambda: eng.query_topk(queries, R_TOPK, **kw))
+        _check_topk(got, oracle, name)
+        runs[name] = {
+            "launches": {n: c - before[n] for n, c in launches().items()},
+            "dense_passes": dense.launches - dense_before,
+            "ranked_stats": eng.serving_stats()["ranked"],
+            "results": int(sum(len(r.ids) for r in got)),
+        }
+        log(f"[R] {name}: {runs[name]}")
+        return runs[name]
+
+    # phase A's collection: 528k docs, 60k terms, 8-bit impacts
+    inv = keep["inv"]
+    eng1, eng4 = keep["engines"][1], keep["engines"][4]
+    q, _ = zipf_disjunctions(inv.dfs, R_QUERIES, seed=R_SEED)
+    timed("payloads_k1", lambda: [sh.ensure_payloads() for sh in eng1.shards])
+    timed("payloads_k4", lambda: [sh.ensure_payloads() for sh in eng4.shards])
+    oracle = timed("oracle", lambda: brute_force_topk(inv, eng1.impact_model, q, R_TOPK))
+    eng1.cfg.ranked.score_kernel = True  # (a)
+    serve("a_k1", eng1, q, oracle)
+    eng1.cfg.ranked.score_kernel = False  # (b), as the launcher's --fused sets it
+    eng1.cfg.ranked.fused_kernel = True
+    eng1.cfg.ranked.topk_exhaustive_cutoff = 0
+    b1 = serve("b_k1", eng1, q, oracle)
+    eng4.cfg.ranked.fused_kernel = True
+    eng4.cfg.ranked.topk_exhaustive_cutoff = 0
+    b4 = serve("b_k4", eng4, q, oracle)
+    for name, run, eng in (("b_k1", b1, eng1), ("b_k4", b4, eng4)):
+        # at 528k docs no shard fits the arena (132k docs a shard > 2^17):
+        # every item goes to fused_topk; a smaller --docs may fit it
+        if any(sh.ranked.arena is not None for sh in eng.shards):
+            ok = run["dense_passes"] > 0
+        else:
+            ok = run["launches"]["fused_topk"] > 0 and run["dense_passes"] == 0
+        if not ok:
+            raise AssertionError(f"{name}: the fused path did not take its kernel: {run}")
+
+    # the launcher's default collection, where a shard fits the dense arena
+    ccfg = CorpusConfig(**R_SMALL)
+    corpus = timed("small_corpus", lambda: synthesize_corpus(ccfg))
+    inv_s = build_inverted_index(corpus)
+    li = LearnedIndexConfig(embed_dim=64, truncation_k=64, block_size=128)
+    model = MembershipModel.init(li, corpus.n_terms, corpus.n_docs, seed=0, device=dev)
+    lb = fit_thresholds(model, inv_s)
+    eng_s = BooleanEngine(lb, inv_s, li, ServeConfig(device=str(dev), ranked=dict(
+        score_kernel=True)))
+    timed("small_tier2", lambda: [(sh.tier2, sh.ensure_payloads()) for sh in eng_s.shards])
+    qs, req = zipf_disjunctions(inv_s.dfs, R_QUERIES, seed=R_SEED, n_required=1)
+    im = eng_s.impact_model
+    serve("a_small", eng_s, qs, brute_force_topk(inv_s, im, qs, R_TOPK))
+    eng_s.cfg.ranked.score_kernel = False  # (c): fused with the arena
+    eng_s.cfg.ranked.fused_kernel = True
+    eng_s.cfg.ranked.topk_exhaustive_cutoff = 0
+    timed("small_arena", lambda: eng_s.shards[0].ranked.arena)
+    c_or = serve("c_small", eng_s, qs, brute_force_topk(inv_s, im, qs, R_TOPK))
+    serve("c_small_mixed", eng_s, qs, brute_force_topk(inv_s, im, qs, R_TOPK, required=req),
+          required=req)
+    if eng_s.shards[0].ranked.arena is None or c_or["dense_passes"] == 0:
+        raise AssertionError("the dense arena path did not run on the small collection")
+    keep["dense_arena"] = eng_s.shards[0].ranked.arena
+    return {
+        "phase": "R",
+        "docs": inv.n_docs,
+        "terms": inv.n_terms,
+        "payload_bits": eng1.shards[0].tier2.payload_bits,
+        "queries": R_QUERIES,
+        "topk": R_TOPK,
+        "small_collection": R_SMALL,
+        "exact": True,
+        "seconds": secs,
+        "runs": runs,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+
 
 def phase_c(rec: Recorder, launch_counts: dict) -> list[dict]:
     import torch
@@ -373,17 +508,23 @@ def phase_c(rec: Recorder, launch_counts: dict) -> list[dict]:
 
     rows = []
 
-    def row(name, replaces, fn, ref, err, bytes_, flops, library=None, extra=None):
+    def row(name, replaces, fn, ref, err, bytes_, flops, library=None, extra=None,
+            plain_in_graph=True):
         # ms, plain_ms, library_ms: device time (graph replay); the eager_*
-        # keys time the same calls issued one by one from Python
+        # keys time the same calls issued one by one from Python.  A plain
+        # version whose shapes depend on the data (it reads a count back to
+        # the host) cannot be captured: its plain_ms is then the eager time.
         b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        plain_eager = cuda_ms(ref)
         rows.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launch_counts[name], "max_abs_err": err,
-            "ms": graph_ms(fn), "plain_ms": graph_ms(ref), "bound_ms": max(b_bytes, b_ops),
+            "ms": graph_ms(fn), "plain_ms": graph_ms(ref) if plain_in_graph else plain_eager,
+            "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
             "library_ms": graph_ms(library) if library is not None else None,
-            "eager_ms": cuda_ms(fn), "plain_eager_ms": cuda_ms(ref),
+            "eager_ms": cuda_ms(fn), "plain_eager_ms": plain_eager,
+            "plain_timing": "graph" if plain_in_graph else "eager",
             **(extra or {}),
         })
         log(f"[C] {rows[-1]}")
@@ -445,7 +586,94 @@ def phase_c(rec: Recorder, launch_counts: dict) -> list[dict]:
         lambda: decode_batch(*tabs), lambda: decode_ref(*tabs),
         float(err), 4 * (3 * S + 2 * N), 0,
         extra={"shape": {"S": S, "N": N}})
+
+    phase_c_ranked(rec, row)
     return rows
+
+
+def phase_c_ranked(rec: Recorder, row) -> None:
+    """Phase C rows of the three kernels of the ranked slice; the bounds
+    count what this run's inputs need: true blocks, true T, true lanes."""
+    import torch
+
+    from repro_torch.kernels.bm25_score.kernel import score_batch
+    from repro_torch.kernels.bm25_score.ref import score_ref
+    from repro_torch.kernels.fused_query.kernel import fused_topk
+    from repro_torch.kernels.fused_query.ref import NEVER, fused_topk_ref
+    from repro_torch.kernels.pfor.kernel import pfor_unpack
+    from repro_torch.kernels.pfor.ref import pfor_unpack_ref
+
+    words, meta, n_out = rec.inputs["pfor"]
+    got, want = pfor_unpack(words, meta, n_out), pfor_unpack_ref(words, meta, n_out)
+    if not torch.equal(got, want):
+        raise AssertionError("pfor differs from its plain version")
+    m = meta.long()
+    packed = int(((m[:, 2] * m[:, 0] + 31) // 32).sum())
+    n_exc = int(m[:, 5].sum())
+    row("pfor", "src/repro/kernels/pfor/kernel.py:47",
+        lambda: pfor_unpack(words, meta, n_out), lambda: pfor_unpack_ref(words, meta, n_out),
+        0.0, 4 * (packed + 2 * n_exc) + 4 * meta.numel() + 4 * n_out, 0,
+        extra={"shape": {"blocks": int(meta.shape[0]), "values": n_out,
+                         "packed_words": packed, "exceptions": n_exc}},
+        plain_in_graph=False)
+
+    imp, scale = rec.inputs["bm25_score"]
+    (gi, gf), (wi, wf) = score_batch(imp, scale), score_ref(imp, scale)
+    if not (torch.equal(gi, wi) and torch.equal(gf, wf)):
+        raise AssertionError("bm25_score differs from its plain version")
+    P, T = imp.shape
+    row("bm25_score", "src/repro/kernels/bm25_score/kernel.py:37",
+        lambda: score_batch(imp, scale), lambda: score_ref(imp, scale),
+        0.0, 4 * P * T + 8 * P, 0, library=lambda: imp.sum(1),
+        extra={"shape": {"P": P, "T": T}})
+
+    tiles, kw = rec.inputs["fused_topk"], rec.kwargs["fused_topk"]
+    (gi, gs), (wi, ws) = fused_topk(*tiles, **kw), fused_topk_ref(*tiles, **kw)
+    if not (torch.equal(gi, wi) and torch.equal(gs, ws)):
+        raise AssertionError("fused_topk differs from its plain version")
+    wlen, cand = tiles[3], tiles[11]
+    Q, T, C = wlen.shape
+    W = tiles[7].shape[3]
+    lanes = wlen.clamp(0, W).long()
+    real = cand != NEVER  # (Q, C) true candidates
+    live_slot = (lanes > 0).any(dim=2)  # (Q, T)
+    slot_no = torch.arange(1, T + 1, device=wlen.device)
+    t_true = (live_slot.long() * slot_no).max(dim=1).values  # true T per row
+    rows_true = int(real.any(dim=1).sum())
+    cells = int((t_true * real.sum(dim=1)).sum())  # (q, t, c) wlen reads
+    n_lanes = int(lanes.sum())
+    need = (4 * cells + 16 * int((lanes > 0).sum()) + 16 * n_lanes + 8 * int(t_true.sum())
+            + 8 * int(real.sum()) + rows_true * (4 + 8 * kw["k"]))
+    row("fused_topk", "src/repro/kernels/fused_query/kernel.py:96",
+        lambda: fused_topk(*tiles, **kw), lambda: fused_topk_ref(*tiles, **kw),
+        0.0, need, 0,
+        extra={"shape": {"Q": Q, "T": T, "C": C, "W": W, "k": kw["k"],
+                         "true_rows": rows_true, "true_cells": cells, "lanes": n_lanes}})
+
+
+def dense_line(rec: Recorder) -> dict:
+    """The dense arena pass (the reference's XLA loop, PyTorch operations
+    here) on the largest batch phase R gave it: device time (graph replay)
+    and eager time against its byte bound, the table rows its true term
+    slots gather, read once, and the outputs."""
+    from repro_torch.kernels.fused_query.dense import dense_impl
+
+    table, qt, floors = rec.inputs["dense"]
+    kw = rec.kwargs["dense"]
+    slots = int((qt >= 0).sum())
+    need = slots * table.shape[1] * table.element_size() + 8 * qt.shape[0] * kw["k"]
+    out = {
+        "phase": "C_dense", "name": "dense_topk",
+        "replaces": "src/repro/kernels/fused_query/dense.py:67 (XLA, not Pallas)",
+        "route": "pytorch ops", "source": "src/repro_torch/kernels/fused_query/dense.py",
+        "shape": {"Q": int(qt.shape[0]), "T": int(qt.shape[1]), "docs": int(table.shape[1]),
+                  "true_slots": slots, "k": kw["k"]},
+        "ms": graph_ms(lambda: dense_impl(table, qt, floors, **kw)),
+        "eager_ms": cuda_ms(lambda: dense_impl(table, qt, floors, **kw)),
+        "bound_ms": need / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    log(f"[C] {out}")
+    return out
 
 
 def main() -> int:
@@ -482,9 +710,16 @@ def main() -> int:
     from repro_torch.kernels.membership.kernel import KERNEL as MEMBERSHIP
     from repro_torch.kernels.plm_decode import ops as decode_ops
     from repro_torch.kernels.plm_decode.kernel import KERNEL as DECODE
+    from repro_torch.kernels.pfor import ops as pfor_ops
+    from repro_torch.kernels.pfor.kernel import KERNEL as PFOR
+    from repro_torch.kernels.bm25_score import ops as bm25_ops
+    from repro_torch.kernels.bm25_score.kernel import KERNEL as BM25
+    from repro_torch.kernels.fused_query import dense
+    from repro_torch.kernels.fused_query import ops as fused_ops
+    from repro_torch.kernels.fused_query.kernel import KERNEL as FUSED
 
     kernels = {"membership": MEMBERSHIP, "bitset": BITSET, "guided_search": GUIDED,
-               "plm_decode": DECODE}
+               "plm_decode": DECODE, "pfor": PFOR, "bm25_score": BM25, "fused_topk": FUSED}
 
     t0 = time.perf_counter()
     reports = cuda.build_all()
@@ -497,26 +732,36 @@ def main() -> int:
     rec.wrap(algorithms, "bitset_and_popcount", "bitset")
     rec.wrap(guided_ops, "probe_batch", "guided_search")
     rec.wrap(decode_ops, "decode_batch", "plm_decode")
+    rec.wrap(pfor_ops, "pfor_unpack", "pfor")
+    rec.wrap(bm25_ops, "score_batch", "bm25_score")
+    rec.wrap(fused_ops, "fused_topk", "fused_topk")
+    rec.wrap(dense, "dense_impl", "dense")
 
     def launches() -> dict[str, int]:
         return {n: k.launches for n, k in kernels.items()}
 
     counts, keep = {}, {}
     for name, run in (("A", lambda: phase_a(args, dev, launches, keep)),
-                      ("B", lambda: phase_b(dev))):
+                      ("B", lambda: phase_b(dev)),
+                      ("R", lambda: phase_r(dev, launches, keep))):
         for k in kernels.values():
             k.launches = 0
+        dense.launches = 0
         result = run()
         counts[name] = launches()
         result["launches"] = counts[name]
+        result["dense_passes"] = dense.launches
         emit(result)
-    total = {n: counts["A"][n] + counts["B"][n] for n in kernels}
+    total = {n: sum(c[n] for c in counts.values()) for n in kernels}
     missing = [n for n, c in total.items() if c == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on phases A and B: {missing}")
-    for n in ("membership", "bitset"):
-        if counts["A"][n] == 0:
-            raise AssertionError(f"{n} did not launch on the main path (phase A)")
+        raise AssertionError(f"kernels never launched on phases A, B and R: {missing}")
+    for phase, names in (("A", ("membership", "bitset", "pfor")),
+                         ("R", ("pfor", "bm25_score", "fused_topk"))):
+        for n in names:
+            if counts[phase][n] == 0:
+                raise AssertionError(f"{n} did not launch on its path (phase {phase})")
+    log(f"[R] bm25_score launched {counts['R']['bm25_score']} times over phase R")
 
     rows = phase_c(rec, total)
     # Algorithm 3's whole candidate step on one K=1 batch (both kernels, the
@@ -524,6 +769,7 @@ def main() -> int:
     block_ms = cuda_ms(lambda: algorithms.run_queries(keep["state"], keep["queries"], "block"))
     emit({"phase": "C", "kernels": [r["name"] for r in rows], "launches": total,
           "block_query_ms": block_ms})
+    emit(dense_line(rec))
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

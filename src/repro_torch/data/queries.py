@@ -87,6 +87,35 @@ def zipf_conjunctions(
     return _zipf_term_queries(dfs, n_queries, min_terms, max_terms, zipf_a, seed)
 
 
+def zipf_disjunctions(
+    dfs: np.ndarray,
+    n_queries: int,
+    *,
+    min_terms: int = 2,
+    max_terms: int = 6,
+    zipf_a: float = 1.0,
+    n_required: int = 0,
+    seed: int = 41,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Graded (ranked) query workload: Zipf term draws, 2-6 term OR queries.
+
+    The ranked-serving stress case: frequent low-idf terms contribute long
+    posting lists with small score upper bounds — exactly what MaxScore
+    prunes — while the flatter zipf_a mixes in mid-frequency terms whose
+    bounds keep them essential.  ``n_required`` marks the first
+    min(n_required, length) drawn terms of each query as required (mixed
+    AND/OR grading); 0 is the pure disjunctive workload.
+
+    Returns (queries, required): (n_queries, max_terms) int32 -1-padded term
+    ids and a same-shape bool mask of the required positions.
+    """
+    q = _zipf_term_queries(dfs, n_queries, min_terms, max_terms, zipf_a, seed)
+    required = np.zeros(q.shape, dtype=bool)
+    if n_required > 0:
+        required[:, :n_required] = q[:, :n_required] >= 0
+    return q, required
+
+
 def brute_force_answers(corpus: Corpus, queries: np.ndarray) -> list[np.ndarray]:
     """Exact conjunctive Boolean answers (oracle for tests/benchmarks)."""
     from repro_torch.index.build import build_inverted_index

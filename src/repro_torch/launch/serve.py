@@ -1,13 +1,17 @@
-"""Serving launcher for the port's Boolean-query engine.
+"""Serving launcher for the port's Boolean and ranked query engine.
 
 Builds a synthetic collection, trains the membership model briefly, fits
 zero-FN thresholds, and serves batched conjunctive queries through
 ``BooleanEngine.query_batch`` — Algorithm 3 candidates on the device, exact
 verification against the compressed tier-2 store — asserting exactness
-against brute force.
+against brute force.  Then, unless ``--topk 0``, it serves a batch of Zipf
+OR queries through ``BooleanEngine.query_topk`` (multi-phase MaxScore, or
+``--fused`` for the fused_topk kernel and the dense arena loop) and asserts
+the ranked results equal brute-force quantized BM25.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 64
   PYTHONPATH=src python -m repro_torch.launch.serve --shards 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --topk 10 --fused
 """
 from __future__ import annotations
 
@@ -23,9 +27,10 @@ from repro_torch.core import MembershipModel, fit_thresholds, membership_loss
 from repro_torch.core.learned_bloom import false_negative_rate
 from repro_torch.data.corpus import Corpus, synthesize_corpus
 from repro_torch.data.loader import membership_batches
-from repro_torch.data.queries import brute_force_answers, sample_queries
+from repro_torch.data.queries import brute_force_answers, sample_queries, zipf_disjunctions
 from repro_torch.index.build import InvertedIndex, build_inverted_index
-from repro_torch.serve import BooleanEngine, ServeConfig
+from repro_torch.rank.score import brute_force_topk
+from repro_torch.serve import BooleanEngine, RankedConfig, ServeConfig
 from repro_torch.train import init_train_state, make_train_step
 
 
@@ -79,6 +84,15 @@ def main(argv: list[str] | None = None) -> None:
                     help="document partitions served by the planner/executor")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain PyTorch versions)")
+    ap.add_argument("--topk", type=int, default=10,
+                    help="also serve a ranked top-K disjunctive batch "
+                         "(0 disables the ranked path)")
+    ap.add_argument("--fused", action="store_true",
+                    help="answer each shard's ranked batch with fused_topk "
+                         "launches (and the dense arena loop where a shard "
+                         "fits one) instead of the multi-phase pipeline; "
+                         "disables the small-query exhaustive shortcut so "
+                         "the kernel runs on demo-sized collections")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
@@ -89,7 +103,12 @@ def main(argv: list[str] | None = None) -> None:
     lb = fit_thresholds(model, inv)
     print(f"[serve] false-negative rate {false_negative_rate(lb, inv)}")
     cfg = ServeConfig(algorithm=args.algorithm, verified=not args.no_verify,
-                      n_shards=args.shards, device=str(dev))
+                      n_shards=args.shards, device=str(dev),
+                      ranked=dict(fused_kernel=args.fused,
+                                  # the exhaustive shortcut would swallow every
+                                  # demo-sized query before the fused launch
+                                  topk_exhaustive_cutoff=0 if args.fused
+                                  else RankedConfig.topk_exhaustive_cutoff))
     eng = BooleanEngine(lb, inv, li_cfg, cfg)
     print(f"[serve] {len(eng.shards)} active shard(s), ranges {eng._ranges}, device {dev}")
 
@@ -111,6 +130,25 @@ def main(argv: list[str] | None = None) -> None:
     c, g = s["decode_cache"], s["guided"] or {}
     print(f"[serve] cache {c['hits']}h/{c['misses']}m/{c['evictions']}e, "
           f"probe bytes {g.get('guided_bytes', 0)} (ratio {g.get('bytes_ratio', 0.0):.3f})")
+
+    if args.topk > 0:
+        ranked_q, _ = zipf_disjunctions(inv.dfs, args.queries, seed=7)
+        t0 = time.time()
+        ranked = eng.query_topk(ranked_q, args.topk)
+        dt = (time.time() - t0) / args.queries * 1e3
+        oracle = brute_force_topk(inv, eng.impact_model, ranked_q, args.topk)
+        ok = all(
+            np.array_equal(r.ids, e.ids) and np.array_equal(r.scores, e.scores)
+            for r, e in zip(ranked, oracle)
+        )
+        rs = eng.serving_stats()["ranked"]
+        print(f"[serve] ranked top-{args.topk}: {args.queries} OR queries, "
+              f"{dt:.2f} ms/query (payload attach included), "
+              f"exact-vs-BM25-brute-force={ok}, scored {rs['touched_postings']}/"
+              f"{rs['exhaustive_postings']} postings (fraction {rs['scored_fraction']:.3f})")
+        print("[serve] ranked stats:", rs)
+        if not ok:
+            raise SystemExit("ranked serving must match brute-force BM25")
 
 
 if __name__ == "__main__":

@@ -10,8 +10,14 @@ so a hybrid stream is self-describing and `decode` needs no side channel.
 verification: it keeps every term compressed and decodes on access, replacing
 raw int32 arrays with the min-bits representation.
 
-This is the Boolean half: the ranked tier's payload streams and segment
-bounds belong to the ranked slice of the port.
+The ranked tier adds an optional *payload stream* per term: quantized BM25
+impact values (repro_torch.rank.score), bit-packed rank-aligned with the
+docid stream — a guided ε-window rank probe lands directly on its payload via
+``payload_at`` without decoding the list.  Alongside it, per-term score
+upper bounds at *segment* granularity: for learned-codec terms the PLA/RMI
+segment table partitions the rank space, so the max impact per segment is a
+block-max table the store gets for free; classical-codec terms carry one
+whole-list bound.
 """
 from __future__ import annotations
 
@@ -24,8 +30,11 @@ from repro_torch.index.compress import (
     compressed_size_bits,
     decode_postings,
     encode_postings,
+    pack_bits,
+    unpack_bits,
+    unpack_bits_at,
 )
-from repro_torch.postings.plm import DEFAULT_EPS, plm_encode, stream_size_bits
+from repro_torch.postings.plm import DEFAULT_EPS, parse_segments, plm_encode, stream_size_bits
 from repro_torch.postings.rmi import rmi_encode
 
 # the tag encoding is CODECS order — compress.py owns the list; append only
@@ -118,6 +127,17 @@ def hybrid_decode(words: np.ndarray, n: int) -> np.ndarray:
     return decode_postings(words[1:], n, CANDIDATES[tag])
 
 
+_LEARNED_TAG_IDS = frozenset(CANDIDATES.index(c) for c in ("plm", "rmi"))
+
+
+def _segment_starts(stream: np.ndarray, tag: int, n: int) -> np.ndarray:
+    """Rank-space partition of one term's stream for the block-max table:
+    the learned codecs' own segment table, one whole-list block otherwise."""
+    if tag in _LEARNED_TAG_IDS:
+        return parse_segments(stream[1:])[0]  # strip the hybrid tag word
+    return np.zeros(1, np.int64)
+
+
 # ----------------------------------------------------------------- the store
 @dataclass
 class HybridPostings:
@@ -128,6 +148,13 @@ class HybridPostings:
     tags: np.ndarray  # (n_terms,) uint8 index into CANDIDATES
     bits: np.ndarray  # (n_terms,) int64 measured size incl. TAG_BITS
     streams: list[np.ndarray]  # per-term uint32 word streams (tag-prefixed)
+    # ------- optional ranked-tier payloads (attach_payloads)
+    payload_bits: int = 0  # quantized-impact width; 0 = no payloads
+    payload_scale: float = 0.0  # dequant scale (ImpactModel.scale)
+    payload_streams: "list[np.ndarray] | None" = None  # per-term packed impacts
+    ub_offsets: np.ndarray | None = None  # (n_terms+1,) int64 into seg_ubs
+    seg_ubs: np.ndarray | None = None  # per-segment max quantized impact (u32)
+    term_ubs: np.ndarray | None = None  # (n_terms,) int64 derived whole-list max
 
     @classmethod
     def build(
@@ -177,3 +204,88 @@ class HybridPostings:
         """How many terms each codec won — the learned-vs-classical split."""
         counts = np.bincount(self.tags[self.lens > 0], minlength=len(CANDIDATES))
         return {c: int(counts[i]) for i, c in enumerate(CANDIDATES) if counts[i]}
+
+    # ------------------------------------------------------------- payloads
+    @property
+    def has_payloads(self) -> bool:
+        return self.payload_bits > 0 and self.payload_streams is not None
+
+    def attach_payloads(self, quants: np.ndarray, *, bits: int, scale: float) -> None:
+        """Pack per-posting quantized impacts + build the segment-ub table.
+
+        ``quants`` is flat, aligned with the concatenation of every term's
+        postings in term order (the same order the store was built from).
+        """
+        quants = np.asarray(quants, np.uint32)
+        if int(self.lens.sum()) != len(quants):
+            raise ValueError(
+                f"{len(quants)} payload values for {int(self.lens.sum())} postings"
+            )
+        if bits <= 0 or (len(quants) and int(quants.max()) >> bits):
+            raise ValueError(f"payload values exceed {bits} bits")
+        offsets = np.zeros(len(self.lens) + 1, np.int64)
+        np.cumsum(self.lens, out=offsets[1:])
+        streams: list[np.ndarray] = []
+        ub_offsets = np.zeros(len(self.lens) + 1, np.int64)
+        seg_ubs: list[np.ndarray] = []
+        empty = np.zeros(0, np.uint32)
+        for t in range(len(self.lens)):
+            n = int(self.lens[t])
+            if n == 0:
+                streams.append(empty)
+                ub_offsets[t + 1] = ub_offsets[t]
+                continue
+            q = quants[offsets[t] : offsets[t + 1]]
+            streams.append(pack_bits(q, bits))
+            starts = _segment_starts(self.streams[t], int(self.tags[t]), n)
+            seg_ubs.append(np.maximum.reduceat(q, starts).astype(np.uint32))
+            ub_offsets[t + 1] = ub_offsets[t] + len(starts)
+        self.payload_bits = int(bits)
+        self.payload_scale = float(scale)
+        self.payload_streams = streams
+        self.ub_offsets = ub_offsets
+        self.seg_ubs = (
+            np.concatenate(seg_ubs) if seg_ubs else np.zeros(0, np.uint32)
+        )
+        self.term_ubs = None  # rebuild the derived cache lazily
+
+    def _require_payloads(self) -> None:
+        if not self.has_payloads:
+            raise ValueError("store carries no ranked payloads (attach_payloads)")
+
+    def payloads(self, t: int) -> np.ndarray:
+        """Full quantized-impact vector of term t, rank-aligned with postings."""
+        self._require_payloads()
+        return unpack_bits(self.payload_streams[t], self.payload_bits, int(self.lens[t]))
+
+    def payload_at(self, t: int, ranks: np.ndarray) -> np.ndarray:
+        """Quantized impacts at the given ranks only — the probe-path access:
+        a guided rank probe reads its payload without decoding the list."""
+        self._require_payloads()
+        return unpack_bits_at(self.payload_streams[t], self.payload_bits, ranks)
+
+    def term_ub(self, t: int) -> int:
+        """Whole-list score upper bound (max quantized impact) of term t."""
+        if self.term_ubs is None:
+            self._require_payloads()
+            ubs = np.zeros(len(self.lens), np.int64)
+            nz = np.nonzero(np.diff(self.ub_offsets) > 0)[0]
+            if len(nz):
+                ubs[nz] = np.maximum.reduceat(
+                    np.asarray(self.seg_ubs, np.int64), self.ub_offsets[nz]
+                )[: len(nz)]
+            self.term_ubs = ubs
+        return int(self.term_ubs[t])
+
+    def term_seg_ubs(self, t: int) -> np.ndarray:
+        """Per-segment bounds of term t, aligned with its segment table."""
+        self._require_payloads()
+        return self.seg_ubs[int(self.ub_offsets[t]) : int(self.ub_offsets[t + 1])]
+
+    def payload_size_bits(self) -> int:
+        """Exact payload-tier bits as stored: packed impact words (including
+        each term's trailing word padding) + 32b/segment bound."""
+        if not self.has_payloads:
+            return 0
+        words = sum(int(s.size) for s in self.payload_streams)
+        return 32 * words + 32 * len(self.seg_ubs)

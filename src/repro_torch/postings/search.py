@@ -34,8 +34,9 @@ accounting (``ProbeStats``) so benchmarks can compare the stream bytes a
 guided probe touches against what a full decode would have read.  Its
 ε-window probes run as one batched ``guided_search`` call per (term,
 candidate set) on the prober's ``device``: the CUDA kernel on a card, the
-plain PyTorch version on the CPU.  Full decodes of learned-codec terms
-(``full_decode``) run on the ``plm_decode`` kernel the same way.
+plain PyTorch version on the CPU.  Full decodes (``full_decode``) run on
+the ``plm_decode`` kernel for learned-codec terms and on the ``pfor``
+kernel for optpfd terms the same way.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ from repro_torch.postings.hybrid import HybridPostings
 from repro_torch.postings.plm import parse_segments
 
 _LEARNED_TAGS = frozenset(CODECS.index(c) for c in ("plm", "rmi"))
+_OPTPFD_TAG = CODECS.index("optpfd")
 
 # float32 slack for the rank bracket: |pred_f32 - slope*di| <= 0.5 (rint)
 # plus ~2^-23 relative product error; 2 + |d-base| * 2^-22 dominates both.
@@ -185,13 +187,19 @@ def flatten_windows(
 
 def full_decode(store: HybridPostings, t: int, device: torch.device) -> np.ndarray:
     """All postings of term t: learned-codec streams on the ``plm_decode``
-    kernel on ``device`` (its plain version on the CPU), classical codecs by
-    the host decoder."""
+    kernel and optpfd streams on the ``pfor`` kernel on ``device`` (their
+    plain versions on the CPU), the other classical codecs by the host
+    decoder."""
     n = int(store.lens[t])
-    if n and int(store.tags[t]) in _LEARNED_TAGS:
+    tag = int(store.tags[t])
+    if n and tag in _LEARNED_TAGS:
         from repro_torch.kernels.plm_decode.ops import decode_lists
 
         return decode_lists([store.streams[t][1:]], [n], device=device)[0]  # strip hybrid tag
+    if n and tag == _OPTPFD_TAG:
+        from repro_torch.kernels.pfor.ops import decode_lists
+
+        return decode_lists([store.streams[t][1:]], [n], device=device)[0]
     return store.postings(t)
 
 

@@ -1,0 +1,243 @@
+"""MaxScore-style dynamic pruning over a learned postings source.
+
+One query's top-k is computed against a ``RankedSource`` — the per-shard
+accessor that can fully decode a term (postings + quantized impacts), probe
+a sorted candidate set through the guided ε-window rank models, and report
+score upper bounds at term and *segment* granularity (the learned segment
+models double as block-max tables: each PLA segment's max quantized impact
+is a bound on any candidate whose rank bracket falls inside it).
+
+The algorithm is the batch form of MaxScore [Turtle & Flood '95], exact to
+the brute-force oracle by construction:
+
+  1. terms sort by descending upper bound; a running threshold θ is the kth
+     largest *partial* score (a lower bound on the kth best final score —
+     impacts are nonnegative, partial sums only grow);
+  2. while a new document could still reach θ (suffix-of-bounds > θ), terms
+     are fully decoded and merged into the candidate set (essential terms);
+  3. once no unseen document can qualify, the remaining terms only *probe*
+     surviving candidates: a candidate stays alive while
+     partial + remaining-bound clears θ, with the remaining bound sharpened
+     per candidate by its segment's block-max before paying for a probe;
+  4. final selection keeps score > floor, ordered (score desc, id asc).
+
+Tie discipline makes sharding exact: candidates merge in ascending doc id,
+doc ranges ascend across shards, and every tie breaks toward the smaller id
+— so a shard may prune anything that cannot *strictly* beat the floor
+forwarded from earlier shards, while intra-shard pruning keeps ties (>= θ).
+Scores are integer impact sums, so θ/floor comparisons never round.
+
+Queries whose total postings are below ``exhaustive_cutoff`` skip pruning:
+every term is decoded and scored in one batch (optionally on the
+bm25_score kernel) — at that size the bookkeeping costs more than it saves.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Protocol, Sequence
+
+import numpy as np
+
+from repro_torch.rank.score import TopKResult, select_topk
+
+
+class RankedSource(Protocol):
+    """What topk_query needs from a (shard-local) postings store."""
+
+    def n(self, t: int) -> int: ...
+
+    def ub(self, t: int) -> int: ...
+
+    def full(self, t: int) -> tuple[np.ndarray, np.ndarray]:
+        """-> (sorted doc ids int32, quantized impacts int64), full decode."""
+        ...
+
+    def probe(self, t: int, cands: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """-> (found bool, impacts int64 — 0 where absent) per sorted candidate."""
+        ...
+
+    def seg_ub(self, t: int, cands: np.ndarray) -> np.ndarray:
+        """Per-candidate score bound at segment granularity (<= ub(t))."""
+        ...
+
+
+@dataclass
+class RankedStats:
+    """Postings accounting for the pruned-vs-exhaustive comparison."""
+
+    queries: int = 0
+    exhaustive_queries: int = 0  # served by the no-pruning batch path
+    scored_postings: int = 0  # postings decoded + scored in full
+    probed_postings: int = 0  # candidate probes into non-essential terms
+    exhaustive_postings: int = 0  # what exhaustive scoring would have touched
+    # fused-kernel accounting (kernels.fused_query): queries whose probe tail
+    # went through the one-launch path, its probe lanes, the packed stream
+    # bytes those lanes touched, and the launches' device array traffic
+    fused_queries: int = 0
+    fused_lanes: int = 0
+    fused_stream_bytes: int = 0
+    fused_device_bytes: int = 0
+    # lanes of learned-codec terms the host bridge resolved itself (brackets
+    # wider than W_CAP, or a correction width outside 1..31) and handed to
+    # the kernel as one known rank: the part of the probe work done on the CPU
+    fused_wide_lanes: int = 0
+    # wall split of the fused bridge: ns spent blocked on device execution
+    # (copying launch outputs back) vs ns of host plan/pack/merge
+    fused_kernel_ns: int = 0
+    fused_bridge_ns: int = 0
+
+    def touched(self) -> int:
+        return self.scored_postings + self.probed_postings
+
+    def as_dict(self) -> dict[str, int | float]:
+        d = {k: int(getattr(self, k)) for k in (
+            "queries", "exhaustive_queries", "scored_postings",
+            "probed_postings", "exhaustive_postings", "fused_queries",
+            "fused_lanes", "fused_stream_bytes", "fused_device_bytes",
+            "fused_wide_lanes", "fused_kernel_ns", "fused_bridge_ns",
+        )}
+        d["touched_postings"] = self.touched()
+        d["scored_fraction"] = (
+            self.touched() / self.exhaustive_postings if self.exhaustive_postings else 0.0
+        )
+        return d
+
+
+_EMPTY = TopKResult(ids=np.zeros(0, np.int32), scores=np.zeros(0, np.int64))
+
+
+def _merge_add(
+    ids: np.ndarray, scores: np.ndarray, new_ids: np.ndarray, new_q: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Union of two sorted (id, score) sets, scores added where ids collide."""
+    if len(ids) == 0:
+        return new_ids.astype(np.int32), new_q.astype(np.int64)
+    cat = np.concatenate([ids, new_ids])
+    uids, inv_idx = np.unique(cat, return_inverse=True)
+    out = np.zeros(len(uids), np.int64)
+    np.add.at(out, inv_idx, np.concatenate([scores, new_q]))
+    return uids.astype(np.int32), out
+
+
+def _kth_partial(scores: np.ndarray, k: int) -> int:
+    """kth largest partial score — a valid θ (impacts only ever add)."""
+    if len(scores) < k:
+        return 0
+    return int(np.partition(scores, len(scores) - k)[len(scores) - k])
+
+
+def topk_query(
+    src: RankedSource,
+    terms: Sequence[int],
+    k: int,
+    *,
+    required: Sequence[int] = (),
+    floor: int = 0,
+    exhaustive_cutoff: int = 2048,
+    stats: RankedStats | None = None,
+    batch_scorer: Callable[[np.ndarray], np.ndarray] | None = None,
+) -> TopKResult:
+    """Exact top-k of one query against a shard-local RankedSource.
+
+    ``terms`` are the deduped query terms; ``required`` the conjunctive
+    subset (empty = disjunctive, all = conjunctive, in between = mixed).
+    ``floor`` is the score a result must strictly beat (the k-th best score
+    of earlier shards); results are (score desc, id asc) like the oracle.
+    """
+    if k <= 0:
+        return _EMPTY
+    stats = stats if stats is not None else RankedStats()
+    stats.queries += 1
+    terms = sorted({int(t) for t in terms if src.n(int(t)) > 0})
+    req_all = {int(r) for r in required}
+    req = [t for t in sorted(req_all) if src.n(t) > 0]
+    if len(req) < len(req_all):
+        return _EMPTY  # a required term absent on this shard: empty AND
+    if not terms:
+        return _EMPTY
+    stats.exhaustive_postings += sum(src.n(t) for t in terms)
+
+    if not req and sum(src.n(t) for t in terms) <= exhaustive_cutoff:
+        stats.exhaustive_queries += 1
+        return _exhaustive(src, terms, k, floor, stats, batch_scorer)
+
+    # ---- conjunctive seed: required terms filter candidates by probe
+    optional = [t for t in terms if t not in set(req)]
+    if req:
+        req = sorted(req, key=src.n)  # smallest list first shrinks fastest
+        cands, partial = src.full(req[0])
+        partial = partial.astype(np.int64)
+        stats.scored_postings += len(cands)
+        for t in req[1:]:
+            if len(cands) == 0:
+                return _EMPTY
+            found, q = src.probe(t, cands)
+            stats.probed_postings += len(cands)
+            cands, partial = cands[found], partial[found] + q[found]
+        if len(cands) == 0:
+            return _EMPTY
+        accepting_new = False
+    else:
+        cands = np.zeros(0, np.int32)
+        partial = np.zeros(0, np.int64)
+        accepting_new = True
+
+    # ---- MaxScore peel: optional terms by descending upper bound
+    optional.sort(key=lambda t: (-src.ub(t), t))
+    ubs = np.array([src.ub(t) for t in optional], np.int64)
+    suffix = np.concatenate([np.cumsum(ubs[::-1])[::-1], [0]])
+    theta = _kth_partial(partial, k)
+    for j, t in enumerate(optional):
+        alive_min = max(floor + 1, theta)
+        if accepting_new and suffix[j] >= alive_min:
+            ids, q = src.full(t)
+            stats.scored_postings += len(ids)
+            cands, partial = _merge_add(cands, partial, ids, q)
+        else:
+            accepting_new = False
+            potential = partial + suffix[j]
+            alive = potential >= alive_min
+            cands, partial = cands[alive], partial[alive]
+            if len(cands) == 0:
+                break
+            # block-max refinement: this term's contribution is bounded by
+            # the candidate's *segment* max, not the whole-list max
+            bound = partial + suffix[j + 1] + src.seg_ub(t, cands)
+            maybe = bound >= alive_min
+            if maybe.any():
+                sel = np.nonzero(maybe)[0]
+                found, q = src.probe(t, cands[sel])
+                stats.probed_postings += len(sel)
+                partial[sel[found]] += q[found]
+        theta = max(theta, _kth_partial(partial, k))
+    return select_topk(cands, partial, k, floor)
+
+
+def _exhaustive(
+    src: RankedSource,
+    terms: Sequence[int],
+    k: int,
+    floor: int,
+    stats: RankedStats,
+    batch_scorer: Callable[[np.ndarray], np.ndarray] | None,
+) -> TopKResult:
+    """Decode every term, score the candidate union in one batch.
+
+    With a ``batch_scorer`` the (candidate, term) impact matrix reduces on
+    the bm25_score kernel; integer sums make both paths bit-equal.
+    """
+    decoded = [src.full(t) for t in terms]
+    stats.scored_postings += sum(len(ids) for ids, _ in decoded)
+    uids = np.unique(np.concatenate([ids for ids, _ in decoded]))
+    if len(uids) == 0:
+        return _EMPTY
+    if batch_scorer is None:
+        scores = np.zeros(len(uids), np.int64)
+        for ids, q in decoded:
+            scores[np.searchsorted(uids, ids)] += q
+    else:
+        imp = np.zeros((len(uids), len(terms)), np.int32)
+        for j, (ids, q) in enumerate(decoded):
+            imp[np.searchsorted(uids, ids), j] = q
+        scores = np.asarray(batch_scorer(imp), np.int64)
+    return select_topk(uids.astype(np.int32), scores, k, floor)

@@ -1,6 +1,7 @@
-"""Boolean serving: planner, shard executors and the BooleanEngine facade."""
+"""Boolean and ranked serving: planner, shard executors and the BooleanEngine
+facade."""
 from repro_torch.serve.boolean import BooleanEngine
 from repro_torch.serve.cache import CostLRU
-from repro_torch.serve.config import ServeConfig
+from repro_torch.serve.config import RankedConfig, ServeConfig
 
-__all__ = ["BooleanEngine", "CostLRU", "ServeConfig"]
+__all__ = ["BooleanEngine", "CostLRU", "RankedConfig", "ServeConfig"]

@@ -17,7 +17,17 @@ The paper's system in deployable form, in three layers:
      per-query sorted doc-id arrays.
 
 ``BooleanEngine`` is the thin facade over all three.  K=1 reproduces the
-unsharded engine bit-for-bit.  The reference's ranked path, store
+unsharded engine bit-for-bit.
+
+``query_topk`` is the ranked path over the same shards: the planner dedupes
+terms and computes per-shard run masks, each ShardEngine returns its local
+top-k (MaxScore over the tier-2 payload streams, the bm25_score kernel for
+exhaustive queries, or fused_topk launches and the dense arena loop), and
+the facade folds shard heaps in ascending doc-range order, forwarding the
+running k-th best score as the next shard's pruning floor.  Scores are
+integer quantized-impact sums with ties broken by ascending doc id, so the
+merged top-k is bit-identical for K=1 and any K>1 — and to the brute-force
+BM25 oracle (rank.score.brute_force_topk).  The reference's store
 persistence and metrics registry belong to later slices of the port.
 """
 from __future__ import annotations
@@ -28,11 +38,13 @@ from repro_torch.common.config import LearnedIndexConfig
 from repro_torch.core.learned_bloom import LearnedBloom
 from repro_torch.index.build import InvertedIndex
 from repro_torch.postings.search import ProbeStats
-from repro_torch.serve.config import ServeConfig
-from repro_torch.serve.planner import plan_batch
+from repro_torch.rank.score import BM25Params, ImpactModel, TopKResult, select_topk
+from repro_torch.rank.topk import RankedStats
+from repro_torch.serve.config import RankedConfig, ServeConfig
+from repro_torch.serve.planner import plan_batch, plan_ranked, ranked_run_mask
 from repro_torch.serve.shard import WORD_BITS, ShardEngine, shard_ranges, unpack_row
 
-__all__ = ["BooleanEngine", "ServeConfig"]
+__all__ = ["BooleanEngine", "RankedConfig", "ServeConfig"]
 
 
 class BooleanEngine:
@@ -50,14 +62,40 @@ class BooleanEngine:
         self.inv = inv
         self.li_cfg = li_cfg
         self.n_docs = lb.n_docs
+        self._impact_model = None
+        can_rank = (
+            self.cfg.ranked.enabled
+            and inv.tfs is not None
+            and self.cfg.postings_store == "hybrid"
+        )
+        # shards get the *provider*, not the model: quantizer fitting is an
+        # O(n_postings) float64 pass that Boolean-only serving never needs,
+        # so it runs at first ranked use (ensure_payloads), not construction
+        provider = self._build_impact_model if can_rank else None
         self._ranges = shard_ranges(inv.n_docs, self.cfg.n_shards)
         self._shards = [
-            ShardEngine.from_range(lb, inv, li_cfg, self.cfg, lo, hi) if hi > lo else None
+            ShardEngine.from_range(lb, inv, li_cfg, self.cfg, lo, hi, impact_model=provider)
+            if hi > lo else None
             for lo, hi in self._ranges
         ]
         for sid, sh in enumerate(self.shards):
             sh.shard_id = sid
         self._global_dfs = inv.dfs
+
+    def _build_impact_model(self) -> ImpactModel:
+        """Fit (once) the collection-global quantizer: every shard's payload
+        stream is then a bit-exact slice of the global one (rank/score.py)."""
+        if self._impact_model is None:
+            self._impact_model = ImpactModel.build(
+                self.inv, BM25Params(bits=self.cfg.ranked.payload_bits)
+            )
+        return self._impact_model
+
+    @property
+    def impact_model(self) -> ImpactModel | None:
+        """The fitted global quantizer, or None before the first ranked use
+        (and for engines that cannot rank: no tfs or a raw store)."""
+        return self._impact_model
 
     # ------------------------------------------------------------- shards
     @property
@@ -93,6 +131,72 @@ class BooleanEngine:
         if q.shape[0] == 0 or (q < 0).all():
             return np.zeros((q.shape[0], words), dtype=np.uint32)
         return self._execute(q)
+
+    def query_topk(
+        self,
+        queries: np.ndarray,
+        k: int = 10,
+        *,
+        mode: str = "or",
+        required: np.ndarray | None = None,
+    ) -> list[TopKResult]:
+        """(Q, T) padded term ids -> exact ranked top-k per query.
+
+        ``mode`` "or" scores any matching term (disjunctive), "and" requires
+        every term; a boolean ``required`` mask of queries' shape marks a
+        per-position required subset for mixed AND/OR.  Results order by
+        (score desc, doc id asc) and are bit-identical across shard counts
+        and to brute-force quantized-BM25 over decoded postings.
+        """
+        q = np.asarray(queries, dtype=np.int32)
+        if q.ndim != 2:
+            raise ValueError(f"queries must be (Q, T), got shape {q.shape}")
+        empty = TopKResult(ids=np.zeros(0, np.int32), scores=np.zeros(0, np.int64))
+        if k <= 0:
+            return [empty for _ in range(q.shape[0])]
+        active = self.shards
+        qplans = plan_ranked(q, self._global_dfs, mode=mode, required=required)
+        runs = [ranked_run_mask(qplans, sh.local_dfs) for sh in active]
+        # a shard whose run mask is all-empty contributes nothing to any heap
+        live = [(sh, run) for sh, run in zip(active, runs) if run.any()]
+        if self.cfg.ranked.fused_kernel:
+            return self._query_topk_fused(qplans, live, k, empty)
+        out: list[TopKResult] = []
+        for i, qp in enumerate(qplans):
+            if qp.dead:
+                out.append(empty)
+                continue
+            heap = empty
+            # ascending doc ranges + ascending-id tie break make the floor a
+            # strict bar: a later shard's tie can never displace the heap
+            for sh, run in live:
+                if not run[i]:
+                    continue
+                floor = int(heap.scores[k - 1]) if len(heap.scores) == k else 0
+                part = sh.query_topk_local(qp.terms, k, required=qp.required, floor=floor)
+                if len(part.ids):
+                    heap = _merge_heap(heap, part, k)
+            out.append(heap)
+        return out
+
+    def _query_topk_fused(self, qplans, live, k: int, empty) -> list[TopKResult]:
+        """Fused ranked execution: shards outer, one batch per shard
+        (``shard.query_topk_batch``), heap floors forwarded between shards
+        exactly as the per-query loop does — shard doc ranges ascend, so each
+        shard sees the floors the previous shards established."""
+        heaps = [empty] * len(qplans)
+        for sh, run in live:
+            idx = [i for i, qp in enumerate(qplans) if not qp.dead and run[i]]
+            if not idx:
+                continue
+            items = []
+            for i in idx:
+                floor = int(heaps[i].scores[k - 1]) if len(heaps[i].scores) == k else 0
+                items.append((qplans[i].terms, k, qplans[i].required, floor))
+            for i, part in zip(idx, sh.query_topk_batch(items)):
+                if len(part.ids):
+                    heaps[i] = _merge_heap(heaps[i], part, k)
+        return heaps
 
     def _padded(self, queries: np.ndarray) -> np.ndarray:
         q = np.asarray(queries, dtype=np.int32)
@@ -132,19 +236,23 @@ class BooleanEngine:
             "block_bitmap_bits": 0,
             "backup_bits": int(self.lb.backup_keys.size * 64),
         }
-        tier2_bits = None
+        tier2_bits = payload_bits = None
         for sh in self.shards:
             bits = sh.memory_bits()
             report["block_bitmap_bits"] += bits["block_bitmap_bits"]
             if "tier2_bits" in bits:
                 tier2_bits = (tier2_bits or 0) + bits["tier2_bits"]
+            if "payload_bits" in bits:
+                payload_bits = (payload_bits or 0) + bits["payload_bits"]
         if tier2_bits is not None:
             report["tier2_bits"] = tier2_bits
+        if payload_bits is not None:
+            report["payload_bits"] = payload_bits
         return report
 
     def serving_stats(self) -> dict:
-        """Per-shard stats plus the cache and guided-probe counters summed
-        across shards."""
+        """Per-shard stats plus the cache, guided-probe and ranked counters
+        summed across shards."""
         per = [sh.serving_stats() for sh in self.shards]
         keys = ("entries", "cost_bytes", "budget_bytes", "hits", "misses", "evictions")
         cache = {k: sum(s["decode_cache"][k] for s in per) for k in keys}
@@ -155,9 +263,26 @@ class BooleanEngine:
             "decode_cache": cache,
             "guided": ProbeStats(**{f: sum(int(getattr(g, f)) for g in guided) for f in fields}).as_dict()
             if guided else None,
+            "ranked": self._collect_ranked(),
             "shards": per,
         }
+
+    def _collect_ranked(self) -> dict | None:
+        """RankedStats summed over shards; ``queries`` counts (query, shard)
+        pairs, as each shard tallies the queries it served."""
+        per = [sh.ranked_stats for sh in self.shards if sh.ranked_stats.queries]
+        if not per:
+            return None
+        fields = RankedStats.__dataclass_fields__
+        return RankedStats(**{f: sum(int(getattr(r, f)) for r in per) for f in fields}).as_dict()
 
     def reset_stats(self) -> None:
         for sh in self.shards:
             sh.reset_stats()
+
+
+def _merge_heap(heap: TopKResult, part: TopKResult, k: int) -> TopKResult:
+    """Fold one shard's top-k into the running heap (score desc, id asc)."""
+    return select_topk(
+        np.concatenate([heap.ids, part.ids]), np.concatenate([heap.scores, part.scores]), k
+    )

@@ -21,6 +21,11 @@ never affect result exactness — both probe paths are exact — only which
 stream bytes the shard touches.  Unverified serving keeps only the padding
 skip: candidate supersets are returned as-is, so df-based pruning would
 change results.
+
+The ranked path plans with ``plan_ranked``: terms dedupe, zero-global-df
+terms drop (they score nothing anywhere), and each query carries its
+required (conjunctive) subset so MaxScore executors can skip shards where a
+required term — or, disjunctively, *every* term — is locally absent.
 """
 from __future__ import annotations
 
@@ -118,3 +123,71 @@ def plan_batch(
                 routes[i] = hints
         shard_plans.append(ShardPlan(shard_id=sid, run=run, routes=routes))
     return BatchPlan(queries=q, qplans=qplans, shard_plans=shard_plans)
+
+
+@dataclass(frozen=True)
+class RankedQueryPlan:
+    """One ranked query's shard-independent plan."""
+
+    terms: tuple[int, ...]  # deduped, nonzero global df, ascending term id
+    required: tuple[int, ...]  # conjunctive subset of terms
+    dead: bool  # nothing can score: no live terms, or a required term df=0
+
+
+def plan_ranked(
+    queries: np.ndarray,
+    global_dfs: np.ndarray,
+    *,
+    mode: str = "or",
+    required: np.ndarray | None = None,
+) -> list[RankedQueryPlan]:
+    """Ranked-batch plan: per-query live terms + required subset.
+
+    ``mode`` is "or" (nothing required) or "and" (everything required);
+    a boolean ``required`` mask (same shape as queries) overrides it for
+    mixed AND/OR queries.  A query is dead when a required term has zero
+    global df (empty conjunction) or no term has postings at all.
+    """
+    if mode not in ("or", "and"):
+        raise ValueError(f"mode must be 'or' or 'and', got {mode!r}")
+    queries = np.asarray(queries)
+    if required is not None and np.asarray(required).shape != queries.shape:
+        raise ValueError(
+            f"required mask shape {np.asarray(required).shape} != queries {queries.shape}"
+        )
+    dfs = np.asarray(global_dfs)
+    out = []
+    for qi, row in enumerate(queries):
+        raw = sorted({int(t) for t in row if t >= 0})
+        if required is not None:
+            req_raw = {int(t) for t, r in zip(row, required[qi]) if t >= 0 and r}
+        else:
+            req_raw = set(raw) if mode == "and" else set()
+        terms = tuple(t for t in raw if int(dfs[t]) > 0)
+        dead = not terms or any(int(dfs[t]) == 0 for t in req_raw)
+        out.append(
+            RankedQueryPlan(
+                terms=terms,
+                required=tuple(sorted(req_raw & set(terms))),
+                dead=dead,
+            )
+        )
+    return out
+
+
+def ranked_run_mask(
+    qplans: Sequence[RankedQueryPlan], local_dfs: np.ndarray
+) -> np.ndarray:
+    """(Q,) bool — which ranked queries can score anything on this shard:
+    every required term present locally, and at least one term live."""
+    run = np.zeros(len(qplans), dtype=bool)
+    for i, qp in enumerate(qplans):
+        if qp.dead:
+            continue
+        ldfs = [int(local_dfs[t]) for t in qp.terms]
+        if not any(ldfs):
+            continue
+        if any(int(local_dfs[t]) == 0 for t in qp.required):
+            continue
+        run[i] = True
+    return run

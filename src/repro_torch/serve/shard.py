@@ -17,9 +17,20 @@ docs per word), which is what leaves the device: 32x fewer bytes than a bool
 mask.  ``execute`` verifies each query's candidates exactly — guided
 ε-window probes for learned-codec terms, galloping search over full decodes
 otherwise; full decodes of learned-codec lists go through the ``plm_decode``
-kernel — and returns a *packed bitmap* over local doc ids, word-copyable into
-the global bitmap because shard boundaries are aligned to 32-doc words
-(``shard_ranges``).
+kernel, of optpfd lists through the ``pfor`` kernel — and returns a *packed
+bitmap* over local doc ids, word-copyable into the global bitmap because
+shard boundaries are aligned to 32-doc words (``shard_ranges``).
+
+``query_topk_local`` is the ranked path: the shard runs MaxScore dynamic
+pruning (repro_torch.rank.topk) against its tier-2 payload streams — full
+decodes through the CostLRU, candidate probes through the guided ε-window
+rank models landing directly on rank-aligned payloads, segment-granularity
+score bounds from the store — and returns its local top-k in *global* doc
+ids so the facade can merge shard heaps and forward score floors.  With
+``ranked.score_kernel`` exhaustive queries score on the ``bm25_score``
+kernel; with ``ranked.fused_kernel`` ``query_topk_batch`` answers the batch's
+probe tails with ``fused_topk`` launches, or with the dense loop over a
+resident impact arena where the shard fits one.
 """
 from __future__ import annotations
 
@@ -32,6 +43,8 @@ from repro_torch.core.learned_bloom import LearnedBloom
 from repro_torch.index.build import InvertedIndex, slice_index
 from repro_torch.index.intersect import gallop_membership
 from repro_torch.postings.search import full_decode
+from repro_torch.rank.score import TopKResult
+from repro_torch.rank.topk import RankedStats, topk_query
 from repro_torch.serve.cache import CostLRU
 from repro_torch.serve.planner import QueryPlan, ShardPlan
 
@@ -93,6 +106,9 @@ class ShardEngine:
         lo: int = 0,
         hi: int | None = None,
         tier2=None,  # prebuilt HybridPostings over this shard's local ids
+        # global rank.score.ImpactModel, or a zero-arg provider of one (the
+        # facade defers the O(n_postings) quantizer fit to first ranked use)
+        impact_model=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
@@ -105,16 +121,21 @@ class ShardEngine:
         self.shard_id = 0  # position in the facade's shard list (it sets this)
         self._tier2 = tier2 if cfg.postings_store == "hybrid" else None
         self._guided = None  # lazy GuidedPostings over tier-2
+        self._impact_model = impact_model
+        self._ranked = None  # lazy _RankedSource over tier-2 payloads
+        self.ranked_stats = RankedStats()
         self._dfs = inv.dfs  # local document frequencies, materialized once
         self._decode_cache: CostLRU[int, np.ndarray] = CostLRU(cfg.cache_budget_bytes)
         self.state = alg.build_engine(lb.model, lb.tau, inv, block_size=li_cfg.block_size)
 
     @classmethod
-    def from_range(cls, lb, inv, li_cfg, cfg, lo: int, hi: int, tier2=None) -> "ShardEngine":
+    def from_range(
+        cls, lb, inv, li_cfg, cfg, lo: int, hi: int, tier2=None, impact_model=None
+    ) -> "ShardEngine":
         """Build the shard by slicing a global model + index to [lo, hi)."""
         return cls(
             slice_bloom(lb, lo, hi), slice_index(inv, lo, hi), li_cfg, cfg,
-            lo=lo, hi=hi, tier2=tier2,
+            lo=lo, hi=hi, tier2=tier2, impact_model=impact_model,
         )
 
     # ------------------------------------------------------------- stores
@@ -135,6 +156,30 @@ class ShardEngine:
 
             self._tier2 = HybridPostings.from_index(self.inv)
         return self._tier2
+
+    def ensure_payloads(self) -> None:
+        """Quantize + attach this shard's payload stream if it can and hasn't.
+
+        Deferred off the Boolean-only path (packing every term costs real
+        startup time).  The values are bit-identical to the global stream's
+        slice because the ImpactModel's statistics are collection-global.
+        """
+        store = self.tier2
+        if (
+            store is None
+            or store.has_payloads
+            or self._impact_model is None
+            or self.inv.tfs is None
+        ):
+            return
+        if callable(self._impact_model):
+            self._impact_model = self._impact_model()
+        im = self._impact_model
+        store.attach_payloads(
+            im.quantize_index(self.inv, lo=self.lo),
+            bits=im.params.bits,
+            scale=im.scale,
+        )
 
     @property
     def guided(self):
@@ -157,6 +202,77 @@ class ShardEngine:
             hit = full_decode(store, t, self.device)
             self._decode_cache.put(t, hit, hit.nbytes)
         return hit
+
+    # ------------------------------------------------------------- ranked
+    @property
+    def ranked(self) -> "_RankedSource":
+        """RankedSource over this shard's payload streams (built on demand)."""
+        if self._ranked is None:
+            self.ensure_payloads()
+            store = self.tier2
+            if store is None or not store.has_payloads:
+                raise ValueError(
+                    "ranked serving needs tier-2 payload streams: build the "
+                    "engine from an index with term frequencies (ImpactModel)"
+                )
+            self._ranked = _RankedSource(self)
+        return self._ranked
+
+    def query_topk_local(
+        self,
+        terms,
+        k: int,
+        *,
+        required=(),
+        floor: int = 0,
+    ) -> TopKResult:
+        """This shard's exact top-k in *global* doc ids — descending score
+        with ties ascending id.  ``floor`` is the facade's running k-th best
+        score: only strictly better docs can matter here (later shards hold
+        larger ids, so floor ties lose)."""
+        if self.cfg.ranked.fused_kernel:
+            return self.query_topk_batch([(tuple(terms), k, tuple(required), floor)])[0]
+        scorer = self._batch_scorer() if self.cfg.ranked.score_kernel else None
+        ans = topk_query(
+            self.ranked, terms, k,
+            required=required, floor=floor,
+            exhaustive_cutoff=self.cfg.ranked.topk_exhaustive_cutoff,
+            stats=self.ranked_stats, batch_scorer=scorer,
+        )
+        return self._globalize(ans)
+
+    def query_topk_batch(self, items) -> list[TopKResult]:
+        """Batched ranked entry point: [(terms, k, required, floor), ...] ->
+        one TopKResult per item, global doc ids.
+
+        With ``ranked.fused_kernel`` the batch's probe tails go to
+        ``fused_topk`` launches (and the dense loop where an arena fits);
+        otherwise it loops the multi-phase ``query_topk_local``.  Both
+        paths are bit-identical.
+        """
+        if not self.cfg.ranked.fused_kernel:
+            return [
+                self.query_topk_local(t, k, required=r, floor=f) for (t, k, r, f) in items
+            ]
+        from repro_torch.kernels.fused_query.ops import fused_topk_batch
+
+        answers = fused_topk_batch(
+            self.ranked, items,
+            exhaustive_cutoff=self.cfg.ranked.topk_exhaustive_cutoff,
+            stats=self.ranked_stats,
+        )
+        return [self._globalize(a) for a in answers]
+
+    def _globalize(self, ans: TopKResult) -> TopKResult:
+        return TopKResult(
+            ids=(ans.ids.astype(np.int64) + self.lo).astype(np.int32), scores=ans.scores
+        )
+
+    def _batch_scorer(self):
+        from repro_torch.kernels.bm25_score.ops import score_candidates
+
+        scale = self.tier2.payload_scale / max((1 << self.tier2.payload_bits) - 1, 1)
+        return lambda imp: score_candidates(imp, scale, device=self.device)[0]
 
     # ------------------------------------------------------------- planning
     def route_term(self, t: int, est_cands: int) -> str | None:
@@ -254,19 +370,135 @@ class ShardEngine:
         bits = {"block_bitmap_bits": int(self.state.block_bitmaps.numel() * 32)}
         if self._tier2 is not None:
             bits["tier2_bits"] = int(self._tier2.size_bits())
+            if self._tier2.has_payloads:
+                bits["payload_bits"] = int(self._tier2.payload_size_bits())
         return bits
 
     def serving_stats(self) -> dict[str, dict | None]:
-        """Decode-cache behaviour + guided-probe byte accounting."""
+        """Decode-cache behaviour, guided-probe byte accounting, ranked
+        pruning counters and the arena's residence counters."""
+        arena = self._ranked._arena if self._ranked is not None else None
         return {
             "range": {"lo": int(self.lo), "hi": int(self.hi)},
             "decode_cache": self._decode_cache.stats(),
             "guided": self._guided.stats.as_dict() if self._guided is not None else None,
+            "ranked": self.ranked_stats.as_dict() if self.ranked_stats.queries else None,
+            "arena": arena.counters.as_dict() if arena else None,
         }
 
     def reset_stats(self) -> None:
-        """Zero the probe/cache accounting window; cached decodes stay
+        """Zero the probe/cache/ranked accounting window; cached decodes stay
         resident so the next pass measures warm serving."""
         self._decode_cache.reset_counters()
+        self.ranked_stats = RankedStats()
         if self._guided is not None:
             self._guided.reset_stats()
+
+
+class _RankedSource:
+    """rank.topk.RankedSource over one shard's tier-2 payload streams.
+
+    Full decodes go through the shard's decode-cost-budgeted CostLRU (ids
+    under the term key the Boolean path shares, payload vectors under a
+    ("pay", t) key); probes ride the guided ε-window rank models where the
+    term's codec is learned and fall back to binary search in the cached
+    decode otherwise.  Either way the payload read is rank-aligned —
+    ``payload_at`` touches only the probe's packed words.
+    """
+
+    def __init__(self, shard: ShardEngine):
+        self._sh = shard
+        self._store = shard.tier2
+        self._arena = None  # lazy DeviceArena (False = checked, ineligible)
+
+    def n(self, t: int) -> int:
+        return int(self._sh._dfs[t])
+
+    def ub(self, t: int) -> int:
+        return self._store.term_ub(t)
+
+    def _payloads(self, t: int) -> np.ndarray:
+        key = ("pay", t)
+        hit = self._sh._decode_cache.get(key)
+        if hit is None:
+            hit = self._store.payloads(t).astype(np.int64)
+            self._sh._decode_cache.put(key, hit, hit.nbytes)
+        return hit
+
+    def full(self, t: int) -> tuple[np.ndarray, np.ndarray]:
+        return self._sh._postings(t), self._payloads(t)
+
+    def probe(self, t: int, cands: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        g = self._sh.guided
+        if g is not None:
+            # one probe path for every codec: GuidedPostings routes learned
+            # terms through ε-windows and classical terms through the cached
+            # decode, and its ProbeStats accounting covers both uniformly
+            found, rank = g.probe(t, cands)
+        else:  # use_guided=False: binary search in the cached decode
+            p = self._sh._postings(t)
+            rank = np.searchsorted(p, cands).astype(np.int64)
+            found = (rank < len(p)) & (p[np.minimum(rank, len(p) - 1)] == cands)
+        q = np.zeros(len(cands), np.int64)
+        if found.any():
+            q[found] = self._store.payload_at(t, rank[found]).astype(np.int64)
+        return found, q
+
+    # ---- fused-kernel extensions (kernels.fused_query.ops) ----
+    @property
+    def device(self):
+        """Where the fused launches and the dense loop run."""
+        return self._sh.device
+
+    @property
+    def arena(self):
+        """This shard's device-resident impact arena, or None.
+
+        Built lazily on the first fused batch that could use it (decode +
+        upload is startup cost, not serving) and cached for the shard's
+        lifetime.  ``False`` caches a failed eligibility check so it runs
+        once.
+        """
+        if self._arena is None:
+            from repro_torch.kernels.arena import DeviceArena
+
+            if self._sh.cfg.ranked.device_arena and DeviceArena.eligible(
+                self._store.n_terms, self._sh.n_docs
+            ):
+                self._arena = DeviceArena.build(
+                    self, self._store.n_terms, self._sh.n_docs, self._sh.device
+                )
+            else:
+                self._arena = False
+        return self._arena or None
+
+    @property
+    def payload_bits(self) -> int:
+        """Quantized-impact width — static per store, so per kernel launch."""
+        return int(self._store.payload_bits)
+
+    def payload_words(self, t: int) -> np.ndarray:
+        """Term t's packed payload stream (uint32 words, rank-aligned)."""
+        return self._store.payload_streams[t]
+
+    def postings(self, t: int) -> np.ndarray:
+        """Fully-decoded ids only (host rank fallback for classical codecs)."""
+        return self._sh._postings(t)
+
+    def term_model(self, t: int):
+        """Guided ε-window rank model, or None (classical codec/no guiding)."""
+        g = self._sh.guided
+        return g.term_model(t) if g is not None else None
+
+    def seg_ub(self, t: int, cands: np.ndarray) -> np.ndarray:
+        """Block-max bound per candidate: its bracketing segment's max impact
+        (learned codecs), the whole-list bound otherwise."""
+        g = self._sh.guided
+        tm = g.term_model(t) if g is not None else None
+        if tm is None:
+            return np.full(len(cands), self._store.term_ub(t), np.int64)
+        seg = np.searchsorted(tm.seg_first, np.asarray(cands, np.int64), side="right") - 1
+        ubs = self._store.term_seg_ubs(t).astype(np.int64)
+        out = ubs[np.maximum(seg, 0)]
+        out[seg < 0] = 0  # candidate precedes the whole list: cannot match
+        return out

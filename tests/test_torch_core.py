@@ -202,10 +202,14 @@ for m in mods:
     importlib.import_module(m)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not bad, bad
+ranked = {"repro_torch.rank.score", "repro_torch.rank.topk", "repro_torch.kernels.arena",
+          "repro_torch.kernels.pfor.ops", "repro_torch.kernels.bm25_score.ops",
+          "repro_torch.kernels.fused_query.ops", "repro_torch.kernels.fused_query.dense"}
+assert ranked <= set(mods), ranked - set(mods)
 print(len(mods))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) > 30
+    assert int(out.stdout.strip()) > 45

@@ -7,16 +7,30 @@ the port is installed:
 
 Each decides inside the test whether a card exists and skips without one
 (a CUDA kernel has no CPU mode).  Inputs are made with numpy from a seed.
-Bitset words and counts, probe verdicts and decoded ids must be exactly
-equal; membership bits may differ only where the logit lies within
+Bitset words and counts, probe verdicts, decoded ids, PFor gaps, integer
+and float BM25 scores and fused top-k ids and scores must be exactly equal;
+membership bits may differ only where the logit lies within
 NUMERIC_MARGIN * (1 + |tau|) of tau, since the two float32 products sum in
 different orders.
+
+``pfor_blocks`` and ``fused_tiles`` make the inputs that
+tests/test_torch_kernels.py and tests/test_torch_fused.py also hand to the
+reference's kernels on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.learned_bloom import NUMERIC_MARGIN
+from repro_torch.index.compress import encode_postings, pack_bits
+from repro_torch.kernels.bm25_score.kernel import score_batch
+from repro_torch.kernels.bm25_score.ref import score_ref
+from repro_torch.kernels.fused_query.dense import dense_impl
+from repro_torch.kernels.fused_query.kernel import fused_topk
+from repro_torch.kernels.fused_query.ref import NEVER, fused_topk_ref
+from repro_torch.kernels.pfor.kernel import pfor_unpack
+from repro_torch.kernels.pfor.ops import decode_lists as pfor_decode_lists
+from repro_torch.kernels.pfor.ref import pfor_unpack_ref
 from repro_torch.kernels.bitset.kernel import bitset_and_popcount
 from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref
 from repro_torch.kernels.guided_search.kernel import probe_batch
@@ -36,7 +50,88 @@ def _card() -> torch.device:
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a))
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+def pfor_blocks(rng, widths=range(33), blocks_per_width=3, exceptions=True):
+    """PFor blocks of every width, some short, with exception pairs (width
+    < 32) -> (stream words uint32, meta (n_blocks, 6) int32, expected gaps
+    uint32) laid out as pfor_unpack takes them."""
+    words, meta, want = [], [], []
+    pos = out = 0
+    for w in widths:
+        for i in range(blocks_per_width):
+            blen = 128 if i else int(rng.integers(1, 128))
+            vals = rng.integers(0, 1 << w, blen, dtype=np.uint64).astype(np.uint32) if w else \
+                np.zeros(blen, np.uint32)
+            packed = pack_bits(vals, w)
+            n_exc = int(rng.integers(0, 6)) if w < 32 and exceptions else 0
+            exc_pos = np.sort(rng.choice(blen, min(n_exc, blen), replace=False)).astype(np.uint32)
+            hi = rng.integers(1, 1 << (32 - w), len(exc_pos), dtype=np.uint64).astype(np.uint32)
+            full = vals.copy()
+            full[exc_pos] |= (hi.astype(np.uint64) << np.uint64(w)).astype(np.uint32)
+            pairs = np.stack([exc_pos, hi], axis=1).reshape(-1)
+            meta.append((w, pos, blen, out, pos + len(packed), len(exc_pos)))
+            words += [packed, pairs]
+            want.append(full)
+            pos += len(packed) + len(pairs)
+            out += blen
+    return (np.concatenate(words).astype(np.uint32), np.array(meta, np.int32),
+            np.concatenate(want))
+
+
+def _unpack_np(lo, hi, shift, width):
+    lo, hi = lo.astype(np.uint64), hi.astype(np.uint64)
+    up = np.where(shift > 0, hi << (np.uint64(32) - shift), np.uint64(0)) & np.uint64(0xFFFFFFFF)
+    return ((lo >> shift) | up) & ((np.uint64(1) << width) - np.uint64(1))
+
+
+def fused_tiles(rng, Q=6, T=3, C=256, W=4, pbits=8):
+    """Random fused_topk tiles: a row of NEVER padding only, rows with
+    candidates padded by NEVER, windows of 0..W lanes (garbage past wlen),
+    about half the (term, candidate) windows holding a matching lane, and
+    small partial scores and impacts (0..3) so that ties are common; row 2
+    matches nothing and ties every candidate."""
+    width = rng.integers(0, 25, (Q, T)).astype(np.uint32)
+    cmin = rng.integers(-50, 1, (Q, T)).astype(np.int32)
+    rlo = rng.integers(0, 5000, (Q, T, C)).astype(np.int32)
+    wlen = rng.integers(0, W + 1, (Q, T, C)).astype(np.int32)
+    start = (rlo - rng.integers(0, 900, (Q, T, C))).astype(np.int32)
+    slope = np.where(rng.random((Q, T, C)) < 0.3, rng.integers(0, 6, (Q, T, C)) + 0.5,
+                     rng.random((Q, T, C)) * 300).astype(np.float32)
+    words = [rng.integers(0, 1 << 32, (Q, T, C, W), dtype=np.uint64).astype(np.uint32)
+             for _ in range(4)]
+    clo, chi, plo, phi = words
+    plo &= np.uint32(0x03030303)
+    phi &= np.uint32(0x03030303)
+    n_cands = rng.integers(C // 3, C + 1, Q)
+    n_cands[1] = 0  # an empty row
+    cand = np.full((Q, C), NEVER, np.int32)
+    part = np.zeros((Q, C), np.int32)
+    for q in range(Q):
+        ids = np.sort(rng.choice(1 << 20, n_cands[q], replace=False))
+        cand[q, : n_cands[q]] = ids
+        part[q, : n_cands[q]] = rng.integers(0, 6, n_cands[q])
+    # point the segment line of one lane per matching window at its candidate
+    j = rng.integers(0, W, (Q, T, C))
+    hit = (rng.random((Q, T, C)) < 0.5) & (j < wlen) & (cand[:, None, :] != NEVER)
+    hit[2] = False
+    part[2, : n_cands[2]] = 3
+    r = rlo.astype(np.int64) + j
+    di = (r - start).astype(np.float32)
+    pred = np.rint(slope * di).astype(np.int64)
+    jj = j[..., None]
+    lo_w = np.take_along_axis(clo, jj, 3)[..., 0]
+    hi_w = np.take_along_axis(chi, jj, 3)[..., 0]
+    w64 = width.astype(np.uint64)[:, :, None]
+    corr = _unpack_np(lo_w, hi_w, (r.astype(np.uint64) * w64) % np.uint64(32), w64)
+    base = cand[:, None, :].astype(np.int64) - pred - corr.astype(np.int64) - cmin[:, :, None]
+    base = np.where(hit, base, rng.integers(0, 1 << 20, (Q, T, C))).astype(np.int32)
+    floor = rng.integers(0, 4, (Q, 1)).astype(np.int32)
+    floor[2] = 0
+    return (width, cmin, rlo, wlen, start, base, slope, clo, chi, plo, phi, cand, part,
+            floor), dict(k=min(12, C), pbits=pbits)
 
 
 @pytest.mark.cuda
@@ -108,3 +203,69 @@ def test_plm_decode_kernel_matches_plain_on_card(encode):
     got = decode_batch(*tabs)
     assert torch.equal(got, decode_ref(*tabs))
     assert np.array_equal(got.cpu().numpy(), np.concatenate(lists))
+
+
+@pytest.mark.cuda
+def test_pfor_kernel_matches_plain_on_card():
+    dev = _card()
+    words, meta, want = pfor_blocks(np.random.default_rng(5))
+    w, m = _t(words).to(dev), _t(meta).to(dev)
+    got = pfor_unpack(w, m, len(want))
+    assert torch.equal(got, pfor_unpack_ref(w, m, len(want)))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), want)
+
+
+@pytest.mark.cuda
+def test_pfor_stream_decode_on_card():
+    dev = _card()
+    rng = np.random.default_rng(6)
+    lists = [np.sort(rng.choice(1 << 30, n, replace=False)).astype(np.int32)
+             for n in (1, 127, 128, 129, 5000, 100_000)]
+    gaps = rng.integers(1, 4, 3000).astype(np.int64)
+    gaps[rng.integers(0, 3000, 80)] += rng.integers(1000, 1 << 20, 80)  # exceptions
+    lists.append(np.cumsum(gaps).astype(np.int32))
+    streams = [encode_postings(x, "optpfd") for x in lists]
+    got = pfor_decode_lists(streams, [len(x) for x in lists], device=dev)
+    for g, x in zip(got, lists):
+        assert g.dtype == np.int32 and np.array_equal(g, x)
+
+
+@pytest.mark.cuda
+def test_bm25_score_kernel_matches_plain_on_card():
+    dev = _card()
+    rng = np.random.default_rng(7)
+    for p, t in ((1, 1), (3000, 5), (777, 40)):
+        imp = _t(rng.integers(0, 256, (p, t)).astype(np.int32)).to(dev)
+        (gi, gf), (wi, wf) = score_batch(imp, 0.0371), score_ref(imp, 0.0371)
+        assert torch.equal(gi, wi) and torch.equal(gf, wf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [dict(), dict(Q=9, T=5, C=1024, W=1), dict(C=128, W=8)],
+                         ids=["base", "wide-c", "w8"])
+def test_fused_topk_kernel_matches_plain_on_card(shape):
+    dev = _card()
+    tiles, kw = fused_tiles(np.random.default_rng(8), **shape)
+    args = [_t(a).to(dev) for a in tiles]
+    gi, gs = fused_topk(*args, **kw)
+    wi, ws = fused_topk_ref(*args, **kw)
+    assert torch.equal(gi, wi) and torch.equal(gs, ws)
+    assert (gi[1] == -1).all() and (gs[0] > 0).any()
+
+
+@pytest.mark.cuda
+def test_dense_loop_on_card_matches_cpu():
+    """The dense arena loop is PyTorch operations, not a kernel: the same
+    inputs must give the same ids, scores and rounds on the card as on the
+    CPU (torch.argmax returns the first maximum on both)."""
+    dev = _card()
+    rng = np.random.default_rng(9)
+    table = np.zeros((301, 5000), np.uint8)
+    mask = rng.random((300, 5000)) < 0.05
+    table[:300][mask] = rng.integers(1, 4, int(mask.sum()))
+    qt = rng.integers(-1, 300, (64, 8)).astype(np.int32)
+    floors = rng.integers(0, 6, 64).astype(np.int32)
+    for k in (1, 16, 32):
+        got = dense_impl(_t(table).to(dev), _t(qt).to(dev), _t(floors).to(dev), k=k)
+        want = dense_impl(_t(table), _t(qt), _t(floors), k=k)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))

@@ -1,36 +1,48 @@
-"""The port's four kernels against the reference's Pallas kernels.
+"""The port's kernels against the reference's Pallas kernels.
 
 On the CPU each port wrapper runs its plain PyTorch version; the reference
 kernels run in Pallas interpret mode, as the reference's own tests run them.
 Same inputs, made with numpy from a seed, go to both.  Bitset words and
-counts, probe verdicts and decoded ids must be exactly equal.  Membership
+counts, probe verdicts, decoded ids, PFor gaps and BM25 integer and float
+scores must be exactly equal.  Membership
 bits must be equal too, except a bit whose logit lies within
 NUMERIC_MARGIN * (1 + |tau|) of tau: the two float32 products sum in
 different orders, and that margin is what the thresholds reserve for it.
 
 tests/test_torch_cuda.py holds each CUDA kernel against its plain version on
-a card.
+a card; the fused_topk kernel's parity tests are in tests/test_torch_fused.py.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_cuda import _t as _tw
+from test_torch_cuda import pfor_blocks
 
+from repro.index.compress import optpfd_decode as ref_optpfd_decode
 from repro.kernels.bitset.kernel import W_BLK, bitset_and_popcount as ref_bitset
+from repro.kernels.bm25_score.kernel import score_batch as ref_score_batch
+from repro.kernels.bm25_score.ref import score_ref as np_score_ref
 from repro.kernels.guided_search.kernel import probe_batch as ref_probe
 from repro.kernels.membership.kernel import D_BLK, Q_BLK, membership_bitmask as ref_membership
 from repro.kernels.membership.ops import score_terms_bitmask as ref_score_terms
 from repro.kernels.plm_decode.kernel import decode_batch as ref_decode
+from repro.kernels.pfor.ops import decode_stream as ref_decode_stream
+from repro.kernels.pfor.ref import unpack_block_ref, words_per_block
 from repro.kernels.plm_decode.ref import SENTINEL
 from repro.postings.plm import parse_stream as ref_parse_stream, plm_encode as ref_plm_encode
 from repro.postings.rmi import rmi_encode as ref_rmi_encode
 from repro_torch.core.learned_bloom import NUMERIC_MARGIN
 from repro_torch.kernels.bitset.kernel import bitset_and_popcount
 from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref
+from repro_torch.kernels.bm25_score.kernel import score_batch
+from repro_torch.kernels.bm25_score.ops import score_candidates
 from repro_torch.kernels.guided_search.kernel import probe_batch
 from repro_torch.kernels.guided_search.ref import probe_ref
 from repro_torch.kernels.membership.kernel import membership_bitmask
 from repro_torch.kernels.membership.ref import membership_bitmask_ref, pack_bool_words
+from repro_torch.kernels.pfor.kernel import pfor_unpack
+from repro_torch.kernels.pfor.ops import decode_lists as pfor_decode_lists
 from repro_torch.kernels.plm_decode.kernel import decode_batch
 from repro_torch.kernels.plm_decode.ref import decode_ref
 
@@ -209,3 +221,87 @@ def test_decode_lists_matches_reference_bridge():
         want = ref_decode_lists(streams, lens)
         for ids, g, w in zip(lists, got, want):
             assert np.array_equal(g, w) and np.array_equal(g, ids)
+
+
+# ----------------------------------------------------------- pfor
+@pytest.mark.parametrize("width", range(33))
+def test_pfor_plain_matches_reference_unpack(width):
+    """Full and short blocks of one width, no exceptions: the plain unpack
+    against the reference's unpack_block_ref on the same packed words."""
+    rng = np.random.default_rng(100 + width)
+    words, meta, want = pfor_blocks(rng, widths=[width], exceptions=False)
+    got = pfor_unpack(_tw(words), _tw(meta), len(want)).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+    wpb = words_per_block(width)
+    for w, start, blen, out, *_ in meta:
+        row = np.zeros(wpb, np.uint32)
+        n_words = (blen * w + 31) // 32
+        row[:n_words] = words[start : start + n_words]
+        ref = np.asarray(unpack_block_ref(jnp.asarray(row[None]), width))[0, :blen]
+        assert np.array_equal(got[out : out + blen], ref)
+
+
+def test_pfor_plain_patches_exceptions():
+    words, meta, want = pfor_blocks(np.random.default_rng(7))
+    assert meta[:, 5].sum() > 50  # exception pairs in most widths
+    got = pfor_unpack(_tw(words), _tw(meta), len(want)).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+
+
+def _optpfd_lists(rng):
+    lists = [np.sort(rng.choice(1 << 30, n, replace=False)).astype(np.int32)
+             for n in (1, 2, 127, 128, 129, 3000)]
+    lists.append(np.arange(5, 1000, 3, dtype=np.int32))  # one narrow width
+    gaps = rng.integers(1, 4, 2000).astype(np.int64)
+    gaps[rng.integers(0, 2000, 60)] += rng.integers(1000, 1 << 20, 60)  # exceptions
+    lists.append(np.cumsum(gaps).astype(np.int32))
+    lists.append(np.array([0, 1, 2, 2**31 - 1], np.int32))  # gap 0, a 31-bit gap
+    return lists
+
+
+def test_pfor_streams_match_reference_decoders():
+    from repro.index.compress import encode_postings as ref_encode
+
+    lists = _optpfd_lists(np.random.default_rng(8))
+    streams = [ref_encode(x, "optpfd") for x in lists]
+    got = pfor_decode_lists(streams, [len(x) for x in lists], device="cpu")
+    for g, x, w in zip(got, lists, streams):
+        assert g.dtype == np.int32 and np.array_equal(g, x)
+        assert np.array_equal(g, ref_decode_stream(w, len(x)))
+        assert np.array_equal(g, np.cumsum(ref_optpfd_decode(w, len(x)).astype(np.int64)))
+
+
+def test_pfor_batch_of_lists_and_overflow():
+    from repro_torch.index.compress import encode_postings, optpfd_encode, undgaps
+
+    lists = _optpfd_lists(np.random.default_rng(9))
+    streams = [encode_postings(x, "optpfd") for x in lists]
+    got = pfor_decode_lists([np.zeros(0, np.uint32)] + streams, [0] + [len(x) for x in lists],
+                            device="cpu")
+    assert len(got[0]) == 0
+    for g, x in zip(got[1:], lists):
+        assert np.array_equal(g, x)
+    gaps = np.array([2**31 - 1, 5], np.uint32)  # ids past int32: both decoders refuse
+    with pytest.raises(OverflowError):
+        undgaps(gaps)
+    with pytest.raises(OverflowError):
+        pfor_decode_lists([optpfd_encode(gaps)], [2], device="cpu")
+
+
+# ----------------------------------------------------------- bm25_score
+@pytest.mark.parametrize("p,t", [(1, 1), (37, 3), (300, 6)])
+def test_bm25_score_plain_matches_reference_and_pallas(p, t):
+    rng = np.random.default_rng(p + t)
+    imp = rng.integers(0, 256, (p, t)).astype(np.int32)
+    scale = np.float32(0.05172413)
+    gi, gf = score_batch(_t(imp), float(scale))
+    wi, wf = np_score_ref(imp, float(scale))
+    assert np.array_equal(gi.numpy(), wi) and np.array_equal(gf.numpy(), wf)
+    # the reference kernel takes the bridge's 128-lane, 8-row padding
+    pad = np.zeros(((p + 7) // 8 * 8, 128), np.int32)
+    pad[:p, :t] = imp
+    pi, pf = ref_score_batch(jnp.asarray(pad), jnp.asarray(scale.reshape(1, 1)), interpret=True)
+    assert np.array_equal(gi.numpy(), np.asarray(pi)[:p, 0])
+    assert np.array_equal(gf.numpy(), np.asarray(pf)[:p, 0])
+    ci, cf = score_candidates(imp, float(scale), device="cpu")
+    assert np.array_equal(ci, wi) and np.array_equal(cf, wf)

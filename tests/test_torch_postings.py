@@ -111,6 +111,42 @@ def test_full_decode_matches_reference(stores):
         assert np.array_equal(full_decode(port, t, "cpu"), ref.postings(t))
 
 
+def test_full_decode_routes_optpfd_through_pfor(stores, monkeypatch):
+    from repro_torch.kernels.pfor import ops as pfor_ops
+
+    port, ref = stores
+    calls = []
+    unpack = pfor_ops.pfor_unpack
+    monkeypatch.setattr(pfor_ops, "pfor_unpack", lambda *a: calls.append(a[2]) or unpack(*a))
+    optpfd = [t for t in range(port.n_terms) if hybrid.CANDIDATES[port.tags[t]] == "optpfd"]
+    assert optpfd
+    for t in optpfd:
+        assert np.array_equal(full_decode(port, t, "cpu"), ref.postings(t))
+    assert calls == [int(port.lens[t]) for t in optpfd]  # one launch per decoded list
+
+
+def test_payload_half_matches_reference_on_learned_and_classical_terms(stores):
+    """Segment-granular bounds come from the learned codecs' own segment
+    tables; both stores must pack and bound the same impacts identically."""
+    port, ref = stores
+    quants = np.random.default_rng(4).integers(1, 256, int(port.lens.sum())).astype(np.uint32)
+    port.attach_payloads(quants, bits=8, scale=3.25)
+    ref.attach_payloads(quants, bits=8, scale=3.25)
+    assert all(np.array_equal(a, b) for a, b in zip(port.payload_streams, ref.payload_streams))
+    assert np.array_equal(port.ub_offsets, ref.ub_offsets)
+    assert np.array_equal(port.seg_ubs, ref.seg_ubs)
+    assert len(port.seg_ubs) > port.n_terms  # learned terms carry several segments
+    for t in range(port.n_terms):
+        assert port.term_ub(t) == ref.term_ub(t)
+        assert np.array_equal(port.term_seg_ubs(t), ref.term_seg_ubs(t))
+        assert np.array_equal(port.payloads(t), ref.payloads(t))
+    assert port.payload_size_bits() == ref.payload_size_bits()
+    with pytest.raises(ValueError):
+        port.attach_payloads(quants[:-1], bits=8, scale=1.0)
+    with pytest.raises(ValueError):
+        port.attach_payloads(quants, bits=4, scale=1.0)
+
+
 def _cands(rng, ids):
     """Sorted candidates: members, near misses, and ids outside the list."""
     members = rng.choice(ids, min(len(ids), 50), replace=False)
