@@ -30,7 +30,10 @@ card's name and power limit first, then one JSON line per phase:
   C      each kernel against its plain PyTorch version on the card, on the
          largest inputs phases A, B and R handed it: the difference, the
          device time (CUDA-graph replay) and the time of calls issued one
-         by one, and the bound from its bytes and operations; the time of
+         by one, and the bound from its bytes and operations; a second row
+         for membership at the shapes most of its launches saw (the K=4
+         shard) and for fused_topk on the tile with the most true
+         candidates (``case`` tells the rows apart); the time of
          Algorithm 3's whole candidate step on one batch, and of one dense
          arena pass
 
@@ -149,15 +152,19 @@ def host_probe(tm, cands):
 # ------------------------------------------------------------ helpers
 class Recorder:
     """Keeps the largest inputs each kernel wrapper was called with (by
-    element count) while the main path runs, for phase C.  It calls the
-    wrapper unchanged, so launch counts are the wrapper's own."""
+    element count) while the main path runs, for phase C, and, where a kernel
+    is given a second measure, the inputs that maximise it too (under
+    ``second``).  It calls the wrapper unchanged, so launch counts are the
+    wrapper's own."""
 
     def __init__(self):
         self.inputs: dict[str, tuple] = {}
         self.kwargs: dict[str, dict] = {}
+        self.second: dict[str, tuple] = {}
         self._size: dict[str, int] = {}
+        self._best: dict[str, int] = {}
 
-    def wrap(self, module, attr: str, kernel: str) -> None:
+    def wrap(self, module, attr: str, kernel: str, measure=None) -> None:
         import torch
 
         fn = getattr(module, attr)
@@ -167,9 +174,36 @@ class Recorder:
             if size > self._size.get(kernel, -1):
                 self._size[kernel], self.inputs[kernel] = size, args
                 self.kwargs[kernel] = kwargs
+            if measure is not None:
+                m = measure(args)
+                if m > self._best.get(kernel, -1):
+                    self._best[kernel], self.second[kernel] = m, (args, kwargs)
             return fn(*args, **kwargs)
 
         setattr(module, attr, recorded)
+
+
+def shape_frequency():
+    """A Recorder measure: how often this call's shapes have been seen so
+    far, so the inputs kept are those of the most frequent shapes."""
+    from collections import Counter
+
+    seen: Counter = Counter()
+
+    def measure(args) -> int:
+        key = tuple(tuple(a.shape) for a in args if hasattr(a, "shape"))
+        seen[key] += 1
+        return seen[key]
+
+    return measure
+
+
+def true_candidates(args) -> int:
+    """A Recorder measure of a fused_topk tile: its true (query, candidate)
+    cells, the candidates that are not NEVER padding."""
+    from repro_torch.kernels.fused_query.ref import NEVER
+
+    return int((args[11] != NEVER).sum())
 
 
 def cuda_ms(fn) -> float:
@@ -530,28 +564,34 @@ def phase_c(rec: Recorder, launch_counts: dict) -> list[dict]:
         log(f"[C] {rows[-1]}")
 
     # membership: bits may differ only where |logit - tau| <= NUMERIC_MARGIN (1 + |tau|)
-    qe, de, tau, bias = rec.inputs["membership"]
-    Q, E = qe.shape
-    D = de.shape[0]
-    got, want = membership_bitmask(qe, de, tau, bias), membership_bitmask_ref(qe, de, tau, bias)
-    logits = membership_logits_ref(qe, de, bias)
-    gap = (logits - tau[:, None]).abs()
-    near = gap <= NUMERIC_MARGIN * (1 + tau.abs()[:, None])
-    differ = bits_of(got ^ want, D)
-    outside = int((differ & ~near).sum())
-    if outside:
-        raise AssertionError(f"membership: {outside} bits differ outside the margin")
-    n_differ = int(differ.sum())
-    del logits
-    row("membership", "src/repro/kernels/membership/kernel.py:41",
-        lambda: membership_bitmask(qe, de, tau, bias),
-        lambda: membership_bitmask_ref(qe, de, tau, bias),
-        float(gap[differ].max()) if n_differ else 0.0,
-        4 * (Q * E + D * E + Q + Q * got.shape[1]), 2 * Q * D * E,
-        library=lambda: torch.matmul(qe, de.T),
-        extra={"shape": {"Q": Q, "D": D, "E": E}, "differing_bits": n_differ,
-               "bits_within_margin": int(near.sum()), "margin": NUMERIC_MARGIN})
-    del gap, near, differ
+    def membership_row(inputs, case):
+        qe, de, tau, bias = inputs
+        Q, E = qe.shape
+        D = de.shape[0]
+        got = membership_bitmask(qe, de, tau, bias)
+        want = membership_bitmask_ref(qe, de, tau, bias)
+        logits = membership_logits_ref(qe, de, bias)
+        gap = (logits - tau[:, None]).abs()
+        near = gap <= NUMERIC_MARGIN * (1 + tau.abs()[:, None])
+        differ = bits_of(got ^ want, D)
+        outside = int((differ & ~near).sum())
+        if outside:
+            raise AssertionError(f"membership ({case}): {outside} bits differ outside the margin")
+        n_differ = int(differ.sum())
+        err = float(gap[differ].max()) if n_differ else 0.0
+        n_near = int(near.sum())
+        del logits, gap, near, differ
+        row("membership", "src/repro/kernels/membership/kernel.py:41",
+            lambda: membership_bitmask(qe, de, tau, bias),
+            lambda: membership_bitmask_ref(qe, de, tau, bias),
+            err, 4 * (Q * E + D * E + Q + Q * got.shape[1]), 2 * Q * D * E,
+            library=lambda: torch.matmul(qe, de.T),
+            extra={"case": case, "shape": {"Q": Q, "D": D, "E": E},
+                   "differing_bits": n_differ, "bits_within_margin": n_near,
+                   "margin": NUMERIC_MARGIN})
+
+    membership_row(rec.inputs["membership"], "largest")
+    membership_row(rec.second["membership"][0], "most_launched_shape")
 
     maps, valid = rec.inputs["bitset"]
     (ka, kc), (ra, rc) = bitset_and_popcount(maps, valid), bitset_and_popcount_ref(maps, valid)
@@ -627,28 +667,33 @@ def phase_c_ranked(rec: Recorder, row) -> None:
         0.0, 4 * P * T + 8 * P, 0, library=lambda: imp.sum(1),
         extra={"shape": {"P": P, "T": T}})
 
-    tiles, kw = rec.inputs["fused_topk"], rec.kwargs["fused_topk"]
-    (gi, gs), (wi, ws) = fused_topk(*tiles, **kw), fused_topk_ref(*tiles, **kw)
-    if not (torch.equal(gi, wi) and torch.equal(gs, ws)):
-        raise AssertionError("fused_topk differs from its plain version")
-    wlen, cand = tiles[3], tiles[11]
-    Q, T, C = wlen.shape
-    W = tiles[7].shape[3]
-    lanes = wlen.clamp(0, W).long()
-    real = cand != NEVER  # (Q, C) true candidates
-    live_slot = (lanes > 0).any(dim=2)  # (Q, T)
-    slot_no = torch.arange(1, T + 1, device=wlen.device)
-    t_true = (live_slot.long() * slot_no).max(dim=1).values  # true T per row
-    rows_true = int(real.any(dim=1).sum())
-    cells = int((t_true * real.sum(dim=1)).sum())  # (q, t, c) wlen reads
-    n_lanes = int(lanes.sum())
-    need = (4 * cells + 16 * int((lanes > 0).sum()) + 16 * n_lanes + 8 * int(t_true.sum())
-            + 8 * int(real.sum()) + rows_true * (4 + 8 * kw["k"]))
-    row("fused_topk", "src/repro/kernels/fused_query/kernel.py:96",
-        lambda: fused_topk(*tiles, **kw), lambda: fused_topk_ref(*tiles, **kw),
-        0.0, need, 0,
-        extra={"shape": {"Q": Q, "T": T, "C": C, "W": W, "k": kw["k"],
-                         "true_rows": rows_true, "true_cells": cells, "lanes": n_lanes}})
+    def fused_row(tiles, kw, case):
+        (gi, gs), (wi, ws) = fused_topk(*tiles, **kw), fused_topk_ref(*tiles, **kw)
+        if not (torch.equal(gi, wi) and torch.equal(gs, ws)):
+            raise AssertionError(f"fused_topk ({case}) differs from its plain version")
+        wlen, cand = tiles[3], tiles[11]
+        Q, T, C = wlen.shape
+        W = tiles[7].shape[3]
+        lanes = wlen.clamp(0, W).long()
+        real = cand != NEVER  # (Q, C) true candidates
+        live_slot = (lanes > 0).any(dim=2)  # (Q, T)
+        slot_no = torch.arange(1, T + 1, device=wlen.device)
+        t_true = (live_slot.long() * slot_no).max(dim=1).values  # true T per row
+        rows_true = int(real.any(dim=1).sum())
+        cells = int((t_true * real.sum(dim=1)).sum())  # (q, t, c) wlen reads
+        n_lanes = int(lanes.sum())
+        need = (4 * cells + 16 * int((lanes > 0).sum()) + 16 * n_lanes + 8 * int(t_true.sum())
+                + 8 * int(real.sum()) + rows_true * (4 + 8 * kw["k"]))
+        row("fused_topk", "src/repro/kernels/fused_query/kernel.py:96",
+            lambda: fused_topk(*tiles, **kw), lambda: fused_topk_ref(*tiles, **kw),
+            0.0, need, 0,
+            extra={"case": case,
+                   "shape": {"Q": Q, "T": T, "C": C, "W": W, "k": kw["k"],
+                             "true_rows": rows_true, "true_candidates": int(real.sum()),
+                             "true_cells": cells, "lanes": n_lanes}})
+
+    fused_row(rec.inputs["fused_topk"], rec.kwargs["fused_topk"], "largest")
+    fused_row(*rec.second["fused_topk"], "most_true_candidates")
 
 
 def dense_line(rec: Recorder) -> dict:
@@ -728,13 +773,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(reports)})
 
     rec = Recorder()
-    rec.wrap(algorithms, "membership_bitmask", "membership")
+    rec.wrap(algorithms, "membership_bitmask", "membership", shape_frequency())
     rec.wrap(algorithms, "bitset_and_popcount", "bitset")
     rec.wrap(guided_ops, "probe_batch", "guided_search")
     rec.wrap(decode_ops, "decode_batch", "plm_decode")
     rec.wrap(pfor_ops, "pfor_unpack", "pfor")
     rec.wrap(bm25_ops, "score_batch", "bm25_score")
-    rec.wrap(fused_ops, "fused_topk", "fused_topk")
+    rec.wrap(fused_ops, "fused_topk", "fused_topk", true_candidates)
     rec.wrap(dense, "dense_impl", "dense")
 
     def launches() -> dict[str, int]:

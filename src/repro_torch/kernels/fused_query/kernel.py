@@ -16,7 +16,8 @@ import torch
 from repro_torch.kernels.cuda import I, P, CudaKernel, check
 from repro_torch.kernels.fused_query.ref import fused_topk_ref
 
-KERNEL = CudaKernel("fused_topk", "fused_topk_launch", [P] * 17 + [I] * 6)
+KERNEL = CudaKernel("fused_topk", "fused_topk_launch", [P] * 18 + [I] * 6)
+SLICE = 1024  # candidates per select block of csrc/fused_topk.cu
 
 _NAMES = ("width", "cmin", "rlo", "wlen", "start", "base", "slope", "clo", "chi",
           "plo", "phi", "cand", "part", "floor")
@@ -48,7 +49,11 @@ def fused_topk(width, cmin, rlo, wlen, start, base, slope, clo, chi, plo, phi,
         return out_ids, out_scores
     if C == 0:
         return out_ids.fill_(-1), out_scores.zero_()
-    alive = torch.empty((Q, C), dtype=torch.int32, device=dev)  # the rows' score scratch
-    KERNEL.launch(*(t.data_ptr() for t in tiles), alive.data_ptr(), out_ids.data_ptr(),
-                  out_scores.data_ptr(), Q, T, C, W, k, pbits)
+    # scratch: each slice's sorted top min(k, SLICE) keys, and the merge's
+    # position in each of them
+    S = -(-C // SLICE)
+    lists = torch.empty((Q, S, min(k, SLICE)), dtype=torch.int64, device=dev)
+    pos = torch.empty((Q, S), dtype=torch.int32, device=dev)
+    KERNEL.launch(*(t.data_ptr() for t in tiles), lists.data_ptr(), pos.data_ptr(),
+                  out_ids.data_ptr(), out_scores.data_ptr(), Q, T, C, W, k, pbits)
     return out_ids, out_scores

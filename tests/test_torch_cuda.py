@@ -87,12 +87,15 @@ def _unpack_np(lo, hi, shift, width):
     return ((lo >> shift) | up) & ((np.uint64(1) << width) - np.uint64(1))
 
 
-def fused_tiles(rng, Q=6, T=3, C=256, W=4, pbits=8):
+def fused_tiles(rng, Q=6, T=3, C=256, W=4, pbits=8, k=None, tied=False):
     """Random fused_topk tiles: a row of NEVER padding only, rows with
     candidates padded by NEVER, windows of 0..W lanes (garbage past wlen),
     about half the (term, candidate) windows holding a matching lane, and
     small partial scores and impacts (0..3) so that ties are common; row 2
-    matches nothing and ties every candidate."""
+    matches nothing and ties every candidate.  With ``tied`` every impact is
+    0 and every candidate's partial score 3, so each row ties all its
+    candidates while the lanes are still walked.  ``k`` defaults to
+    min(12, C)."""
     width = rng.integers(0, 25, (Q, T)).astype(np.uint32)
     cmin = rng.integers(-50, 1, (Q, T)).astype(np.int32)
     rlo = rng.integers(0, 5000, (Q, T, C)).astype(np.int32)
@@ -130,27 +133,44 @@ def fused_tiles(rng, Q=6, T=3, C=256, W=4, pbits=8):
     base = np.where(hit, base, rng.integers(0, 1 << 20, (Q, T, C))).astype(np.int32)
     floor = rng.integers(0, 4, (Q, 1)).astype(np.int32)
     floor[2] = 0
+    if tied:
+        plo[:], phi[:] = 0, 0
+        part[cand != NEVER] = 3
+        floor[:] = np.minimum(floor, 2)
     return (width, cmin, rlo, wlen, start, base, slope, clo, chi, plo, phi, cand, part,
-            floor), dict(k=min(12, C), pbits=pbits)
+            floor), dict(k=min(12, C) if k is None else k, pbits=pbits)
+
+
+# (Q, D, E): every Q in {1, 63, 65, 300, 398}, D in {31, 4097, 5000, 132000}
+# and E in {16, 48, 64, 128} at least once; ragged query and doc tiles (128 x
+# 128 in the kernel, query warps of 32 and 16 rows), E = 50 on the kernel's
+# 4-byte copy path and E = 200 past the main path's width
+MEMBERSHIP_SHAPES = [(300, 5000, 128), (1, 31, 16), (63, 4097, 48), (65, 4097, 64),
+                     (398, 132000, 128), (65, 31, 128), (1, 132000, 64), (63, 132000, 16),
+                     (398, 4097, 48), (65, 4097, 50), (130, 300, 200)]
 
 
 @pytest.mark.cuda
-def test_membership_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("q,d,e", MEMBERSHIP_SHAPES)
+def test_membership_kernel_matches_plain_on_card(q, d, e):
     dev = _card()
     rng = np.random.default_rng(1)
-    q, d, e = 300, 5000, 128
     qe = (rng.standard_normal((q, e)) * 0.5).astype(np.float32)
     de = (rng.standard_normal((d, e)) * 0.5).astype(np.float32)
     logits = qe.astype(np.float64) @ de.astype(np.float64).T + 0.05
     tau = rng.standard_normal(q).astype(np.float32)
-    tau[: q // 4] = logits[np.arange(q // 4), rng.integers(0, d, q // 4)].astype(np.float32)
+    n_on = max(1, q // 4)  # thresholds exactly on a logit: the comparison's boundary
+    tau[:n_on] = logits[np.arange(n_on), rng.integers(0, d, n_on)].astype(np.float32)
     args = (_t(qe).to(dev), _t(de).to(dev), _t(tau).to(dev), 0.05)
     got = membership_bitmask(*args).cpu().numpy().view(np.uint32)
     want = membership_bitmask_ref(*args).cpu().numpy().view(np.uint32)
+    assert got.shape == want.shape == (q, -(-d // 32))
     differ = np.unpackbits((got ^ want).view(np.uint8), axis=-1, bitorder="little")[:, :d]
     near = np.abs(logits - tau[:, None]) <= NUMERIC_MARGIN * (1 + np.abs(tau[:, None]))
     assert not (differ.astype(bool) & ~near).any()
-    assert (got[:, -1] >> np.uint32(d % 32)).max() == 0  # tail bits zero
+    if d % 32:
+        assert (got[:, -1] >> np.uint32(d % 32)).max() == 0  # tail bits zero
+    assert 0 < np.unpackbits(got.view(np.uint8)).sum() < q * d  # both verdicts occur
 
 
 @pytest.mark.cuda
@@ -240,17 +260,38 @@ def test_bm25_score_kernel_matches_plain_on_card():
         assert torch.equal(gi, wi) and torch.equal(gf, wf)
 
 
+MANY_SLICES = 2**16 + 37  # 65 select blocks of 1,024 candidates, the last one ragged
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [dict(), dict(Q=9, T=5, C=1024, W=1), dict(C=128, W=8)],
-                         ids=["base", "wide-c", "w8"])
+@pytest.mark.parametrize("shape", [
+    dict(), dict(Q=9, T=5, C=1024, W=1), dict(C=128, W=8),
+    dict(C=MANY_SLICES, W=1, k=10),
+    dict(C=MANY_SLICES, W=2, k=1, tied=True),
+    dict(C=MANY_SLICES, W=2, k=10, tied=True),
+    dict(C=MANY_SLICES, W=1, k=1025, tied=True),
+    dict(C=MANY_SLICES, W=1, k=MANY_SLICES, tied=True),
+    dict(C=MANY_SLICES, W=1, k=40, floor=12),
+], ids=["base", "wide-c", "w8", "slices-k10", "tied-k1", "tied-k10", "tied-slice+1",
+        "tied-kC", "floors"])
 def test_fused_topk_kernel_matches_plain_on_card(shape):
     dev = _card()
+    shape = dict(shape)
+    floor = shape.pop("floor", None)
     tiles, kw = fused_tiles(np.random.default_rng(8), **shape)
+    if floor is not None:  # few candidates beat it: rows run out before k
+        tiles[13][:] = floor
     args = [_t(a).to(dev) for a in tiles]
     gi, gs = fused_topk(*args, **kw)
     wi, ws = fused_topk_ref(*args, **kw)
     assert torch.equal(gi, wi) and torch.equal(gs, ws)
     assert (gi[1] == -1).all() and (gs[0] > 0).any()
+    if floor is not None:
+        assert ((ws > 0).sum(1) < kw["k"]).all()
+    if shape.get("tied"):  # one score per row: ascending ids across slice edges
+        n = int((ws[0] > 0).sum())
+        assert n == min(kw["k"], int((args[11][0] != NEVER).sum()))
+        assert (gs[0, :n] == 3).all() and (gi[0, 1:n] > gi[0, : n - 1]).all()
 
 
 @pytest.mark.cuda

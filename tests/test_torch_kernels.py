@@ -91,21 +91,34 @@ def test_membership_plain_matches_pallas(q_tiles, d_tiles, e):
     _assert_bits_within_margin(got, want, qe, de, tau, bias, de.shape[0])
 
 
-def test_membership_ragged_matches_reference_ops():
-    """Ragged Q and D: the reference pads (tau=+inf rows, 512-doc tiles) and
-    masks the tail word; the port's wrapper returns the same words."""
-    rng = np.random.default_rng(7)
-    te = rng.standard_normal((300, 48)).astype(np.float32)
-    de = rng.standard_normal((1111, 48)).astype(np.float32)
+def _ragged_membership(rng, n_q, e, scale=1.0):
+    """Ragged Q and D (1,111 docs, 35 words): the reference pads (tau=+inf
+    rows, 512-doc tiles) and masks the tail word; the port's wrapper must
+    return the same words, within the margin."""
+    te = rng.standard_normal((300, e)).astype(np.float32) * np.float32(scale)
+    de = rng.standard_normal((1111, e)).astype(np.float32) * np.float32(scale)
     tau_all = rng.standard_normal(300).astype(np.float32)
-    terms = rng.integers(0, 300, 45).astype(np.int32)
+    terms = rng.integers(0, 300, n_q).astype(np.int32)
     params = {"term_embed": {"table": jnp.asarray(te)}, "doc_embed": {"table": jnp.asarray(de)},
               "bias": jnp.float32(0.0)}
     want = np.asarray(ref_score_terms(params, jnp.asarray(terms), jnp.asarray(tau_all)))
     got = _words(membership_bitmask(_t(te[terms]), _t(de), _t(tau_all[terms]), 0.0))
-    assert got.shape == want.shape == (45, 35)
+    assert got.shape == want.shape == (n_q, 35)
     assert (got[:, -1] >> np.uint32(1111 % 32)).max() == 0  # tail bits zero
     _assert_bits_within_margin(got, want, te[terms], de, tau_all[terms], 0.0, 1111)
+    return got
+
+
+def test_membership_ragged_matches_reference_ops():
+    _ragged_membership(np.random.default_rng(7), 45, 48)
+
+
+@pytest.mark.parametrize("n_q,e", [(65, 96), (63, 16)])
+def test_membership_ragged_rows_match_reference_ops(n_q, e):
+    """Q around the kernel's 32- and 16-row query warps, E off its 16-dim
+    stage."""
+    got = _ragged_membership(np.random.default_rng(n_q + e), n_q, e, scale=0.3)
+    assert 0 < np.unpackbits(got.view(np.uint8)).sum() < n_q * 1111  # both verdicts occur
 
 
 def test_pack_bool_words_little_endian():
