@@ -21,6 +21,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.postings.search import byte_chunks
+
 # the dense loop keeps a (Q, n_docs) int32 accumulator plus the impact table
 # in device memory; past these sizes the bucketed kernel path wins
 DENSE_MAX_DOCS = 1 << 17
@@ -73,14 +75,15 @@ class DeviceArena:
         lens = np.zeros(n_terms, np.int64)
         table = np.zeros((n_terms + 1, n_docs), np.int32)
         max_imp = 0
-        for t in range(n_terms):
-            if src.n(t) <= 0:
-                continue
-            ids, q = src.full(t)
-            lens[t] = len(ids)
-            table[t, np.asarray(ids, np.int64)] = q
-            if len(q):
-                max_imp = max(max_imp, int(np.max(q)))
+        terms = [t for t in range(n_terms) if src.n(t) > 0]
+        for chunk in byte_chunks(terms, [4 * src.n(t) for t in terms]):
+            with src.prefetch(chunk):  # one decode launch per kernel a chunk
+                for t in chunk:
+                    ids, q = src.full(t)
+                    lens[t] = len(ids)
+                    table[t, np.asarray(ids, np.int64)] = q
+                    if len(q):
+                        max_imp = max(max_imp, int(np.max(q)))
         table = table.astype(_impact_dtype(max_imp))
         arena = cls(
             n_docs=int(n_docs),

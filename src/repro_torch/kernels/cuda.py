@@ -17,6 +17,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -129,3 +130,18 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int, device: tor
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected rank {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def staging(n: int, device: torch.device) -> torch.Tensor:
+    """(n,) int32 host buffer for one upload: pinned when it goes to a card,
+    so one asynchronous copy moves a whole batch."""
+    return torch.empty(n, dtype=torch.int32, pin_memory=device.type == "cuda")
+
+
+def fetch(res: torch.Tensor) -> np.ndarray:
+    """One device-to-host copy of a result, through pinned memory from a card."""
+    if res.device.type == "cpu":
+        return res.numpy()
+    host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+    host.copy_(res)
+    return host.numpy()

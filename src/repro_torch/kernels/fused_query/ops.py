@@ -152,6 +152,43 @@ def _peel(src, terms, k, required, floor, cutoff, stats):
     return _Pending(np.asarray(cands, np.int64), partial, tail, k, floor)
 
 
+def _peel_decodes(src, items, cutoff) -> list[int]:
+    """Terms ``_peel`` decodes in full for these items, as far as the lists'
+    lengths and bounds tell before any is decoded: every term of an
+    exhaustive item, the required seed or the first essential term, and
+    every optpfd term (the peel and the probe tail decode such a term in
+    full whenever they touch it)."""
+    out: list[int] = []
+    for terms, k, required, floor in items:
+        live = sorted({int(t) for t in terms if src.n(int(t)) > 0})
+        req_all = {int(t) for t in required}
+        req = [t for t in req_all if src.n(t) > 0]
+        if k <= 0 or not live or len(req) < len(req_all):
+            continue
+        if not req and sum(src.n(t) for t in live) <= cutoff:
+            out += live
+            continue
+        out += [t for t in live if src.decode_kernel(t) == "pfor"]
+        if req:
+            out.append(min(req, key=src.n))
+        elif sum(src.ub(t) for t in live) >= floor + 1:
+            out.append(min(live, key=lambda t: (-src.ub(t), t)))
+    return out
+
+
+def _tail_decodes(src, pend) -> list[int]:
+    """Tail terms ``_term_lanes`` resolves against a full decode: classical
+    codecs, and learned terms without guided probes or with a correction
+    width outside 1..31."""
+    out: list[int] = []
+    for _, p in pend:
+        for t in p.tail:
+            tm = src.term_model(t)
+            if tm is None or not 0 < tm.width < 32:
+                out.append(t)
+    return out
+
+
 def _window_ranks(rlo, wlen):
     """Flatten per-candidate [rlo, rlo+wlen) brackets into one rank vector."""
     lens = np.asarray(wlen, np.int64)
@@ -286,24 +323,26 @@ def fused_topk_batch(src, items, *, exhaustive_cutoff: int = 2048, stats=None):
     inflight = _dispatch_dense(arena, dense_items, stats) if dense_items else []
 
     pend: list[tuple[int, _Pending]] = []
-    for i in legacy:
-        terms, k, required, floor = items[i]
-        r = _peel(src, terms, k, required, floor, exhaustive_cutoff, stats)
-        if isinstance(r, _Pending):
-            pend.append((i, r))
-        else:
-            results[i] = r
+    # the lists the peel decodes in full are fetched together up front, and
+    # those the probe tail decodes before its tiles are built
+    with src.prefetch(_peel_decodes(src, [items[i] for i in legacy], exhaustive_cutoff)):
+        for i in legacy:
+            terms, k, required, floor = items[i]
+            r = _peel(src, terms, k, required, floor, exhaustive_cutoff, stats)
+            if isinstance(r, _Pending):
+                pend.append((i, r))
+            else:
+                results[i] = r
 
-    if pend:
         # candidate counts are heavy-tailed: group rows by power-of-two
         # candidate bucket, one launch per populated bucket, each with a
         # tight (T, C, W) tile for its rows
-        pbits = int(src.payload_bits)
         groups: dict[int, list[tuple[int, _Pending]]] = {}
         for i, p in pend:
             groups.setdefault(_bucket(len(p.cands), _CANDQ), []).append((i, p))
-        for C, grp in sorted(groups.items()):
-            _dispatch_group(src, grp, C, pbits, stats, results)
+        with src.prefetch(_tail_decodes(src, pend)):
+            for C, grp in sorted(groups.items()):
+                _dispatch_group(src, grp, C, int(src.payload_bits), stats, results)
 
     for fut in inflight:  # only now wait for the dense outputs
         _extract_dense(fut, stats, results)

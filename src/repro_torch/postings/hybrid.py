@@ -21,7 +21,7 @@ whole-list bound.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -155,6 +155,9 @@ class HybridPostings:
     ub_offsets: np.ndarray | None = None  # (n_terms+1,) int64 into seg_ubs
     seg_ubs: np.ndarray | None = None  # per-segment max quantized impact (u32)
     term_ubs: np.ndarray | None = None  # (n_terms,) int64 derived whole-list max
+    # parsed optpfd block headers per term, walked once per process
+    # (postings/search.py:decode_terms fills it)
+    block_tables: dict = field(default_factory=dict, repr=False, compare=False)
 
     @classmethod
     def build(

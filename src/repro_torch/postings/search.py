@@ -34,9 +34,10 @@ accounting (``ProbeStats``) so benchmarks can compare the stream bytes a
 guided probe touches against what a full decode would have read.  Its
 ε-window probes run as one batched ``guided_search`` call per (term,
 candidate set) on the prober's ``device``: the CUDA kernel on a card, the
-plain PyTorch version on the CPU.  Full decodes (``full_decode``) run on
-the ``plm_decode`` kernel for learned-codec terms and on the ``pfor``
-kernel for optpfd terms the same way.
+plain PyTorch version on the CPU.  Full decodes (``decode_terms``, and
+``full_decode`` for one term) run on the ``plm_decode`` kernel for
+learned-codec terms and on the ``pfor`` kernel for optpfd terms the same
+way, one launch per kernel for a whole batch of lists.
 """
 from __future__ import annotations
 
@@ -185,22 +186,80 @@ def flatten_windows(
     return seg, r_lo, lens, probe_of, col, flat_ranks
 
 
-def full_decode(store: HybridPostings, t: int, device: torch.device) -> np.ndarray:
-    """All postings of term t: learned-codec streams on the ``plm_decode``
-    kernel and optpfd streams on the ``pfor`` kernel on ``device`` (their
-    plain versions on the CPU), the other classical codecs by the host
-    decoder."""
-    n = int(store.lens[t])
+# decoded ids one decode launch produces at most (64 MiB of int32): the
+# misses of a Robust-scale batch on one shard fit in one launch, and the
+# host and device buffers of a launch stay bounded
+DECODE_CHUNK_BYTES = 64 << 20
+
+
+def decode_kernel(store: HybridPostings, t: int) -> str | None:
+    """The kernel a full decode of term t runs on: 'pfor' (optpfd), 'plm'
+    (plm, rmi), or None (an empty list, or a codec the host decodes)."""
+    if int(store.lens[t]) == 0:
+        return None
     tag = int(store.tags[t])
-    if n and tag in _LEARNED_TAGS:
-        from repro_torch.kernels.plm_decode.ops import decode_lists
+    if tag == _OPTPFD_TAG:
+        return "pfor"
+    return "plm" if tag in _LEARNED_TAGS else None
 
-        return decode_lists([store.streams[t][1:]], [n], device=device)[0]  # strip hybrid tag
-    if n and tag == _OPTPFD_TAG:
-        from repro_torch.kernels.pfor.ops import decode_lists
 
-        return decode_lists([store.streams[t][1:]], [n], device=device)[0]
-    return store.postings(t)
+def decode_terms(
+    store: HybridPostings, terms, device: torch.device | str
+) -> list[np.ndarray]:
+    """All postings of each term, in order: every optpfd term of a chunk in
+    one ``pfor`` launch and every plm/rmi term in one ``plm_decode`` launch
+    on ``device`` (their plain versions on the CPU), the other classical
+    codecs by the host decoder.  Chunks hold at most ``DECODE_CHUNK_BYTES``
+    of decoded ids (a longer list is a chunk of its own).  The optpfd block
+    headers of a term are walked once and kept in ``store.block_tables``."""
+    from repro_torch.kernels.pfor import ops as pfor_ops
+    from repro_torch.kernels.plm_decode import ops as plm_ops
+
+    terms = [int(t) for t in terms]
+    out: list[np.ndarray | None] = [None] * len(terms)
+    groups: dict[str, list[int]] = {"pfor": [], "plm": []}
+    for j, t in enumerate(terms):
+        kernel = decode_kernel(store, t)
+        if kernel is None:
+            out[j] = store.postings(t)
+        else:
+            groups[kernel].append(j)
+    for kind, idx in groups.items():
+        for chunk in byte_chunks(idx, [4 * int(store.lens[terms[j]]) for j in idx]):
+            ts = [terms[j] for j in chunk]
+            streams = [store.streams[t][1:] for t in ts]  # strip the hybrid tag
+            lens = [int(store.lens[t]) for t in ts]
+            if kind == "pfor":
+                tables = store.block_tables
+                for t, w, n in zip(ts, streams, lens):
+                    if t not in tables:
+                        tables[t] = pfor_ops.parse_stream(w, n)
+                got = pfor_ops.decode_lists(streams, lens, device=device,
+                                            tables=[tables[t] for t in ts])
+            else:
+                got = plm_ops.decode_lists(streams, lens, device=device)
+            for j, ids in zip(chunk, got):
+                out[j] = ids
+    return out
+
+
+def byte_chunks(idx: list[int], nbytes: list[int]) -> list[list[int]]:
+    """Consecutive runs of ``idx`` whose ``nbytes`` sum to at most
+    DECODE_CHUNK_BYTES each (a larger item is a run of its own)."""
+    runs: list[list[int]] = []
+    size = 0
+    for j, b in zip(idx, nbytes):
+        if not runs or size + b > DECODE_CHUNK_BYTES:
+            runs.append([])
+            size = 0
+        runs[-1].append(j)
+        size += b
+    return runs
+
+
+def full_decode(store: HybridPostings, t: int, device: torch.device) -> np.ndarray:
+    """All postings of term t: ``decode_terms`` of one term."""
+    return decode_terms(store, [t], device)[0]
 
 
 @dataclass

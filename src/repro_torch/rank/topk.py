@@ -34,7 +34,7 @@ bm25_score kernel) — at that size the bookkeeping costs more than it saves.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Protocol, Sequence
+from typing import Callable, ContextManager, Protocol, Sequence
 
 import numpy as np
 
@@ -54,6 +54,11 @@ class RankedSource(Protocol):
 
     def probe(self, t: int, cands: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """-> (found bool, impacts int64 — 0 where absent) per sorted candidate."""
+        ...
+
+    def prefetch(self, terms: Sequence[int]) -> ContextManager:
+        """Context in which the full lists of ``terms`` are decoded together
+        (one launch per decode kernel) and ``full`` reads them."""
         ...
 
     def seg_ub(self, t: int, cands: np.ndarray) -> np.ndarray:
@@ -226,7 +231,8 @@ def _exhaustive(
     With a ``batch_scorer`` the (candidate, term) impact matrix reduces on
     the bm25_score kernel; integer sums make both paths bit-equal.
     """
-    decoded = [src.full(t) for t in terms]
+    with src.prefetch(terms):
+        decoded = [src.full(t) for t in terms]
     stats.scored_postings += sum(len(ids) for ids, _ in decoded)
     uids = np.unique(np.concatenate([ids for ids, _ in decoded]))
     if len(uids) == 0:

@@ -261,6 +261,8 @@ class BooleanEngine:
                   "window_bytes", "metadata_bytes", "fallback_bytes", "full_equiv_bytes")
         return {
             "decode_cache": cache,
+            "prefetch": {k: sum(s["prefetch"][k] for s in per) for k in per[0]["prefetch"]}
+            if per else None,
             "guided": ProbeStats(**{f: sum(int(getattr(g, f)) for g in guided) for f in fields}).as_dict()
             if guided else None,
             "ranked": self._collect_ranked(),

@@ -48,6 +48,11 @@ class CostLRU(Generic[K, V]):
         self.hits += 1
         return entry[0]
 
+    def peek(self, key: K) -> V | None:
+        """The cached value, or None, leaving counters and recency as they are."""
+        entry = self._entries.get(key)
+        return None if entry is None else entry[0]
+
     def put(self, key: K, value: V, cost: int) -> None:
         cost = max(int(cost), 1)
         old = self._entries.pop(key, None)

@@ -17,9 +17,11 @@ docs per word), which is what leaves the device: 32x fewer bytes than a bool
 mask.  ``execute`` verifies each query's candidates exactly — guided
 ε-window probes for learned-codec terms, galloping search over full decodes
 otherwise; full decodes of learned-codec lists go through the ``plm_decode``
-kernel, of optpfd lists through the ``pfor`` kernel — and returns a *packed
-bitmap* over local doc ids, word-copyable into the global bitmap because
-shard boundaries are aligned to 32-doc words (``shard_ranges``).
+kernel, of optpfd lists through the ``pfor`` kernel, every list the batch
+may need fetched up front in one launch per kernel (``batch_decodes``) —
+and returns a *packed bitmap* over local doc ids, word-copyable into the
+global bitmap because shard boundaries are aligned to 32-doc words
+(``shard_ranges``).
 
 ``query_topk_local`` is the ranked path: the shard runs MaxScore dynamic
 pruning (repro_torch.rank.topk) against its tier-2 payload streams — full
@@ -34,6 +36,9 @@ resident impact arena where the shard fits one.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+from dataclasses import dataclass
+
 import numpy as np
 
 from repro_torch.common.config import LearnedIndexConfig
@@ -42,7 +47,7 @@ from repro_torch.core import algorithms as alg
 from repro_torch.core.learned_bloom import LearnedBloom
 from repro_torch.index.build import InvertedIndex, slice_index
 from repro_torch.index.intersect import gallop_membership
-from repro_torch.postings.search import full_decode
+from repro_torch.postings.search import decode_kernel, decode_terms, full_decode
 from repro_torch.rank.score import TopKResult
 from repro_torch.rank.topk import RankedStats, topk_query
 from repro_torch.serve.cache import CostLRU
@@ -66,6 +71,22 @@ def shard_ranges(n_docs: int, k: int, *, align: int = WORD_BITS) -> list[tuple[i
         cuts.append(min(max(c, cuts[-1]), n_docs))
     cuts.append(n_docs)
     return [(cuts[i], cuts[i + 1]) for i in range(k)]
+
+
+@dataclass
+class PrefetchStats:
+    """Batched full decodes (``ShardEngine.batch_decodes``): the prefetches
+    that decoded anything, the lists they decoded, the lists verification
+    took from the batch map instead of decoding them, and the decoded lists
+    the batch never read — decodes the per-term path would not have made."""
+
+    calls: int = 0
+    decoded: int = 0
+    taken: int = 0
+    unused: int = 0
+
+    def as_dict(self) -> dict[str, int]:
+        return {k: int(getattr(self, k)) for k in ("calls", "decoded", "taken", "unused")}
 
 
 def slice_bloom(lb: LearnedBloom, lo: int, hi: int) -> LearnedBloom:
@@ -126,6 +147,12 @@ class ShardEngine:
         self.ranked_stats = RankedStats()
         self._dfs = inv.dfs  # local document frequencies, materialized once
         self._decode_cache: CostLRU[int, np.ndarray] = CostLRU(cfg.cache_budget_bytes)
+        # the open batch's prefetched lists (batch_decodes), and those of them
+        # it decoded that verification has not read yet
+        self._batch_lists: dict[int, np.ndarray] = {}
+        self._unread: set[int] = set()
+        self._batch_depth = 0
+        self.prefetch_stats = PrefetchStats()
         self.state = alg.build_engine(lb.model, lb.tau, inv, block_size=li_cfg.block_size)
 
     @classmethod
@@ -193,15 +220,63 @@ class ShardEngine:
         return self._guided
 
     def _postings(self, t: int) -> np.ndarray:
-        """Fully-decoded postings of term t, via the cost-budgeted LRU."""
+        """Fully-decoded postings of term t, via the cost-budgeted LRU; on a
+        miss from the open batch's prefetched lists when they hold it."""
         store = self.tier2
         if store is None:
             return self.inv.postings(t)
         hit = self._decode_cache.get(t)
         if hit is None:
-            hit = full_decode(store, t, self.device)
+            hit = self._batch_lists.get(t)
+            if hit is None:
+                hit = full_decode(store, t, self.device)
+            else:
+                self.prefetch_stats.taken += 1
+                self._unread.discard(t)
             self._decode_cache.put(t, hit, hit.nbytes)
         return hit
+
+    @contextmanager
+    def batch_decodes(self, terms=()):
+        """Scope of one batch's full decodes: ``terms`` are fetched together
+        up front (``_postings_many``) and kept until the outermost scope
+        ends, so a list the LRU evicts mid-batch is never decoded twice."""
+        self._batch_depth += 1
+        try:
+            self._postings_many(terms)
+            yield
+        finally:
+            self._batch_depth -= 1
+            if self._batch_depth == 0:
+                self.prefetch_stats.unused += len(self._unread)
+                self._unread.clear()
+                self._batch_lists.clear()
+
+    def _postings_many(self, terms) -> None:
+        """Fetch the full lists of ``terms`` into the open batch's map: a
+        reference to the array the decode LRU holds (peeked, so its counters
+        and recency stay as they are), else one ``decode_terms`` call for all
+        the rest.  Only terms whose decode runs on a kernel (optpfd, plm,
+        rmi) are fetched: a host codec gains nothing from a batch."""
+        store = self.tier2
+        if store is None:
+            return
+        if not self._batch_depth:
+            raise RuntimeError("_postings_many outside batch_decodes")
+        todo = []
+        for t in dict.fromkeys(int(t) for t in terms):
+            if t in self._batch_lists or decode_kernel(store, t) is None:
+                continue
+            hit = self._decode_cache.peek(t)
+            if hit is not None:
+                self._batch_lists[t] = hit
+            else:
+                todo.append(t)
+        if todo:
+            self.prefetch_stats.calls += 1
+            self.prefetch_stats.decoded += len(todo)
+            self._batch_lists.update(zip(todo, decode_terms(store, todo, self.device)))
+            self._unread.update(todo)
 
     # ------------------------------------------------------------- ranked
     @property
@@ -313,20 +388,47 @@ class ShardEngine:
             return out
         if mask is None:
             mask = self.candidate_mask(q)
-        for i in range(n_queries):
-            if run is not None and not run[i]:
-                continue
-            if not self.cfg.verified:
-                out[i] = mask[i]
-                continue
-            ids = unpack_row(mask[i], self.n_docs)
-            if qplans is not None:
-                routes = plan.routes[i] if plan is not None else None
-                ids = self._verify_terms(qplans[i].terms, ids, routes)
-            else:
-                ids = self._verify(q[i], ids)
-            out[i] = pack_ids(ids, self.n_docs)
+        prefetch = self._verify_decodes(q, plan, qplans, mask) if self.cfg.verified else ()
+        with self.batch_decodes(prefetch):
+            for i in range(n_queries):
+                if run is not None and not run[i]:
+                    continue
+                if not self.cfg.verified:
+                    out[i] = mask[i]
+                    continue
+                ids = unpack_row(mask[i], self.n_docs)
+                if qplans is not None:
+                    routes = plan.routes[i] if plan is not None else None
+                    ids = self._verify_terms(qplans[i].terms, ids, routes)
+                else:
+                    ids = self._verify(q[i], ids)
+                out[i] = pack_ids(ids, self.n_docs)
         return out
+
+    def _verify_decodes(self, q, plan, qplans, mask) -> list[int]:
+        """Terms this batch's verification may decode in full: for each
+        query that runs, has candidates and no locally absent term, its
+        optpfd terms and the learned terms its plan routes to 'decode' (all
+        learned terms without guided probes).  A query whose survivors run
+        out before a term leaves that list unread."""
+        store, guided = self.tier2, self.guided
+        if store is None:
+            return []
+        run = plan.run if plan is not None else None
+        terms: list[int] = []
+        for i in range(q.shape[0]):
+            if (run is not None and not run[i]) or not mask[i].any():
+                continue
+            ts = qplans[i].terms if qplans is not None else {int(t) for t in q[i] if t >= 0}
+            if not ts or int(self._dfs[np.asarray(list(ts))].min()) == 0:
+                continue
+            routes = plan.routes[i] if plan is not None and qplans is not None else None
+            for t in ts:
+                kernel = decode_kernel(store, t)
+                if kernel == "pfor" or (kernel == "plm" and (
+                        guided is None or (routes or {}).get(t) == "decode")):
+                    terms.append(t)
+        return terms
 
     # ------------------------------------------------------------- verify
     def _verify(self, query: np.ndarray, ids: np.ndarray) -> np.ndarray:
@@ -375,12 +477,14 @@ class ShardEngine:
         return bits
 
     def serving_stats(self) -> dict[str, dict | None]:
-        """Decode-cache behaviour, guided-probe byte accounting, ranked
-        pruning counters and the arena's residence counters."""
+        """Decode-cache behaviour, batched full decodes, guided-probe byte
+        accounting, ranked pruning counters and the arena's residence
+        counters."""
         arena = self._ranked._arena if self._ranked is not None else None
         return {
             "range": {"lo": int(self.lo), "hi": int(self.hi)},
             "decode_cache": self._decode_cache.stats(),
+            "prefetch": self.prefetch_stats.as_dict(),
             "guided": self._guided.stats.as_dict() if self._guided is not None else None,
             "ranked": self.ranked_stats.as_dict() if self.ranked_stats.queries else None,
             "arena": arena.counters.as_dict() if arena else None,
@@ -390,6 +494,7 @@ class ShardEngine:
         """Zero the probe/cache/ranked accounting window; cached decodes stay
         resident so the next pass measures warm serving."""
         self._decode_cache.reset_counters()
+        self.prefetch_stats = PrefetchStats()
         self.ranked_stats = RankedStats()
         if self._guided is not None:
             self._guided.reset_stats()
@@ -427,6 +532,11 @@ class _RankedSource:
 
     def full(self, t: int) -> tuple[np.ndarray, np.ndarray]:
         return self._sh._postings(t), self._payloads(t)
+
+    def prefetch(self, terms):
+        """Context in which the full lists of ``terms`` are fetched together
+        (``ShardEngine.batch_decodes``)."""
+        return self._sh.batch_decodes(terms)
 
     def probe(self, t: int, cands: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         g = self._sh.guided
@@ -484,6 +594,10 @@ class _RankedSource:
     def postings(self, t: int) -> np.ndarray:
         """Fully-decoded ids only (host rank fallback for classical codecs)."""
         return self._sh._postings(t)
+
+    def decode_kernel(self, t: int) -> str | None:
+        """The kernel a full decode of term t runs on ('pfor', 'plm'), or None."""
+        return decode_kernel(self._store, t)
 
     def term_model(self, t: int):
         """Guided ε-window rank model, or None (classical codec/no guiding)."""

@@ -7,30 +7,31 @@ the port is installed:
 
 Each decides inside the test whether a card exists and skips without one
 (a CUDA kernel has no CPU mode).  Inputs are made with numpy from a seed.
-Bitset words and counts, probe verdicts, decoded ids, PFor gaps, integer
-and float BM25 scores and fused top-k ids and scores must be exactly equal;
+Bitset words and counts, probe verdicts, decoded ids and overflow flags,
+integer and float BM25 scores and fused top-k ids and scores must be exactly
+equal;
 membership bits may differ only where the logit lies within
 NUMERIC_MARGIN * (1 + |tau|) of tau, since the two float32 products sum in
 different orders.
 
-``pfor_blocks`` and ``fused_tiles`` make the inputs that
-tests/test_torch_kernels.py and tests/test_torch_fused.py also hand to the
-reference's kernels on the CPU.
+``pfor_blocks``, ``pfor_lists``, ``plm_batch`` and ``fused_tiles`` make the
+inputs that tests/test_torch_kernels.py and tests/test_torch_fused.py also
+hand to the reference's kernels on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.learned_bloom import NUMERIC_MARGIN
-from repro_torch.index.compress import encode_postings, pack_bits
+from repro_torch.index.compress import encode_postings, optpfd_encode, pack_bits
 from repro_torch.kernels.bm25_score.kernel import score_batch
 from repro_torch.kernels.bm25_score.ref import score_ref
 from repro_torch.kernels.fused_query.dense import dense_impl
 from repro_torch.kernels.fused_query.kernel import fused_topk
 from repro_torch.kernels.fused_query.ref import NEVER, fused_topk_ref
-from repro_torch.kernels.pfor.kernel import pfor_unpack
+from repro_torch.kernels.pfor.kernel import pfor_decode
 from repro_torch.kernels.pfor.ops import decode_lists as pfor_decode_lists
-from repro_torch.kernels.pfor.ref import pfor_unpack_ref
+from repro_torch.kernels.pfor.ref import pfor_decode_ref
 from repro_torch.kernels.bitset.kernel import bitset_and_popcount
 from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref
 from repro_torch.kernels.guided_search.kernel import probe_batch
@@ -38,8 +39,9 @@ from repro_torch.kernels.guided_search.ref import probe_ref
 from repro_torch.kernels.membership.kernel import membership_bitmask
 from repro_torch.kernels.membership.ref import membership_bitmask_ref
 from repro_torch.kernels.plm_decode.kernel import decode_batch
+from repro_torch.kernels.plm_decode.ops import decode_lists as plm_decode_lists
 from repro_torch.kernels.plm_decode.ref import decode_ref
-from repro_torch.postings.plm import parse_stream, plm_encode
+from repro_torch.postings.plm import plm_encode
 from repro_torch.postings.rmi import rmi_encode
 
 
@@ -54,21 +56,24 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
 
 
-def pfor_blocks(rng, widths=range(33), blocks_per_width=3, exceptions=True):
+def pfor_blocks(rng, widths=range(33), blocks_per_width=3, exceptions=True, high=None):
     """PFor blocks of every width, some short, with exception pairs (width
     < 32) -> (stream words uint32, meta (n_blocks, 6) int32, expected gaps
-    uint32) laid out as pfor_unpack takes them."""
+    uint32), each block's output right after the one before.  ``high`` caps
+    the values (exceptions included) below 2^32."""
     words, meta, want = [], [], []
     pos = out = 0
     for w in widths:
         for i in range(blocks_per_width):
             blen = 128 if i else int(rng.integers(1, 128))
-            vals = rng.integers(0, 1 << w, blen, dtype=np.uint64).astype(np.uint32) if w else \
+            top = min(1 << w, high or 1 << 32)
+            vals = rng.integers(0, top, blen, dtype=np.uint64).astype(np.uint32) if w else \
                 np.zeros(blen, np.uint32)
             packed = pack_bits(vals, w)
             n_exc = int(rng.integers(0, 6)) if w < 32 and exceptions else 0
             exc_pos = np.sort(rng.choice(blen, min(n_exc, blen), replace=False)).astype(np.uint32)
-            hi = rng.integers(1, 1 << (32 - w), len(exc_pos), dtype=np.uint64).astype(np.uint32)
+            hi_top = max(2, min(1 << (32 - w), (high or 1 << 32) >> w))
+            hi = rng.integers(1, hi_top, len(exc_pos), dtype=np.uint64).astype(np.uint32)
             full = vals.copy()
             full[exc_pos] |= (hi.astype(np.uint64) << np.uint64(w)).astype(np.uint32)
             pairs = np.stack([exc_pos, hi], axis=1).reshape(-1)
@@ -79,6 +84,44 @@ def pfor_blocks(rng, widths=range(33), blocks_per_width=3, exceptions=True):
             out += blen
     return (np.concatenate(words).astype(np.uint32), np.array(meta, np.int32),
             np.concatenate(want))
+
+
+def pfor_lists(meta6, gaps, list_blocks):
+    """Consecutive blocks grouped into lists of ``list_blocks`` blocks each ->
+    (meta (n_blocks, 8) int32 as pfor_decode takes it, expected (n_out + 1,)
+    int32: each id's low 32 bits, then the overflow flag)."""
+    list_blocks = np.asarray(list_blocks, np.int64)
+    assert list_blocks.sum() == len(meta6)
+    meta = np.zeros((len(meta6), 8), np.int32)
+    meta[:, :6] = meta6
+    heads = np.cumsum(list_blocks) - list_blocks
+    meta[heads, 6] = 1
+    bounds = np.append(meta6[heads, 3], len(gaps)).astype(np.int64)
+    ids = np.concatenate([np.cumsum(gaps[a:b].astype(np.int64))
+                          for a, b in zip(bounds[:-1], bounds[1:])])
+    flag = int((ids > 2**31 - 1).any())
+    return meta, np.append((ids & 0xFFFFFFFF).astype(np.uint32).view(np.int32), flag)
+
+
+def plm_batch(streams, lens):
+    """plm/rmi streams (postings/plm.py layout) -> the (seg_pos, bases,
+    slopes, list rows, packed words, n) arrays decode_batch takes, read
+    straight from the stream words."""
+    seg_pos, bases, slopes, rows, words = [], [], [], [], []
+    off = word = 0
+    for w, n in zip(streams, lens):
+        S = int(w[0])
+        seg_pos.append(w[3 : 3 + S].astype(np.int64) + off)
+        bases.append(w[3 + S : 3 + 2 * S].view(np.int32))
+        slopes.append(w[3 + 2 * S : 3 + 3 * S].view(np.float32))
+        corr = w[3 + 3 * S :]
+        rows.append((off, word, int(w[1]) & 0xFF, int(w[2:3].view(np.int32)[0])))
+        words.append(corr)
+        off += n
+        word += len(corr)
+    return (np.concatenate(seg_pos).astype(np.int32), np.concatenate(bases).astype(np.int32),
+            np.concatenate(slopes).astype(np.float32), np.array(rows, np.int32).reshape(-1, 4),
+            np.concatenate(words).astype(np.uint32), off)
 
 
 def _unpack_np(lo, hi, shift, width):
@@ -208,31 +251,91 @@ def test_guided_search_kernel_matches_plain_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("encode", [plm_encode, rmi_encode], ids=["plm", "rmi"])
 def test_plm_decode_kernel_matches_plain_on_card(encode):
+    """A ragged batch whose lists span many CTAs of 1,024 postings."""
     dev = _card()
     rng = np.random.default_rng(4)
     lists = [np.sort(rng.choice(1 << 24, n, replace=False)).astype(np.int32)
-             for n in (1, 300, 5000, 20000)]
-    parsed = [parse_stream(encode(ids), len(ids)) for ids in lists]
-    offsets = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
-    tabs = [_t(np.concatenate(a).astype(dt)).to(dev) for a, dt in (
-        ([p[0] + off for p, off in zip(parsed, offsets)], np.int32),
-        ([p[1] for p in parsed], np.int32),
-        ([p[2] for p in parsed], np.float32),
-        ([p[3] for p in parsed], np.int32),
-    )]
-    got = decode_batch(*tabs)
-    assert torch.equal(got, decode_ref(*tabs))
+             for n in (1, 300, 5000, 20000, 3, 1023, 1025)]
+    streams = [encode(ids) for ids in lists]
+    *tabs, n = plm_batch(streams, [len(x) for x in lists])
+    tabs = [_t(a).to(dev) for a in tabs]
+    got = decode_batch(*tabs, n)
+    assert torch.equal(got, decode_ref(*tabs, n))
     assert np.array_equal(got.cpu().numpy(), np.concatenate(lists))
+    for g, x in zip(plm_decode_lists(streams, [len(x) for x in lists], device=dev), lists):
+        assert np.array_equal(g, x)
+
+
+def _plm_tables(rng, widths=range(33)):
+    """One list per correction width, segments every few hundred ranks and
+    some straddling the kernel's 1,024-posting CTA edges, random lines."""
+    seg_pos, bases, slopes, rows, words = [], [], [], [], []
+    off = n_words = 0
+    for w in widths:
+        n = int(rng.integers(1500, 3000))
+        starts = np.unique(np.concatenate([[0], rng.integers(1, n, 6),
+                                           [s for s in (1023, 1024, 1025) if s < n]]))
+        seg_pos.append(starts + off)
+        bases.append(rng.integers(0, 1 << 20, len(starts)))
+        slopes.append((rng.random(len(starts)) * 40).astype(np.float32))
+        top = 1 << 32 if w == 32 else 1 << w
+        corr = rng.integers(0, top, n, dtype=np.uint64).astype(np.uint32) if w else \
+            np.zeros(n, np.uint32)
+        packed = pack_bits(corr, w)
+        rows.append((off, n_words, w, int(rng.integers(-100, 1))))
+        words.append(packed)
+        off += n
+        n_words += len(packed)
+    return (np.concatenate(seg_pos).astype(np.int32), np.concatenate(bases).astype(np.int32),
+            np.concatenate(slopes), np.array(rows, np.int32),
+            np.concatenate(words).astype(np.uint32), off)
+
+
+@pytest.mark.cuda
+def test_plm_decode_widths_and_cta_edges_on_card():
+    dev = _card()
+    *tabs, n = _plm_tables(np.random.default_rng(40))
+    tabs = [_t(a).to(dev) for a in tabs]
+    assert torch.equal(decode_batch(*tabs, n), decode_ref(*tabs, n))
 
 
 @pytest.mark.cuda
 def test_pfor_kernel_matches_plain_on_card():
+    """Blocks of every width in ragged lists of 1 to 40 blocks, so lists
+    start inside CTAs of 8 blocks and carry across many of them."""
     dev = _card()
-    words, meta, want = pfor_blocks(np.random.default_rng(5))
+    rng = np.random.default_rng(5)
+    words, meta6, gaps = pfor_blocks(rng, blocks_per_width=12, high=1 << 12)
+    sizes = []
+    while sum(sizes) < len(meta6):
+        sizes.append(min(int(rng.integers(1, 41)), len(meta6) - sum(sizes)))
+    meta, want = pfor_lists(meta6, gaps, sizes)
     w, m = _t(words).to(dev), _t(meta).to(dev)
-    got = pfor_unpack(w, m, len(want))
-    assert torch.equal(got, pfor_unpack_ref(w, m, len(want)))
-    assert np.array_equal(got.cpu().numpy().view(np.uint32), want)
+    got = pfor_decode(w, m, len(gaps))
+    assert torch.equal(got, pfor_decode_ref(w, m, len(gaps)))
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_pfor_look_back_and_overflow_on_card():
+    """Lists of up to 400 full blocks (50 CTAs) whose last ids end at
+    INT32_MAX exactly, then one more gap of 1: the flag goes up."""
+    dev = _card()
+    rng = np.random.default_rng(50)
+    lists, streams = [], []
+    for n in (400 * 128, 128 * 37 + 5, 1, 9000):
+        gaps = rng.integers(1, 5000, n).astype(np.int64)
+        gaps[0] = 2**31 - 1 - int(gaps[1:].sum())
+        lists.append(np.cumsum(gaps).astype(np.int32))
+        streams.append(encode_postings(lists[-1], "optpfd"))
+    got = pfor_decode_lists(streams, [len(x) for x in lists], device=dev)
+    for g, x in zip(got, lists):
+        assert np.array_equal(g, x) and g[-1] == 2**31 - 1
+    gaps = np.diff(lists[0], prepend=0).astype(np.uint32)
+    over = optpfd_encode(np.append(gaps, 1).astype(np.uint32))  # its last id is 2^31
+    with pytest.raises(OverflowError):
+        pfor_decode_lists(streams[1:] + [over], [len(x) for x in lists[1:]] + [len(gaps) + 1],
+                          device=dev)
 
 
 @pytest.mark.cuda
@@ -248,6 +351,41 @@ def test_pfor_stream_decode_on_card():
     got = pfor_decode_lists(streams, [len(x) for x in lists], device=dev)
     for g, x in zip(got, lists):
         assert g.dtype == np.int32 and np.array_equal(g, x)
+
+
+def _replays(fn):
+    """fn captured in a CUDA graph and replayed twice -> both outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    return first, out.clone()
+
+
+@pytest.mark.cuda
+def test_decode_kernels_replay_in_cuda_graphs():
+    """The pfor scratch (look-back status words, overflow flag) is
+    reset by every launch, so two replays give the same output."""
+    dev = _card()
+    rng = np.random.default_rng(60)
+    words, meta6, gaps = pfor_blocks(rng, blocks_per_width=20, high=1 << 10)
+    meta, want = pfor_lists(meta6, gaps, [len(meta6) - 7, 7])
+    w, m = _t(words).to(dev), _t(meta).to(dev)
+    for out in _replays(lambda: pfor_decode(w, m, len(gaps))):
+        assert np.array_equal(out.cpu().numpy(), want)
+    *tabs, n = _plm_tables(rng, widths=(0, 7, 31))
+    tabs = [_t(a).to(dev) for a in tabs]
+    want = decode_ref(*tabs, n)
+    for out in _replays(lambda: decode_batch(*tabs, n)):
+        assert torch.equal(out, want)
 
 
 @pytest.mark.cuda

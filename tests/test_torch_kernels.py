@@ -3,8 +3,8 @@
 On the CPU each port wrapper runs its plain PyTorch version; the reference
 kernels run in Pallas interpret mode, as the reference's own tests run them.
 Same inputs, made with numpy from a seed, go to both.  Bitset words and
-counts, probe verdicts, decoded ids, PFor gaps and BM25 integer and float
-scores must be exactly equal.  Membership
+counts, probe verdicts, decoded ids (and the PFor overflow flag) and BM25
+integer and float scores must be exactly equal.  Membership
 bits must be equal too, except a bit whose logit lies within
 NUMERIC_MARGIN * (1 + |tau|) of tau: the two float32 products sum in
 different orders, and that margin is what the thresholds reserve for it.
@@ -17,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 from test_torch_cuda import _t as _tw
-from test_torch_cuda import pfor_blocks
+from test_torch_cuda import pfor_blocks, pfor_lists, plm_batch
 
 from repro.index.compress import optpfd_decode as ref_optpfd_decode
+from repro.index.compress import undgaps as ref_undgaps
 from repro.kernels.bitset.kernel import W_BLK, bitset_and_popcount as ref_bitset
 from repro.kernels.bm25_score.kernel import score_batch as ref_score_batch
 from repro.kernels.bm25_score.ref import score_ref as np_score_ref
@@ -27,9 +28,11 @@ from repro.kernels.guided_search.kernel import probe_batch as ref_probe
 from repro.kernels.membership.kernel import D_BLK, Q_BLK, membership_bitmask as ref_membership
 from repro.kernels.membership.ops import score_terms_bitmask as ref_score_terms
 from repro.kernels.plm_decode.kernel import decode_batch as ref_decode
+from repro.kernels.pfor.kernel import unpack_blocks as ref_unpack_blocks
 from repro.kernels.pfor.ops import decode_stream as ref_decode_stream
 from repro.kernels.pfor.ref import unpack_block_ref, words_per_block
 from repro.kernels.plm_decode.ref import SENTINEL
+from repro.postings.plm import decode_stream as ref_plm_decode_stream
 from repro.postings.plm import parse_stream as ref_parse_stream, plm_encode as ref_plm_encode
 from repro.postings.rmi import rmi_encode as ref_rmi_encode
 from repro_torch.core.learned_bloom import NUMERIC_MARGIN
@@ -41,7 +44,7 @@ from repro_torch.kernels.guided_search.kernel import probe_batch
 from repro_torch.kernels.guided_search.ref import probe_ref
 from repro_torch.kernels.membership.kernel import membership_bitmask
 from repro_torch.kernels.membership.ref import membership_bitmask_ref, pack_bool_words
-from repro_torch.kernels.pfor.kernel import pfor_unpack
+from repro_torch.kernels.pfor.kernel import pfor_decode
 from repro_torch.kernels.pfor.ops import decode_lists as pfor_decode_lists
 from repro_torch.kernels.plm_decode.kernel import decode_batch
 from repro_torch.kernels.plm_decode.ref import decode_ref
@@ -176,8 +179,10 @@ def test_guided_search_plain_matches_pallas(p, w):
 # ----------------------------------------------------------- plm_decode
 def _decode_tables(lists, encode):
     """The reference's padded (B, S) / (B, R) batch, one all-padding row
-    last, and the port's ragged batch of the same lists."""
-    parsed = [ref_parse_stream(encode(ids), len(ids)) for ids in lists]
+    last, and the port's ragged batch of the same lists (corrections left
+    packed)."""
+    streams = [encode(ids) for ids in lists]
+    parsed = [ref_parse_stream(w, len(ids)) for w, ids in zip(streams, lists)]
     S = max(len(p[0]) for p in parsed)
     R = -(-max(len(x) for x in lists) // 128) * 128
     B = len(parsed) + 1
@@ -191,13 +196,7 @@ def _decode_tables(lists, encode):
         slopes[row, : len(st)] = sl
         corr[row, : len(co)] = co
     offsets = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
-    ragged = (
-        np.concatenate([p[0] + off for p, off in zip(parsed, offsets)]).astype(np.int32),
-        np.concatenate([p[1] for p in parsed]).astype(np.int32),
-        np.concatenate([p[2] for p in parsed]).astype(np.float32),
-        np.concatenate([p[3] for p in parsed]).astype(np.int32),
-    )
-    return (starts, bases, slopes, corr), ragged, offsets
+    return (starts, bases, slopes, corr), plm_batch(streams, [len(x) for x in lists]), offsets
 
 
 @pytest.mark.parametrize("encode", [ref_plm_encode, ref_rmi_encode], ids=["plm", "rmi"])
@@ -209,13 +208,42 @@ def test_plm_decode_plain_matches_pallas(encode):
     lists = [np.sort(rng.choice(1 << 24, n, replace=False)).astype(np.int32)
              for n in (1, 5, 127, 129, 700, 2000)]
     lists.append((np.arange(3000) * 37 + rng.integers(0, 9, 3000)).astype(np.int32))
-    padded, ragged, offsets = _decode_tables(lists, encode)
+    padded, (*ragged, n), offsets = _decode_tables(lists, encode)
     want = np.asarray(ref_decode(*(jnp.asarray(a) for a in padded), interpret=True))
-    got = decode_batch(*(_t(a) for a in ragged)).numpy()
+    got = decode_batch(*(_tw(a) for a in ragged), n).numpy()
     assert got.shape == (offsets[-1],)
     for row, ids in enumerate(lists):
         assert np.array_equal(got[offsets[row] : offsets[row + 1]], want[row, : len(ids)])
         assert np.array_equal(got[offsets[row] : offsets[row + 1]], ids)
+        w = encode(ids)
+        assert np.array_equal(got[offsets[row] : offsets[row + 1]], ref_plm_decode_stream(w, len(ids)))
+
+
+@pytest.mark.parametrize("width", [0, 1, 7, 13, 31, 32])
+def test_plm_decode_plain_unpacks_every_width(width):
+    """Packed corrections of one width, across word boundaries, against the
+    reference's host unpack; segments laid on the lists' own ranks."""
+    from repro.index.compress import pack_bits as ref_pack_bits, unpack_bits as ref_unpack_bits
+
+    rng = np.random.default_rng(500 + width)
+    ns = [1, 33, 130, 1100]
+    top = 1 << min(width, 31)
+    corr = [rng.integers(0, top, n).astype(np.uint32) for n in ns]
+    words = [ref_pack_bits(c, width) for c in corr]
+    offs = np.concatenate([[0], np.cumsum(ns)])
+    rows = np.array([(offs[i], sum(len(w) for w in words[:i]), width, -i) for i in range(len(ns))],
+                    np.int32)
+    seg_pos = np.concatenate([[o, o + n // 2] if n > 1 else [o] for o, n in zip(offs, ns)])
+    bases = rng.integers(0, 1000, len(seg_pos)).astype(np.int32)
+    slopes = (rng.random(len(seg_pos)) * 9).astype(np.float32)
+    got = decode_batch(*(_tw(a) for a in (seg_pos.astype(np.int32), bases, slopes, rows,
+                                          np.concatenate(words))), int(offs[-1])).numpy()
+    seg = np.searchsorted(seg_pos, np.arange(offs[-1]), side="right") - 1
+    line = bases[seg] + np.rint(slopes[seg] * (np.arange(offs[-1]) - seg_pos[seg])
+                                .astype(np.float32)).astype(np.int64)
+    want = np.concatenate([ref_unpack_bits(w, width, n).astype(np.int64) - i
+                           for i, (w, n) in enumerate(zip(words, ns))]) + line
+    assert np.array_equal(got, want.astype(np.int32))
 
 
 # ----------------------------------------------------------- host bridges
@@ -237,28 +265,75 @@ def test_decode_lists_matches_reference_bridge():
 
 
 # ----------------------------------------------------------- pfor
+def _block_gaps(got: torch.Tensor, meta: np.ndarray) -> np.ndarray:
+    """Each block's gaps back from its ids when every block is a list of its
+    own: differences mod 2^32 (the ids are the sums' low 32 bits)."""
+    ids = got.numpy()[:-1].view(np.uint32).astype(np.int64)
+    gaps = np.empty_like(ids)
+    for _, _, blen, out, *_ in meta:
+        gaps[out : out + blen] = np.diff(ids[out : out + blen], prepend=0) % (1 << 32)
+    return gaps.astype(np.uint32)
+
+
 @pytest.mark.parametrize("width", range(33))
 def test_pfor_plain_matches_reference_unpack(width):
-    """Full and short blocks of one width, no exceptions: the plain unpack
-    against the reference's unpack_block_ref on the same packed words."""
+    """Full and short blocks of one width, no exceptions, each a list of its
+    own: the plain decode against the reference's unpack_block_ref and its
+    Pallas unpack_blocks (interpret mode) on the same packed words."""
     rng = np.random.default_rng(100 + width)
-    words, meta, want = pfor_blocks(rng, widths=[width], exceptions=False)
-    got = pfor_unpack(_tw(words), _tw(meta), len(want)).numpy().view(np.uint32)
-    assert np.array_equal(got, want)
+    words, meta6, want = pfor_blocks(rng, widths=[width], exceptions=False)
+    meta, ids = pfor_lists(meta6, want, np.ones(len(meta6), np.int64))
+    got = pfor_decode(_tw(words), _tw(meta), len(want))
+    assert np.array_equal(got.numpy(), ids)
+    gaps = _block_gaps(got, meta)
+    assert np.array_equal(gaps, want)
     wpb = words_per_block(width)
-    for w, start, blen, out, *_ in meta:
-        row = np.zeros(wpb, np.uint32)
+    rows = np.zeros((len(meta6), wpb), np.uint32)
+    for row, (w, start, blen, out, *_) in zip(rows, meta6):
         n_words = (blen * w + 31) // 32
         row[:n_words] = words[start : start + n_words]
-        ref = np.asarray(unpack_block_ref(jnp.asarray(row[None]), width))[0, :blen]
-        assert np.array_equal(got[out : out + blen], ref)
+    pallas = np.asarray(ref_unpack_blocks(jnp.asarray(rows), width=width, interpret=True))
+    ref = np.asarray(unpack_block_ref(jnp.asarray(rows), width))
+    for k, (_, _, blen, out, *_) in enumerate(meta6):
+        assert np.array_equal(gaps[out : out + blen], ref[k, :blen])
+        assert np.array_equal(gaps[out : out + blen], pallas[k, :blen])
 
 
 def test_pfor_plain_patches_exceptions():
-    words, meta, want = pfor_blocks(np.random.default_rng(7))
-    assert meta[:, 5].sum() > 50  # exception pairs in most widths
-    got = pfor_unpack(_tw(words), _tw(meta), len(want)).numpy().view(np.uint32)
+    words, meta6, want = pfor_blocks(np.random.default_rng(7))
+    assert meta6[:, 5].sum() > 50  # exception pairs in most widths
+    meta, ids = pfor_lists(meta6, want, np.ones(len(meta6), np.int64))
+    got = pfor_decode(_tw(words), _tw(meta), len(want))
+    assert np.array_equal(got.numpy(), ids)
+    assert np.array_equal(_block_gaps(got, meta), want)
+
+
+def test_pfor_plain_sums_many_lists_in_one_call():
+    """Blocks of every width (0 and 32 included, short blocks, exceptions)
+    in ragged lists, one-block and one-value lists among them: each list's
+    ids are the reference's undgaps of its gaps; a list past INT32_MAX
+    raises the flag."""
+    rng = np.random.default_rng(70)
+    words, meta6, gaps = pfor_blocks(rng, blocks_per_width=4, high=1 << 14)
+    sizes = [1, 2, 5, 1, 17, 30, 3]
+    sizes.append(len(meta6) - sum(sizes))
+    meta, want = pfor_lists(meta6, gaps, sizes)
+    got = pfor_decode(_tw(words), _tw(meta), len(gaps)).numpy()
     assert np.array_equal(got, want)
+    heads = np.append(meta6[np.cumsum(sizes) - sizes, 3], len(gaps))
+    for a, b in zip(heads[:-1], heads[1:]):
+        try:
+            ref = ref_undgaps(gaps[a:b])
+        except OverflowError:
+            assert got[-1] == 1
+            continue
+        assert np.array_equal(got[a:b], ref)
+    # a one-value list of width 32 just under INT32_MAX, then a width-0 list
+    # whose one exception sets its last value: the flag stays down
+    words = np.array([0x7FFFFFF0, 2, 9], np.uint32)
+    meta = np.array([(32, 0, 1, 0, 1, 0, 1, 0), (0, 1, 3, 1, 1, 1, 1, 0)], np.int32)
+    got = pfor_decode(_tw(words), _tw(meta), 4).numpy()
+    assert np.array_equal(got, [0x7FFFFFF0, 0, 0, 9, 0])
 
 
 def _optpfd_lists(rng):
@@ -281,7 +356,7 @@ def test_pfor_streams_match_reference_decoders():
     for g, x, w in zip(got, lists, streams):
         assert g.dtype == np.int32 and np.array_equal(g, x)
         assert np.array_equal(g, ref_decode_stream(w, len(x)))
-        assert np.array_equal(g, np.cumsum(ref_optpfd_decode(w, len(x)).astype(np.int64)))
+        assert np.array_equal(g, ref_undgaps(ref_optpfd_decode(w, len(x))))
 
 
 def test_pfor_batch_of_lists_and_overflow():
@@ -299,6 +374,9 @@ def test_pfor_batch_of_lists_and_overflow():
         undgaps(gaps)
     with pytest.raises(OverflowError):
         pfor_decode_lists([optpfd_encode(gaps)], [2], device="cpu")
+    with pytest.raises(OverflowError):  # in a batch, behind lists that fit
+        pfor_decode_lists(streams + [optpfd_encode(gaps)], [len(x) for x in lists] + [2],
+                          device="cpu")
 
 
 # ----------------------------------------------------------- bm25_score

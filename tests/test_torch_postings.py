@@ -13,9 +13,9 @@ from repro.index import compress as ref_compress
 from repro.postings import hybrid as ref_hybrid
 from repro.postings.search import GuidedPostings as RefGuided, load_term_model as ref_load_model
 from repro_torch.index import compress
-from repro_torch.postings import hybrid
+from repro_torch.postings import hybrid, search
 from repro_torch.postings.search import (
-    GuidedPostings, decode_window, flatten_windows, full_decode, load_term_model,
+    GuidedPostings, decode_terms, decode_window, flatten_windows, full_decode, load_term_model,
 )
 
 UNIVERSE = 1 << 20
@@ -116,13 +116,69 @@ def test_full_decode_routes_optpfd_through_pfor(stores, monkeypatch):
 
     port, ref = stores
     calls = []
-    unpack = pfor_ops.pfor_unpack
-    monkeypatch.setattr(pfor_ops, "pfor_unpack", lambda *a: calls.append(a[2]) or unpack(*a))
+    decode = pfor_ops.pfor_decode
+    monkeypatch.setattr(pfor_ops, "pfor_decode", lambda *a: calls.append(a[2]) or decode(*a))
     optpfd = [t for t in range(port.n_terms) if hybrid.CANDIDATES[port.tags[t]] == "optpfd"]
     assert optpfd
     for t in optpfd:
         assert np.array_equal(full_decode(port, t, "cpu"), ref.postings(t))
     assert calls == [int(port.lens[t]) for t in optpfd]  # one launch per decoded list
+
+
+def _count_launches(monkeypatch):
+    from repro_torch.kernels.pfor import ops as pfor_ops
+    from repro_torch.kernels.plm_decode import ops as plm_ops
+
+    calls = {"pfor": 0, "plm": 0}
+    for mod, attr, name in ((pfor_ops, "pfor_decode", "pfor"), (plm_ops, "decode_batch", "plm")):
+        fn = getattr(mod, attr)
+
+        def counted(*a, _fn=fn, _name=name):
+            calls[_name] += 1
+            return _fn(*a)
+
+        monkeypatch.setattr(mod, attr, counted)
+    return calls
+
+
+def test_decode_terms_matches_full_decode_over_mixed_codecs(stores, monkeypatch):
+    """Every term of the store at once (optpfd, plm, rmi and host codecs,
+    an empty list, repeats): the lists of full_decode term by term and of the
+    reference, in one launch per decode kernel."""
+    port, ref = stores
+    terms = list(range(port.n_terms))[::-1] + [3, 0]
+    codecs = {hybrid.CANDIDATES[port.tags[t]] for t in terms}
+    assert {"optpfd", "plm", "rmi"} <= codecs and len(codecs) > 3
+    one = [full_decode(port, t, "cpu") for t in terms]
+    calls = _count_launches(monkeypatch)
+    got = decode_terms(port, terms, "cpu")
+    assert calls == {"pfor": 1, "plm": 1}
+    for t, g, o in zip(terms, got, one):
+        assert g.dtype == np.int32 and np.array_equal(g, o) and np.array_equal(g, ref.postings(t))
+    # a byte budget under every list: one launch per list, the same lists
+    monkeypatch.setattr(search, "DECODE_CHUNK_BYTES", 1)
+    for t, g in zip(terms, decode_terms(port, terms, "cpu")):
+        assert np.array_equal(g, ref.postings(t))
+    kinds = [search.decode_kernel(port, t) for t in terms]
+    assert calls == {"pfor": 1 + kinds.count("pfor"), "plm": 1 + kinds.count("plm")}
+    assert decode_terms(port, [], "cpu") == []
+
+
+def test_optpfd_block_headers_walked_once_per_term(monkeypatch):
+    from repro_torch.kernels.pfor import ops as pfor_ops
+
+    offsets, doc_ids = _collection()
+    port = hybrid.HybridPostings.build(offsets, doc_ids, UNIVERSE)
+    walked = []
+    parse = pfor_ops.parse_stream
+    monkeypatch.setattr(pfor_ops, "parse_stream", lambda w, n: walked.append(n) or parse(w, n))
+    optpfd = [t for t in range(port.n_terms) if hybrid.CANDIDATES[port.tags[t]] == "optpfd"]
+    assert optpfd
+    for _ in range(3):
+        for t, g in zip(optpfd, decode_terms(port, optpfd, "cpu")):
+            assert np.array_equal(g, doc_ids[offsets[t] : offsets[t + 1]])
+    assert sorted(walked) == sorted(int(port.lens[t]) for t in optpfd)
+    assert set(port.block_tables) == set(optpfd)
 
 
 def test_payload_half_matches_reference_on_learned_and_classical_terms(stores):

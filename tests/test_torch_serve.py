@@ -100,6 +100,98 @@ def test_empty_batches(system):
     assert eng.query_batch_bitmap(np.full((2, 3), -1, np.int32)).shape == (2, 13)
 
 
+def _decode_entries(eng):
+    """Every shard's decode-cache entries, in LRU order."""
+    return [[(key, value) for key, (value, _) in sh._decode_cache._entries.items()]
+            for sh in eng.shards]
+
+
+def _same_entries(a, b):
+    assert [[k for k, _ in sh] for sh in a] == [[k for k, _ in sh] for sh in b]
+    for sa, sb in zip(a, b):
+        for (_, va), (_, vb) in zip(sa, sb):
+            assert np.array_equal(va, vb)
+
+
+@pytest.mark.parametrize("k,budget", [(1, 32 << 20), (1, 4000), (4, 4000)],
+                         ids=["k1", "k1-evicting", "k4-evicting"])
+def test_prefetch_keeps_results_and_decode_cache(system, monkeypatch, k, budget):
+    """A cold and a warm batch with the batched prefetch and without it (the
+    per-term decodes of the parent design): the same results, the same
+    decode-cache entries and counters, and no more pfor launches (fewer at
+    K=1; the K=4 shards hold one optpfd list or so each).  A budget of 4,000
+    bytes evicts lists in mid-batch."""
+    from repro_torch.kernels.pfor import ops as pfor_ops
+    from repro_torch.serve.shard import ShardEngine
+
+    corpus, inv, lb, li_cfg, *_, q = system
+    exact = brute_force_answers(corpus, q)
+    decode = pfor_ops.pfor_decode
+    runs = {}
+    for prefetch in (True, False):
+        launches = []
+        with monkeypatch.context() as m:
+            m.setattr(pfor_ops, "pfor_decode", lambda *a: launches.append(a[2]) or decode(*a))
+            if not prefetch:
+                m.setattr(ShardEngine, "_postings_many", lambda self, terms: None)
+            eng = BooleanEngine(lb, inv, li_cfg, ServeConfig(
+                n_shards=k, device="cpu", cache_budget_bytes=budget))
+            res = [eng.query_batch(q), eng.query_batch(q)]
+        runs[prefetch] = (res, _decode_entries(eng), eng.serving_stats(), launches)
+    (got, entries, stats, fewer), (want, entries0, stats0, per_term) = runs[True], runs[False]
+    for batch, batch0 in zip(got, want):
+        for g, w, e in zip(batch, batch0, exact):
+            assert np.array_equal(g, w) and np.array_equal(g, e)
+    _same_entries(entries, entries0)
+    assert stats["decode_cache"] == stats0["decode_cache"]
+    pre = stats["prefetch"]
+    assert pre["decoded"] > 0 and pre["taken"] > 0 and stats0["prefetch"]["decoded"] == 0
+    assert len(fewer) < len(per_term) if k == 1 else len(fewer) <= len(per_term)
+    # every per-term decode the prefetch saved was taken from the batch map
+    assert len(per_term) == pre["taken"] + len(fewer) - pre["calls"]
+
+
+@pytest.mark.parametrize("config", [
+    dict(score_kernel=True),
+    dict(score_kernel=True, topk_exhaustive_cutoff=0),
+    dict(fused_kernel=True, topk_exhaustive_cutoff=0, device_arena=False),
+    dict(fused_kernel=True, device_arena=False),
+    dict(fused_kernel=True, topk_exhaustive_cutoff=0, device_arena=True),
+], ids=["a", "a-pruned", "b", "b-exhaustive", "c"])
+def test_ranked_prefetch_keeps_results_and_decode_cache(system, monkeypatch, config):
+    """Ranked batches (OR, then mixed-required) at two shards, with the
+    batched prefetch (exhaustive branch, fused peel and tail, arena build)
+    and without it: the same top-k and the same decode-cache entries."""
+    from repro_torch.data.queries import zipf_disjunctions
+    from repro_torch.rank.score import brute_force_topk
+    from repro_torch.serve.shard import ShardEngine
+
+    _, inv, lb, li_cfg, *_ = system
+    q, req = zipf_disjunctions(inv.dfs, 24, seed=5, n_required=1)
+    runs = {}
+    for prefetch in (True, False):
+        with monkeypatch.context() as m:
+            if not prefetch:
+                m.setattr(ShardEngine, "_postings_many", lambda self, terms: None)
+            eng = BooleanEngine(lb, inv, li_cfg, ServeConfig(
+                n_shards=2, device="cpu", cache_budget_bytes=6000, ranked=config))
+            res = [eng.query_topk(q, 10), eng.query_topk(q, 10, required=req)]
+        runs[prefetch] = (res, _decode_entries(eng), eng.serving_stats())
+    (got, entries, stats), (want, entries0, stats0) = runs[True], runs[False]
+    oracle = [brute_force_topk(inv, eng.impact_model, q, 10),
+              brute_force_topk(inv, eng.impact_model, q, 10, required=req)]
+    for batch, batch0, exact in zip(got, want, oracle):
+        for g, w, e in zip(batch, batch0, exact):
+            assert np.array_equal(g.ids, w.ids) and np.array_equal(g.scores, w.scores)
+            assert np.array_equal(g.ids, e.ids) and np.array_equal(g.scores, e.scores)
+    _same_entries(entries, entries0)
+    assert stats["decode_cache"] == stats0["decode_cache"]
+    # the multi-phase MaxScore loop decodes term by term; every other path
+    # fetches its lists in batches
+    batched = config.get("fused_kernel") or config.get("topk_exhaustive_cutoff", 1) > 0
+    assert (stats["prefetch"]["taken"] > 0) == bool(batched)
+
+
 # ------------------------------------------------------------ host pieces
 @pytest.mark.parametrize("n_docs,k", [(400, 1), (400, 4), (1000, 3), (40, 4)])
 def test_shard_ranges_and_bitmaps_match_reference(n_docs, k):
