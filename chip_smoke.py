@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # Robust-scale main path, one card
     python3 chip_smoke.py --docs 52800 # a smaller collection
-    python3 chip_smoke.py --phases AR --src OTHER/src  # another checkout's package
+    python3 chip_smoke.py --phases ARD --src OTHER/src  # another checkout's package
 
 It needs a CUDA card, ``nvcc`` and the repository checkout it lives in; it
 exits non-zero without a result when either is missing.  It prints the
@@ -33,6 +33,11 @@ card's name and power limit first, then one JSON line per phase:
          launcher's default collection of 2,000 docs; every result list
          asserted equal to ``brute_force_topk``; the decode accounting of A
          per configuration
+  D      one list's whole decode through ``postings.search.full_decode``
+         (the one-term decode entry of every version of the port): phase A's
+         optpfd list closest to 100,000 ids, checked against the host
+         decoder; per call, the device time of every kernel, copy and memset
+         it issues (torch.profiler) and the host time
   C      each kernel against its plain PyTorch version on the card, on the
          largest inputs phases A, B and R handed it: the difference, the
          device time (CUDA-graph replay) and the time of calls issued one
@@ -46,10 +51,10 @@ card's name and power limit first, then one JSON line per phase:
 
 then the ``kernels`` line (launch counts from phases A, B and R, times,
 bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
-raises, and the script exits non-zero.  ``--phases`` runs a subset (R needs
-A; C needs A, B and R), ``--src`` drives the package of another checkout
-(phases A and R only need what every version of the port has), so that two
-versions can be compared on one card in one call.
+raises, and the script exits non-zero.  ``--phases`` runs a subset (R and D
+need A; C needs A, B and R), ``--src`` drives the package of another
+checkout (phases A, R and D only need what every version of the port has),
+so that two versions can be compared on one card in one call.
 """
 from __future__ import annotations
 
@@ -600,6 +605,59 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
     }
 
 
+def phase_d(dev, keep: dict) -> dict:
+    """One list's whole decode through ``full_decode``: ITERS calls under
+    torch.profiler for the device time of what each call issues, and ITERS
+    more without it for the host time."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.postings import search
+
+    store = keep["engines"][1].shards[0].tier2
+    terms = [t for t in range(store.n_terms)
+             if int(store.lens[t]) and int(store.tags[t]) == search._OPTPFD_TAG]
+    t = min(terms, key=lambda t: abs(int(store.lens[t]) - 100_000))
+
+    def call():
+        return search.full_decode(store, t, dev)
+
+    if not np.array_equal(call(), store.postings(t)):
+        raise AssertionError("full_decode differs from the host decoder")
+    for _ in range(WARMUP):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            call()
+        torch.cuda.synchronize()
+    busy, names = {"kernel": 0.0, "copy": 0.0}, Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kind = "copy" if e.name.startswith(("Memcpy", "Memset")) else "kernel"
+            busy[kind] += e.time_range.elapsed_us() / 1e3
+            names[e.name[:60]] += 1
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        call()
+    host_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    seen = bool(names)
+    if not seen:
+        log("[D] the profiler recorded no device activity; device time not measured")
+    return {
+        "phase": "D", "term": int(t), "values": int(store.lens[t]),
+        "device_ms": (busy["kernel"] + busy["copy"]) / ITERS if seen else None,
+        "kernel_ms": busy["kernel"] / ITERS if seen else None,
+        "copy_ms": busy["copy"] / ITERS if seen else None,
+        "device_ops_per_call": {n: c / ITERS for n, c in names.most_common()},
+        "host_ms": host_ms,
+    }
+
+
 def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
     import torch
 
@@ -758,7 +816,8 @@ def phase_c_ranked(rec: Recorder, row, keep: dict) -> None:
         n_exc = int(m[:, 5].sum())
         row("pfor", "src/repro/kernels/pfor/kernel.py:47",
             lambda: pfor_decode(words, meta, n_out), lambda: pfor_decode_ref(words, meta, n_out),
-            0.0, 4 * (packed + 2 * n_exc) + 4 * meta.numel() + 4 * (n_out + 1), 0,
+            # 7 of the 8 meta columns: the last pads a row to 32 bytes
+            0.0, 4 * (packed + 2 * n_exc) + 4 * 7 * meta.shape[0] + 4 * (n_out + 1), 0,
             extra={"case": case,
                    "shape": {"lists": int(m[:, 6].sum()), "blocks": int(meta.shape[0]),
                              "values": n_out, "packed_words": packed, "exceptions": n_exc}},
@@ -835,14 +894,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=528_000,
                     help="documents in phase A's collection (Robust04's 528k by default)")
-    ap.add_argument("--phases", default="ABRC",
-                    help="phases to run, in order (R needs A; C needs A, B and R)")
+    ap.add_argument("--phases", default="ABRDC",
+                    help="phases to run (R and D need A; C needs A, B and R)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory that holds the repro_torch package to drive")
     args = ap.parse_args()
     phases = set(args.phases.upper())
-    if ("R" in phases and "A" not in phases) or ("C" in phases and not {"A", "B", "R"} <= phases):
-        ap.error(f"--phases {args.phases}: R needs A, and C needs A, B and R")
+    if ({"R", "D"} & phases and "A" not in phases) or ("C" in phases and not {"A", "B", "R"} <= phases):
+        ap.error(f"--phases {args.phases}: R and D need A, and C needs A, B and R")
 
     import torch
 
@@ -929,6 +988,8 @@ def main() -> int:
             if phase in counts and counts[phase][n] == 0:
                 raise AssertionError(f"{n} did not launch on its path (phase {phase})")
 
+    if "D" in phases:
+        emit(phase_d(dev, keep))
     if "C" in phases:
         rows = phase_c(rec, total, keep)
         # Algorithm 3's whole candidate step on one K=1 batch (both kernels,

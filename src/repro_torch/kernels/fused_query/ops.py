@@ -79,6 +79,28 @@ class _Pending:
     floor: int
 
 
+def _peel_terms(src, terms, required, cutoff):
+    """The order in which ``_peel`` takes an item's terms -> (live terms
+    ascending, required terms shortest first, optional terms by descending
+    bound, whether the item is scored exhaustively), or None when the item
+    is empty on this shard."""
+    live = sorted({int(t) for t in terms if src.n(int(t)) > 0})
+    req_all = {int(r) for r in required}
+    req = [t for t in sorted(req_all) if src.n(t) > 0]
+    if len(req) < len(req_all) or not live:
+        return None  # a required term absent on this shard: empty AND
+    exhaustive = not req and sum(src.n(t) for t in live) <= cutoff
+    optional = sorted((t for t in live if t not in set(req)), key=lambda t: (-src.ub(t), t))
+    return live, sorted(req, key=src.n), optional, exhaustive
+
+
+def _tail_reads_list(tm) -> bool:
+    """Whether ``_term_lanes`` resolves a tail term against its full list:
+    a classical codec (no TermModel), or a learned correction width outside
+    1..31."""
+    return tm is None or not 0 < tm.width < 32
+
+
 def _peel(src, terms, k, required, floor, cutoff, stats):
     """topk_query's host phases, stopping where the probe tail begins.
 
@@ -88,22 +110,17 @@ def _peel(src, terms, k, required, floor, cutoff, stats):
     if k <= 0:
         return _EMPTY
     stats.queries += 1
-    terms = sorted({int(t) for t in terms if src.n(int(t)) > 0})
-    req_all = {int(r) for r in required}
-    req = [t for t in sorted(req_all) if src.n(t) > 0]
-    if len(req) < len(req_all):
-        return _EMPTY  # a required term absent on this shard: empty AND
-    if not terms:
+    order = _peel_terms(src, terms, required, cutoff)
+    if order is None:
         return _EMPTY
+    terms, req, optional, exhaustive = order
     stats.exhaustive_postings += sum(src.n(t) for t in terms)
 
-    if not req and sum(src.n(t) for t in terms) <= cutoff:
+    if exhaustive:
         stats.exhaustive_queries += 1
         return _exhaustive(src, terms, k, floor, stats, None)
 
-    optional = [t for t in terms if t not in set(req)]
     if req:
-        req = sorted(req, key=src.n)
         cands, partial = src.full(req[0])
         partial = partial.astype(np.int64)
         stats.scored_postings += len(cands)
@@ -121,7 +138,6 @@ def _peel(src, terms, k, required, floor, cutoff, stats):
         partial = np.zeros(0, np.int64)
         accepting_new = True
 
-    optional.sort(key=lambda t: (-src.ub(t), t))
     ubs = np.array([src.ub(t) for t in optional], np.int64)
     suffix = np.concatenate([np.cumsum(ubs[::-1])[::-1], [0]])
     theta = _kth_partial(partial, k)
@@ -154,39 +170,31 @@ def _peel(src, terms, k, required, floor, cutoff, stats):
 
 def _peel_decodes(src, items, cutoff) -> list[int]:
     """Terms ``_peel`` decodes in full for these items, as far as the lists'
-    lengths and bounds tell before any is decoded: every term of an
-    exhaustive item, the required seed or the first essential term, and
-    every optpfd term (the peel and the probe tail decode such a term in
-    full whenever they touch it)."""
+    lengths and bounds tell before any is decoded (``_peel_terms`` gives
+    both the same order): every term of an exhaustive item, the required
+    seed or the first essential term, and every optpfd term (the peel and
+    the probe tail decode such a term in full whenever they touch it)."""
     out: list[int] = []
     for terms, k, required, floor in items:
-        live = sorted({int(t) for t in terms if src.n(int(t)) > 0})
-        req_all = {int(t) for t in required}
-        req = [t for t in req_all if src.n(t) > 0]
-        if k <= 0 or not live or len(req) < len(req_all):
+        order = _peel_terms(src, terms, required, cutoff) if k > 0 else None
+        if order is None:
             continue
-        if not req and sum(src.n(t) for t in live) <= cutoff:
+        live, req, optional, exhaustive = order
+        if exhaustive:
             out += live
             continue
         out += [t for t in live if src.decode_kernel(t) == "pfor"]
         if req:
-            out.append(min(req, key=src.n))
-        elif sum(src.ub(t) for t in live) >= floor + 1:
-            out.append(min(live, key=lambda t: (-src.ub(t), t)))
+            out.append(req[0])
+        elif sum(src.ub(t) for t in optional) >= floor + 1:  # θ is 0 before any scoring
+            out.append(optional[0])
     return out
 
 
 def _tail_decodes(src, pend) -> list[int]:
-    """Tail terms ``_term_lanes`` resolves against a full decode: classical
-    codecs, and learned terms without guided probes or with a correction
-    width outside 1..31."""
-    out: list[int] = []
-    for _, p in pend:
-        for t in p.tail:
-            tm = src.term_model(t)
-            if tm is None or not 0 < tm.width < 32:
-                out.append(t)
-    return out
+    """Tail terms ``_term_lanes`` resolves against a full decode
+    (``_tail_reads_list``)."""
+    return [t for _, p in pend for t in p.tail if _tail_reads_list(src.term_model(t))]
 
 
 def _window_ranks(rlo, wlen):
@@ -230,7 +238,7 @@ def _term_lanes(src, t, cands, pbits):
     tm = src.term_model(t)
     stream_bytes = wide_lanes = 0
 
-    if tm is not None and 0 < tm.width < 32:
+    if not _tail_reads_list(tm):
         width, cmin, corr_words = int(tm.width), int(tm.corr_min), tm.corr_words
         seg, r_lo, r_hi = rank_windows(tm, cands)
         lens = np.maximum(r_hi - r_lo + 1, 0)

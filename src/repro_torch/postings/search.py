@@ -346,16 +346,11 @@ class GuidedPostings:
         return self.term_model(t) is not None
 
     # ------------------------------------------------------------- probes
-    def _route(
-        self, t: int, n_cands: int, hint: str | None = None
-    ) -> tuple[str, TermModel | None]:
-        """Shared probe preamble: stats + route decision.
-
-        Routes are 'empty' | 'fallback' (classical codec, full decode) |
-        'decode' (learned codec sent to full decode by the cost model or a
-        planner hint) | 'guided' (ε-window probes).  The TermModel comes
-        back for both learned routes so callers can log the ε-window
-        feature the router thresholds on.
+    def route(self, t: int, n_cands: int, hint: str | None = None) -> str:
+        """The route a probe of term t over ``n_cands`` candidates takes,
+        with no accounting: 'empty' | 'fallback' (classical codec, full
+        decode) | 'decode' (learned codec sent to full decode by the cost
+        model or a planner hint) | 'guided' (ε-window probes).
 
         ``hint`` is a planner override ('guided' | 'decode'): the sharded
         planner runs the same cost model at plan time with its candidate
@@ -363,21 +358,36 @@ class GuidedPostings:
         per probe.  A hint never forces a guided probe on a classical-codec
         term — absence of a TermModel always falls back.
         """
-        self.stats.probes += n_cands
         if int(self.store.lens[t]) == 0:
-            return "empty", None
-        self.stats.full_equiv_bytes += 4 * int(self.store.streams[t].size)
+            return "empty"
         tm = self.term_model(t)
         if tm is None:
-            self.stats.fallback_terms += 1
-            return "fallback", None
+            return "fallback"
         if hint == "decode" or (hint is None and n_cands * tm.avg_window >= tm.n):
             # cost model: the ε-windows of this many probes would decode more
             # correction bytes than the whole list — full decode is cheaper
+            return "decode"
+        return "guided"
+
+    def _route(
+        self, t: int, n_cands: int, hint: str | None = None
+    ) -> tuple[str, TermModel | None]:
+        """Shared probe preamble: stats + ``route``.  The TermModel comes
+        back for both learned routes so callers can log the ε-window
+        feature the router thresholds on."""
+        self.stats.probes += n_cands
+        route = self.route(t, n_cands, hint)
+        if route == "empty":
+            return route, None
+        self.stats.full_equiv_bytes += 4 * int(self.store.streams[t].size)
+        if route == "fallback":
+            self.stats.fallback_terms += 1
+            return route, None
+        if route == "decode":
             self.stats.routed_terms += 1
-            return "decode", tm
-        self.stats.guided_terms += 1
-        return "guided", tm
+        else:
+            self.stats.guided_terms += 1
+        return route, self.term_model(t)
 
     def _fallback_list(self, t: int) -> np.ndarray:
         """Fully-decoded postings via the (caching) fallback, bytes charged

@@ -17,11 +17,11 @@ docs per word), which is what leaves the device: 32x fewer bytes than a bool
 mask.  ``execute`` verifies each query's candidates exactly — guided
 ε-window probes for learned-codec terms, galloping search over full decodes
 otherwise; full decodes of learned-codec lists go through the ``plm_decode``
-kernel, of optpfd lists through the ``pfor`` kernel, every list the batch
-may need fetched up front in one launch per kernel (``batch_decodes``) —
-and returns a *packed bitmap* over local doc ids, word-copyable into the
-global bitmap because shard boundaries are aligned to 32-doc words
-(``shard_ranges``).
+kernel, of optpfd lists through the ``pfor`` kernel.  The batch verifies
+term-major, so the lists each round reads are decoded together, one launch
+per kernel (``batch_decodes``), and no list goes unread — and returns a
+*packed bitmap* over local doc ids, word-copyable into the global bitmap
+because shard boundaries are aligned to 32-doc words (``shard_ranges``).
 
 ``query_topk_local`` is the ranked path: the shard runs MaxScore dynamic
 pruning (repro_torch.rank.topk) against its tier-2 payload streams — full
@@ -38,6 +38,7 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass
+from itertools import chain
 
 import numpy as np
 
@@ -147,10 +148,13 @@ class ShardEngine:
         self.ranked_stats = RankedStats()
         self._dfs = inv.dfs  # local document frequencies, materialized once
         self._decode_cache: CostLRU[int, np.ndarray] = CostLRU(cfg.cache_budget_bytes)
-        # the open batch's prefetched lists (batch_decodes), and those of them
-        # it decoded that verification has not read yet
+        # the open batch's fetched lists (batch_decodes), those of them it
+        # decoded that nothing has read yet, those decoded one at a time, and
+        # while a Boolean batch verifies, the log of the current query's reads
         self._batch_lists: dict[int, np.ndarray] = {}
         self._unread: set[int] = set()
+        self._solo: set[int] = set()
+        self._reads: list[int] | None = None
         self._batch_depth = 0
         self.prefetch_stats = PrefetchStats()
         self.state = alg.build_engine(lb.model, lb.tau, inv, block_size=li_cfg.block_size)
@@ -221,10 +225,25 @@ class ShardEngine:
 
     def _postings(self, t: int) -> np.ndarray:
         """Fully-decoded postings of term t, via the cost-budgeted LRU; on a
-        miss from the open batch's prefetched lists when they hold it."""
+        miss from the open batch's prefetched lists when they hold it.
+
+        While a Boolean batch verifies (``_verify_batch``) the read is logged
+        and the LRU only peeked: the batch replays its reads in query order
+        when it is done (``_replay``)."""
         store = self.tier2
         if store is None:
             return self.inv.postings(t)
+        if self._reads is not None:
+            self._reads.append(t)
+            hit = self._batch_lists.get(t)
+            if hit is None:
+                hit = self._decode_cache.peek(t)
+                if hit is None:  # a host codec, or a list no round fetched
+                    hit = full_decode(store, t, self.device)
+                    self._solo.add(t)
+                self._batch_lists[t] = hit
+            self._unread.discard(t)
+            return hit
         hit = self._decode_cache.get(t)
         if hit is None:
             hit = self._batch_lists.get(t)
@@ -250,7 +269,18 @@ class ShardEngine:
             if self._batch_depth == 0:
                 self.prefetch_stats.unused += len(self._unread)
                 self._unread.clear()
+                self._solo.clear()
                 self._batch_lists.clear()
+
+    def _replay(self, reads) -> None:
+        """The decode LRU's gets and puts for logged reads, in order; a miss
+        puts the batch's copy of the list, ``taken`` where a prefetch
+        fetched it (each such miss is a decode the per-term path makes)."""
+        for t in chain.from_iterable(reads):
+            if self._decode_cache.get(t) is None:
+                hit = self._batch_lists[t]
+                self.prefetch_stats.taken += t not in self._solo
+                self._decode_cache.put(t, hit, hit.nbytes)
 
     def _postings_many(self, terms) -> None:
         """Fetch the full lists of ``terms`` into the open batch's map: a
@@ -355,12 +385,8 @@ class ShardEngine:
         'guided' | 'decode' for learned-codec terms, None when no model
         applies (classical codec, raw store, or guided probing disabled)."""
         g = self.guided
-        if g is None:
-            return None
-        tm = g.term_model(t)
-        if tm is None:
-            return None
-        return "guided" if est_cands * tm.avg_window < tm.n else "decode"
+        route = g.route(t, est_cands) if g is not None else None
+        return route if route in ("guided", "decode") else None
 
     # ------------------------------------------------------------- execute
     def candidate_mask(self, q: np.ndarray) -> np.ndarray:
@@ -388,82 +414,96 @@ class ShardEngine:
             return out
         if mask is None:
             mask = self.candidate_mask(q)
-        prefetch = self._verify_decodes(q, plan, qplans, mask) if self.cfg.verified else ()
-        with self.batch_decodes(prefetch):
+        if not self.cfg.verified:
             for i in range(n_queries):
-                if run is not None and not run[i]:
-                    continue
-                if not self.cfg.verified:
+                if run is None or run[i]:
                     out[i] = mask[i]
-                    continue
-                ids = unpack_row(mask[i], self.n_docs)
-                if qplans is not None:
-                    routes = plan.routes[i] if plan is not None else None
-                    ids = self._verify_terms(qplans[i].terms, ids, routes)
-                else:
-                    ids = self._verify(q[i], ids)
-                out[i] = pack_ids(ids, self.n_docs)
+            return out
+        rows, jobs = [], []
+        for i in range(n_queries):
+            if run is not None and not run[i]:
+                continue
+            if qplans is not None:
+                terms = qplans[i].terms
+                routes = plan.routes[i] if plan is not None else None
+            else:
+                terms, routes = self._local_order(q[i]), None
+            rows.append(i)
+            jobs.append((terms, unpack_row(mask[i], self.n_docs), routes))
+        for i, ids in zip(rows, self._verify_batch(jobs)):
+            out[i] = pack_ids(ids, self.n_docs)
         return out
 
-    def _verify_decodes(self, q, plan, qplans, mask) -> list[int]:
-        """Terms this batch's verification may decode in full: for each
-        query that runs, has candidates and no locally absent term, its
-        optpfd terms and the learned terms its plan routes to 'decode' (all
-        learned terms without guided probes).  A query whose survivors run
-        out before a term leaves that list unread."""
-        store, guided = self.tier2, self.guided
-        if store is None:
-            return []
-        run = plan.run if plan is not None else None
-        terms: list[int] = []
-        for i in range(q.shape[0]):
-            if (run is not None and not run[i]) or not mask[i].any():
-                continue
-            ts = qplans[i].terms if qplans is not None else {int(t) for t in q[i] if t >= 0}
-            if not ts or int(self._dfs[np.asarray(list(ts))].min()) == 0:
-                continue
-            routes = plan.routes[i] if plan is not None and qplans is not None else None
-            for t in ts:
-                kernel = decode_kernel(store, t)
-                if kernel == "pfor" or (kernel == "plm" and (
-                        guided is None or (routes or {}).get(t) == "decode")):
-                    terms.append(t)
-        return terms
-
     # ------------------------------------------------------------- verify
-    def _verify(self, query: np.ndarray, ids: np.ndarray) -> np.ndarray:
-        """Exact candidate re-check, smallest *local* list first (the
-        plan-less path: direct shard use and unit tests)."""
-        terms = sorted({int(t) for t in query if t >= 0})  # dedupe repeats
-        if not terms or len(ids) == 0:
-            return ids
+    def _local_order(self, query: np.ndarray) -> tuple[int, ...]:
+        """A query's distinct terms, smallest *local* list first (the
+        plan-less order: direct shard use and unit tests)."""
+        terms = sorted({int(t) for t in query if t >= 0})
         terms.sort(key=lambda t: int(self._dfs[t]))
-        return self._verify_terms(tuple(terms), ids)
+        return tuple(terms)
 
-    def _verify_terms(
-        self,
-        terms: tuple[int, ...],
-        ids: np.ndarray,
-        routes: dict[int, str] | None = None,
-    ) -> np.ndarray:
-        """Exact re-check of candidates against tier-2 in the given term
-        order.  Each term filters the (sorted) survivors either by guided
-        ε-window probes (learned-codec terms, honoring the planner's route
-        hint) or by galloping search over the fully-decoded list."""
-        out = ids
-        if not terms or len(out) == 0:
-            return out
-        if int(self._dfs[np.asarray(terms)].min()) == 0:
-            return out[:0]  # some term occurs nowhere locally: empty AND
+    def _verify(self, query: np.ndarray, ids: np.ndarray) -> np.ndarray:
+        """Exact candidate re-check of one query in local term order."""
+        return self._verify_batch([(self._local_order(query), ids, None)])[0]
+
+    def _reads_list(self, t: int, n_cands: int, routes: dict[int, str] | None) -> bool:
+        """Whether checking ``n_cands`` candidates against term t reads its
+        full list: the guided router's own decision (``GuidedPostings.route``),
+        or always without guided probes."""
         guided = self.guided
-        for t in terms:
-            if len(out) == 0:
-                break
-            if guided is not None:
-                hint = routes.get(t) if routes else None
-                out = out[guided.contains(t, out, route=hint)]
-            else:
-                out = out[gallop_membership(self._postings(t), out)]
+        if guided is None:
+            return True
+        hint = routes.get(t) if routes else None
+        return guided.route(t, n_cands, hint) in ("fallback", "decode")
+
+    def _verify_batch(self, jobs) -> list[np.ndarray]:
+        """Exact re-check of a batch's candidates against tier-2; ``jobs``
+        holds one (terms in order, sorted candidate ids, planner routes or
+        None) per query.
+
+        Each term filters a query's survivors either by guided ε-window
+        probes (learned-codec terms, honoring the planner's route hint) or
+        by galloping search over the fully-decoded list.  The batch goes
+        term-major: round r applies the r-th term of every query that still
+        has survivors, after one ``_postings_many`` call has fetched the
+        full lists that round reads, so a list is decoded only if it is
+        read.  The decode LRU is only peeked meanwhile; the reads are then
+        replayed query by query, so its gets, puts and counters are those
+        of verifying one query after another.
+        """
+        out = [ids for _, ids, _ in jobs]
+        live = []
+        for j, (terms, ids, _) in enumerate(jobs):
+            if not terms or len(ids) == 0:
+                continue
+            if int(self._dfs[np.asarray(terms)].min()) == 0:
+                out[j] = ids[:0]  # some term occurs nowhere locally: empty AND
+                continue
+            live.append(j)
+        guided = self.guided
+        reads: list[list[int]] = [[] for _ in jobs]
+        with self.batch_decodes():
+            try:
+                r = 0
+                while live:
+                    self._postings_many(
+                        jobs[j][0][r] for j in live
+                        if self._reads_list(jobs[j][0][r], len(out[j]), jobs[j][2])
+                    )
+                    for j in live:
+                        terms, _, routes = jobs[j]
+                        t, ids = terms[r], out[j]
+                        self._reads = reads[j]
+                        if guided is not None:
+                            hint = routes.get(t) if routes else None
+                            out[j] = ids[guided.contains(t, ids, route=hint)]
+                        else:
+                            out[j] = ids[gallop_membership(self._postings(t), ids)]
+                    r += 1
+                    live = [j for j in live if r < len(jobs[j][0]) and len(out[j])]
+            finally:
+                self._reads = None
+            self._replay(reads)
         return out
 
     # ------------------------------------------------------------- stats

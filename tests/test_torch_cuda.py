@@ -302,7 +302,7 @@ def test_plm_decode_widths_and_cta_edges_on_card():
 @pytest.mark.cuda
 def test_pfor_kernel_matches_plain_on_card():
     """Blocks of every width in ragged lists of 1 to 40 blocks, so lists
-    start inside CTAs of 8 blocks and carry across many of them."""
+    start inside CTAs of 32 blocks and carry across up to three of them."""
     dev = _card()
     rng = np.random.default_rng(5)
     words, meta6, gaps = pfor_blocks(rng, blocks_per_width=12, high=1 << 12)
@@ -318,12 +318,12 @@ def test_pfor_kernel_matches_plain_on_card():
 
 @pytest.mark.cuda
 def test_pfor_look_back_and_overflow_on_card():
-    """Lists of up to 400 full blocks (50 CTAs) whose last ids end at
-    INT32_MAX exactly, then one more gap of 1: the flag goes up."""
+    """Lists of up to 1,600 full blocks (50 CTAs of 32 blocks) whose last
+    ids end at INT32_MAX exactly, then one more gap of 1: the flag goes up."""
     dev = _card()
     rng = np.random.default_rng(50)
     lists, streams = [], []
-    for n in (400 * 128, 128 * 37 + 5, 1, 9000):
+    for n in (1600 * 128, 128 * 37 + 5, 1, 9000):
         gaps = rng.integers(1, 5000, n).astype(np.int64)
         gaps[0] = 2**31 - 1 - int(gaps[1:].sum())
         lists.append(np.cumsum(gaps).astype(np.int32))

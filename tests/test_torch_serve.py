@@ -113,14 +113,35 @@ def _same_entries(a, b):
             assert np.array_equal(va, vb)
 
 
+def _count_decodes(m, counts):
+    """Count the shard's full decodes of kernel-coded lists: one at a time
+    (``full_decode``) and batched (``decode_terms``)."""
+    from repro_torch.postings.search import decode_kernel
+    from repro_torch.serve import shard
+
+    one, many = shard.full_decode, shard.decode_terms
+
+    def full_decode(store, t, device):
+        counts["one"] += decode_kernel(store, t) is not None
+        return one(store, t, device)
+
+    def decode_terms(store, terms, device):
+        counts["many"] += sum(decode_kernel(store, t) is not None for t in terms)
+        return many(store, terms, device)
+
+    m.setattr(shard, "full_decode", full_decode)
+    m.setattr(shard, "decode_terms", decode_terms)
+
+
 @pytest.mark.parametrize("k,budget", [(1, 32 << 20), (1, 4000), (4, 4000)],
                          ids=["k1", "k1-evicting", "k4-evicting"])
 def test_prefetch_keeps_results_and_decode_cache(system, monkeypatch, k, budget):
-    """A cold and a warm batch with the batched prefetch and without it (the
-    per-term decodes of the parent design): the same results, the same
-    decode-cache entries and counters, and no more pfor launches (fewer at
-    K=1; the K=4 shards hold one optpfd list or so each).  A budget of 4,000
-    bytes evicts lists in mid-batch."""
+    """A cold and a warm batch with the batched prefetch and without it (each
+    list decoded on its own): the same results, the same decode-cache
+    entries and counters, and no more pfor launches (fewer at K=1; the K=4
+    shards hold one optpfd list or so each).  The prefetch decodes exactly
+    the lists the batch reads, none one at a time and none it leaves
+    unread.  A budget of 4,000 bytes evicts lists in mid-batch."""
     from repro_torch.kernels.pfor import ops as pfor_ops
     from repro_torch.serve.shard import ShardEngine
 
@@ -129,16 +150,18 @@ def test_prefetch_keeps_results_and_decode_cache(system, monkeypatch, k, budget)
     decode = pfor_ops.pfor_decode
     runs = {}
     for prefetch in (True, False):
-        launches = []
+        launches, counts = [], {"one": 0, "many": 0}
         with monkeypatch.context() as m:
             m.setattr(pfor_ops, "pfor_decode", lambda *a: launches.append(a[2]) or decode(*a))
+            _count_decodes(m, counts)
             if not prefetch:
                 m.setattr(ShardEngine, "_postings_many", lambda self, terms: None)
             eng = BooleanEngine(lb, inv, li_cfg, ServeConfig(
                 n_shards=k, device="cpu", cache_budget_bytes=budget))
             res = [eng.query_batch(q), eng.query_batch(q)]
-        runs[prefetch] = (res, _decode_entries(eng), eng.serving_stats(), launches)
-    (got, entries, stats, fewer), (want, entries0, stats0, per_term) = runs[True], runs[False]
+        runs[prefetch] = (res, _decode_entries(eng), eng.serving_stats(), launches, counts)
+    (got, entries, stats, fewer, counts), (want, entries0, stats0, per_term, counts0) = (
+        runs[True], runs[False])
     for batch, batch0 in zip(got, want):
         for g, w, e in zip(batch, batch0, exact):
             assert np.array_equal(g, w) and np.array_equal(g, e)
@@ -147,8 +170,16 @@ def test_prefetch_keeps_results_and_decode_cache(system, monkeypatch, k, budget)
     pre = stats["prefetch"]
     assert pre["decoded"] > 0 and pre["taken"] > 0 and stats0["prefetch"]["decoded"] == 0
     assert len(fewer) < len(per_term) if k == 1 else len(fewer) <= len(per_term)
-    # every per-term decode the prefetch saved was taken from the batch map
-    assert len(per_term) == pre["taken"] + len(fewer) - pre["calls"]
+    # the same lists, all fetched in batches, none unread
+    assert counts == {"one": 0, "many": pre["decoded"]}
+    assert counts0 == {"one": pre["decoded"], "many": 0}
+    assert pre["unused"] == 0
+    # each LRU miss of a prefetched list is a decode the per-term path makes;
+    # without evictions every decoded list misses exactly once
+    if budget > 1 << 20:
+        assert pre["taken"] == pre["decoded"]
+    else:
+        assert pre["taken"] > pre["decoded"]
 
 
 @pytest.mark.parametrize("config", [
@@ -161,7 +192,8 @@ def test_prefetch_keeps_results_and_decode_cache(system, monkeypatch, k, budget)
 def test_ranked_prefetch_keeps_results_and_decode_cache(system, monkeypatch, config):
     """Ranked batches (OR, then mixed-required) at two shards, with the
     batched prefetch (exhaustive branch, fused peel and tail, arena build)
-    and without it: the same top-k and the same decode-cache entries."""
+    and without it: the same top-k and the same decode-cache entries, and
+    no prefetched list left unread."""
     from repro_torch.data.queries import zipf_disjunctions
     from repro_torch.rank.score import brute_force_topk
     from repro_torch.serve.shard import ShardEngine
@@ -170,14 +202,16 @@ def test_ranked_prefetch_keeps_results_and_decode_cache(system, monkeypatch, con
     q, req = zipf_disjunctions(inv.dfs, 24, seed=5, n_required=1)
     runs = {}
     for prefetch in (True, False):
+        counts = {"one": 0, "many": 0}
         with monkeypatch.context() as m:
+            _count_decodes(m, counts)
             if not prefetch:
                 m.setattr(ShardEngine, "_postings_many", lambda self, terms: None)
             eng = BooleanEngine(lb, inv, li_cfg, ServeConfig(
                 n_shards=2, device="cpu", cache_budget_bytes=6000, ranked=config))
             res = [eng.query_topk(q, 10), eng.query_topk(q, 10, required=req)]
-        runs[prefetch] = (res, _decode_entries(eng), eng.serving_stats())
-    (got, entries, stats), (want, entries0, stats0) = runs[True], runs[False]
+        runs[prefetch] = (res, _decode_entries(eng), eng.serving_stats(), counts)
+    (got, entries, stats, counts), (want, entries0, stats0, _) = runs[True], runs[False]
     oracle = [brute_force_topk(inv, eng.impact_model, q, 10),
               brute_force_topk(inv, eng.impact_model, q, 10, required=req)]
     for batch, batch0, exact in zip(got, want, oracle):
@@ -189,7 +223,14 @@ def test_ranked_prefetch_keeps_results_and_decode_cache(system, monkeypatch, con
     # the multi-phase MaxScore loop decodes term by term; every other path
     # fetches its lists in batches
     batched = config.get("fused_kernel") or config.get("topk_exhaustive_cutoff", 1) > 0
-    assert (stats["prefetch"]["taken"] > 0) == bool(batched)
+    pre = stats["prefetch"]
+    assert (pre["taken"] > 0) == bool(batched)
+    # the prefetches decode only lists the batch reads; a fused batch
+    # decodes no kernel-coded list one at a time
+    assert counts["many"] == pre["decoded"] and pre["unused"] == 0
+    assert pre["taken"] >= pre["decoded"]
+    if config.get("fused_kernel"):
+        assert counts["one"] == 0
 
 
 # ------------------------------------------------------------ host pieces
