@@ -23,7 +23,11 @@ card's name and power limit first, then one JSON line per phase:
          those calls
   B      the verify layer in the learned-codec regime: guided probes and
          full decodes of plm/rmi lists on the guided_search and plm_decode
-         kernels, asserted equal to the host numpy probe and decode
+         kernels, asserted equal to the host numpy probe and decode; the
+         240 conjunctions verify term-major, one ``probe_many`` call (one
+         guided_search launch) per round, or, in a package without it, one
+         ``probe`` call per (query, term); the line names the entry, and
+         gives the launches and seconds of the verification
   R      ranked serving, the reference launcher's ranked batch (64 Zipf OR
          queries, top-10) through ``BooleanEngine.query_topk``: on phase A's
          K=1 engine with 8-bit payloads in configuration (a) (multi-phase
@@ -53,7 +57,7 @@ then the ``kernels`` line (launch counts from phases A, B and R, times,
 bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero.  ``--phases`` runs a subset (R and D
 need A; C needs A, B and R), ``--src`` drives the package of another
-checkout (phases A, R and D only need what every version of the port has),
+checkout (phases A, B, R and D only need what every version of the port has),
 so that two versions can be compared on one card in one call.
 """
 from __future__ import annotations
@@ -411,12 +415,18 @@ def phase_a(args, dev, launches, clock: DecodeClock, keep: dict) -> dict:
     }
 
 
-def phase_b(dev) -> dict:
+def phase_b(dev, launches) -> dict:
     import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.queries import zipf_conjunctions
     from repro_torch.index.compress import CODECS
     from repro_torch.index.intersect import membership_mask
+    from repro_torch.kernels.guided_search.kernel import KERNEL as GUIDED
+    from repro_torch.kernels.pfor.kernel import KERNEL as PFOR
+    from repro_torch.kernels.plm_decode.kernel import KERNEL as DECODE
     from repro_torch.kernels.plm_decode.ops import decode_lists
     from repro_torch.postings import GuidedPostings, HybridPostings
 
@@ -450,29 +460,75 @@ def phase_b(dev) -> dict:
         if not np.array_equal(ids, host[t]):
             raise AssertionError(f"plm_decode of term {t} differs from the host decode")
 
-    # conjunctive verification, smallest list first, through the guided prober
-    gp = GuidedPostings(store, device=dev)
+    # conjunctive verification, smallest list first, through the guided
+    # prober: term-major, one probe_many call per round, where the package
+    # has it; else one probe call per (query, term), query after query
+    entry = "probe_many" if hasattr(GuidedPostings, "probe_many") else "probe"
+
+    def check(gp, qi, t, out, found, rank):
+        truth_rank = np.searchsorted(host[t], out)
+        if not (np.array_equal(found, membership_mask(host[t], out))
+                and np.array_equal(rank, truth_rank)):
+            raise AssertionError(f"query {qi} term {t}: probe differs from the host decode")
+        if gp.is_guided(t):
+            hf, hr = host_probe(gp.term_model(t), out)
+            if not (np.array_equal(found, hf) and np.array_equal(rank, hr)):
+                raise AssertionError(f"query {qi} term {t}: probe differs from the host probe")
+
+    def verify(checked: bool):
+        """-> (prober, survivors per query, probes, rounds, seconds in the
+        prober's calls)"""
+        gp = GuidedPostings(store, device=dev)
+        outs, probes, rounds, probe_s = list(cands), 0, 0, 0.0
+        if entry == "probe_many":
+            live, r = [qi for qi in range(len(outs)) if len(outs[qi])], 0
+            while live:
+                t1 = time.perf_counter()
+                res = gp.probe_many([(qterms[qi][r], outs[qi], None) for qi in live])
+                probe_s += time.perf_counter() - t1
+                rounds += 1
+                for qi, (found, rank) in zip(live, res):
+                    if checked:
+                        check(gp, qi, qterms[qi][r], outs[qi], found, rank)
+                    probes += len(outs[qi])
+                    outs[qi] = outs[qi][found]
+                r += 1
+                live = [qi for qi in live if r < len(qterms[qi]) and len(outs[qi])]
+        else:
+            for qi, ts in enumerate(qterms):
+                for t in ts:
+                    if len(outs[qi]) == 0:
+                        break
+                    t1 = time.perf_counter()
+                    found, rank = gp.probe(t, outs[qi])
+                    probe_s += time.perf_counter() - t1
+                    if checked:
+                        check(gp, qi, t, outs[qi], found, rank)
+                    probes += len(outs[qi])
+                    outs[qi] = outs[qi][found]
+        return gp, outs, probes, rounds, probe_s
+
+    before = launches()
     t0 = time.perf_counter()
-    probes = 0
-    for qi, (ts, c) in enumerate(zip(qterms, cands)):
-        out = c
-        for t in ts:
-            if len(out) == 0:
-                break
-            found, rank = gp.probe(t, out)
-            probes += len(out)
-            truth_rank = np.searchsorted(host[t], out)
-            if not (np.array_equal(found, membership_mask(host[t], out))
-                    and np.array_equal(rank, truth_rank)):
-                raise AssertionError(f"query {qi} term {t}: probe differs from the host decode")
-            if gp.is_guided(t):
-                hf, hr = host_probe(gp.term_model(t), out)
-                if not (np.array_equal(found, hf) and np.array_equal(rank, hr)):
-                    raise AssertionError(f"query {qi} term {t}: probe differs from the host probe")
-            out = out[found]
+    gp, outs, probes, rounds, probe_s = verify(checked=True)
+    for qi, out in enumerate(outs):
         if not np.array_equal(out, exact[qi]):
             raise AssertionError(f"query {qi}: verified result differs from np.intersect1d")
     verify_s = time.perf_counter() - t0
+    after = launches()
+    # the same verification again, unchecked, under torch.profiler: the
+    # device time of every guided_search kernel it runs (launches made to
+    # measure are taken back off the counters)
+    counters = (GUIDED, DECODE, PFOR)
+    saved = [k.launches for k in counters]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        verify(checked=False)
+        torch.cuda.synchronize()
+    for k, n in zip(counters, saved):
+        k.launches = n
+    spans = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "probe_kernel" in e.name]
     return {
         "phase": "B",
         "terms": B_TERMS,
@@ -481,11 +537,22 @@ def phase_b(dev) -> dict:
         "queries": B_QUERIES,
         "codecs": store.codec_histogram(),
         "learned_terms": len(learned),
+        "entry": entry,
+        "rounds": rounds,
         "probes": probes,
         "probe_stats": gp.stats.as_dict(),
+        "verify_launches": {n: after[n] - before[n] for n in ("guided_search", "plm_decode")},
+        # device ms of the guided_search kernels of one verification
+        # (None when the profiler saw no device activity)
+        "guided_search_device_ms": sum(spans) if spans else None,
+        "guided_search_kernels_profiled": len(spans),
         "exact": True,
-        "seconds": {"store_build": build_s, "decode_learned": decode_s, "verify": verify_s},
+        # verify: the whole loop, host checks included; probe: inside the
+        # prober's calls only
+        "seconds": {"store_build": build_s, "decode_learned": decode_s, "verify": verify_s,
+                    "probe": probe_s},
     }
+
 
 def _check_topk(got, want, what: str) -> None:
     import numpy as np
@@ -658,7 +725,24 @@ def phase_d(dev, keep: dict) -> dict:
     }
 
 
+def probe_words(rows, terms) -> int:
+    """Distinct packed correction words that guided_search probe rows read:
+    a row's ranks cover the bits from r_lo*w to (r_lo+n)*w - 1 of its term's
+    words, straddling words included."""
+    import numpy as np
+
+    from repro_torch.postings.search import union_size
+
+    w = terms[rows[:, 0], 1].astype(np.int64)
+    keep = (w > 0) & (rows[:, 3] > 0)
+    base = terms[rows[keep, 0], 0].astype(np.int64)
+    lo = rows[keep, 2].astype(np.int64) * w[keep]
+    return union_size(base + lo // 32,
+                      base + (lo + rows[keep, 3].astype(np.int64) * w[keep] - 1) // 32)
+
+
 def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
+    import numpy as np
     import torch
 
     from repro_torch.core.learned_bloom import NUMERIC_MARGIN
@@ -735,17 +819,22 @@ def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
         float(err), 4 * (Qb * T * W + Qb * T + Qb * W + Qb), 0,
         extra={"shape": {"Q": Qb, "T": T, "W": W}})
 
-    cols = rec.inputs["guided_search"]
-    (kf, kl), (rf, rl) = probe_batch(*cols), probe_ref(*cols)
-    err = max(int((kf - rf).abs().max()), int((kl - rl).abs().max()))
+    args = rec.inputs["guided_search"]
+    got, want = probe_batch(*args), probe_ref(*args)
+    err = int((got - want).abs().max()) if got.numel() else 0
     if err:
         raise AssertionError("guided_search differs from its plain version")
-    P, Wg = cols[-1].shape
-    window = int(cols[4].clamp(max=Wg).sum())  # the kernel reads only each row's valid prefix
+    table, terms = args[0].cpu().numpy(), args[1].cpu().numpy()
+    n_out, R = args[4], table.shape[0]
+    words = probe_words(table, terms)
+    n_seg, n_term = len(np.unique(table[:, 1])), len(np.unique(table[:, 0]))
     row("guided_search", "src/repro/kernels/guided_search/kernel.py:42",
-        lambda: probe_batch(*cols), lambda: probe_ref(*cols),
-        float(err), 4 * (6 * P + window + 2 * P), 0,
-        extra={"shape": {"P": P, "W": Wg, "window_ranks": window}})
+        lambda: probe_batch(*args), lambda: probe_ref(*args),
+        float(err), 4 * words + 24 * R + 8 * n_out + 12 * (n_seg + n_term), 0,
+        plain_in_graph=False,
+        extra={"shape": {"P": n_out, "rows": R, "chunk_rows": R - len(np.unique(table[:, 5])),
+                         "window_ranks": int(table[:, 3].sum()), "words_touched": words,
+                         "segments": n_seg, "terms": n_term}})
 
     def plm_row(tabs, case):
         got, want = decode_batch(*tabs), decode_ref(*tabs)
@@ -966,7 +1055,7 @@ def main() -> int:
 
     counts, keep = {}, {}
     for name, run in (("A", lambda: phase_a(args, dev, launches, clock, keep)),
-                      ("B", lambda: phase_b(dev)),
+                      ("B", lambda: phase_b(dev, launches)),
                       ("R", lambda: phase_r(dev, launches, clock, keep))):
         if name not in phases:
             continue
@@ -983,6 +1072,7 @@ def main() -> int:
     if missing and {"A", "B", "R"} <= phases:
         raise AssertionError(f"kernels never launched on phases A, B and R: {missing}")
     for phase, names in (("A", ("membership", "bitset", "pfor")),
+                         ("B", ("guided_search", "plm_decode")),
                          ("R", ("pfor", "bm25_score", "fused_topk"))):
         for n in names:
             if phase in counts and counts[phase][n] == 0:

@@ -4,38 +4,33 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.cuda import I, P, CudaKernel, check
-from repro_torch.kernels.guided_search.ref import probe_ref
+from repro_torch.kernels.guided_search.ref import ROW_COLS, SEG_COLS, TERM_COLS, probe_ref
 
-KERNEL = CudaKernel("guided_search", "probe_batch_launch", [P] * 9 + [I, I])
+KERNEL = CudaKernel("guided_search", "probe_batch_launch", [P, P, P, P, P, I, I])
 
 
 def probe_batch(
-    seg_starts: torch.Tensor,  # (P,) int32
-    bases: torch.Tensor,  # (P,) int32
-    slopes: torch.Tensor,  # (P,) float32
-    r_lo: torch.Tensor,  # (P,) int32
-    n_valid: torch.Tensor,  # (P,) int32
-    cands: torch.Tensor,  # (P,) int32
-    corr: torch.Tensor,  # (P, W) int32
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Probe P windows -> (found (P,) int32, lt (P,) int32)."""
-    dev = corr.device
+    rows: torch.Tensor,  # (R, 6) int32 [term row, global segment, r_lo, n_valid, cand, out]
+    terms: torch.Tensor,  # (L, 3) int32 [first word, width, corr_min]
+    segs: torch.Tensor,  # (S, 3) int32 [start, base, slope bits]
+    words: torch.Tensor,  # (n_words,) int32 packed corrections, terms end to end
+    n_out: int,  # output slots
+) -> torch.Tensor:
+    """Probe R window rows -> (2, n_out) int32 [found, lt]; see ref.py."""
+    dev = words.device
     if dev.type == "cpu":
-        return probe_ref(seg_starts, bases, slopes, r_lo, n_valid, cands, corr)
+        return probe_ref(rows, terms, segs, words, n_out)
     if dev.type != "cuda":
         raise ValueError(f"probe_batch: unsupported device {dev}")
-    check(corr, "corr", torch.int32, 2, dev)
-    n_probes, width = corr.shape
-    for name, t, dtype in (
-        ("seg_starts", seg_starts, torch.int32), ("bases", bases, torch.int32),
-        ("slopes", slopes, torch.float32), ("r_lo", r_lo, torch.int32),
-        ("n_valid", n_valid, torch.int32), ("cands", cands, torch.int32),
-    ):
-        check(t, name, dtype, 1, dev)
-        if t.shape[0] != n_probes:
-            raise ValueError(f"{name} has {t.shape[0]} rows, corr {n_probes}")
-    found = torch.empty(n_probes, dtype=torch.int32, device=dev)
-    lt = torch.empty(n_probes, dtype=torch.int32, device=dev)
-    cols = (seg_starts, bases, slopes, r_lo, n_valid, cands, corr, found, lt)
-    KERNEL.launch(*(t.data_ptr() for t in cols), n_probes, width)
-    return found, lt
+    for name, t, cols in (("rows", rows, ROW_COLS), ("terms", terms, TERM_COLS),
+                          ("segs", segs, SEG_COLS)):
+        check(t, name, torch.int32, 2, dev)
+        if t.shape[1] != cols:
+            raise ValueError(f"{name} has {t.shape[1]} columns, expected {cols}")
+    check(words, "words", torch.int32, 1, dev)
+    if not 0 <= n_out < 2**31 or rows.shape[0] >= 2**31:
+        raise ValueError(f"{rows.shape[0]} rows / {n_out} slots exceed the kernel's int32 indices")
+    out = torch.empty(2, n_out, dtype=torch.int32, device=dev)
+    KERNEL.launch(rows.data_ptr(), terms.data_ptr(), segs.data_ptr(), words.data_ptr(),
+                  out.data_ptr(), rows.shape[0], n_out)
+    return out

@@ -1,91 +1,88 @@
-"""Host bridge: TermModel + candidates -> padded probe windows -> probe_batch.
+"""Host bridge: rank brackets of many terms -> one probe table -> probe_batch.
 
-Computes the exact rank brackets on the host (repro_torch.postings.search),
-gathers each window's packed corrections with a scattered unpack (only the
-touched stream words are read; their count is returned for byte
-accounting), pads the window axis to a multiple of 128 and answers the
-candidate set with ``probe_batch`` calls on ``device``.
-
-Probes whose bracket exceeds MAX_W ranks (degenerate or low-slope segments
-scan whole segments) go to launches of their own, padded to their own width
-and cut into batches of at most WIDE_CELLS corrections, instead of widening
-every row's padding to the outlier's width.  The reference bridge answers
-them in host numpy; here every probe runs on the kernel.
+The caller computes each candidate's exact rank bracket on the host
+(repro_torch.postings.search.rank_windows); the segment tables and packed
+corrections of every learned term already lie on ``device`` in a
+``StreamArena``.  This module turns a batch of brackets, of any number of
+terms, into one int32 table of probe rows, cutting windows longer than
+CHUNK_RANKS into rows of CHUNK_RANKS, and answers it with one
+``probe_batch`` launch: one pinned upload of the table, one download of
+found and lt.  A table larger than TABLE_CHUNK_BYTES is cut, at probe
+boundaries, into launches of that size.  Empty windows make no row: their
+slots stay 0 (absent, rank r_lo).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.cuda import fetch, staging
 from repro_torch.kernels.guided_search.kernel import probe_batch
+from repro_torch.kernels.guided_search.ref import ROW_COLS
 
-_LANES = 128
-MAX_W = 1024  # widest window the main launch pads to
-WIDE_CELLS = 1 << 24  # corrections per launch of wide windows (64 MiB of int32)
-
-
-def _bucket(n: int, quantum: int) -> int:
-    """Round n up to quantum * 2^k."""
-    b = quantum
-    while b < n:
-        b *= 2
-    return b
+# ranks one warp scans; a longer window is cut into rows of this many, and
+# counts as a wide probe (ProbeStats.wide_probes)
+CHUNK_RANKS = 1024
+# probe-table bytes one launch takes at most (64 MiB, about 2.8M rows)
+TABLE_CHUNK_BYTES = 64 << 20
 
 
-def _launch(tm, d, seg, r_lo, lens, rows, probe_of, col, flat_ranks, dev):
-    """One probe_batch over the probes ``rows`` -> (found, lt) numpy, per row."""
-    from repro_torch.index.compress import unpack_bits_at
+def probe_rows(
+    term: np.ndarray, seg: np.ndarray, r_lo: np.ndarray, lens: np.ndarray, cands: np.ndarray
+) -> np.ndarray:
+    """Per-probe brackets (term row, global segment, first rank, window
+    length, candidate) -> (R, 6) int32 probe rows, slot = probe index; a
+    window of n > 0 ranks gives ceil(n / CHUNK_RANKS) rows, an empty one none."""
+    lens = np.asarray(lens, np.int64)
+    pieces = -(-lens // CHUNK_RANKS)
+    slot = np.repeat(np.arange(len(lens)), pieces)
+    first = np.cumsum(pieces) - pieces
+    at = (np.arange(len(slot)) - first[slot]) * CHUNK_RANKS
+    out = np.empty((len(slot), ROW_COLS), np.int32)
+    out[:, 0] = np.asarray(term)[slot]
+    out[:, 1] = np.asarray(seg)[slot]
+    out[:, 2] = np.asarray(r_lo)[slot] + at
+    out[:, 3] = np.minimum(lens[slot] - at, CHUNK_RANKS)
+    out[:, 4] = np.asarray(cands)[slot]
+    out[:, 5] = slot
+    return out
 
-    pos = np.full(len(d), -1, np.int64)
-    pos[rows] = np.arange(len(rows))
-    sel = pos[probe_of] >= 0
-    W = _bucket(int(lens[rows].max()), _LANES)
-    corr = np.zeros((len(rows), W), np.int32)
-    vals = unpack_bits_at(tm.corr_words, tm.width, flat_ranks[sel]).astype(np.int64)
-    corr[pos[probe_of[sel]], col[sel]] = (vals + tm.corr_min).astype(np.int32)
 
-    def col_t(a: np.ndarray, dtype) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
-
-    kf, lt = probe_batch(
-        col_t(tm.starts[seg[rows]], np.int32),
-        col_t(tm.bases[seg[rows]], np.int32),
-        col_t(tm.slopes[seg[rows]], np.float32),
-        col_t(r_lo[rows], np.int32),
-        col_t(lens[rows], np.int32),
-        col_t(d[rows], np.int32),
-        col_t(corr, np.int32),
-    )
-    return kf.cpu().numpy().astype(bool), lt.cpu().numpy().astype(np.int64)
+def probe_table(arena, rows: np.ndarray, n_out: int, device: torch.device) -> np.ndarray:
+    """One launch over probe rows whose slots lie in [0, n_out) -> (2,
+    n_out) int32 [found, lt], through one pinned upload and one download."""
+    host = staging(rows.size, device)
+    host.numpy()[:] = rows.reshape(-1)
+    table = host.to(device, non_blocking=True).view(-1, ROW_COLS)
+    return fetch(probe_batch(table, arena.terms, arena.segs, arena.words, n_out))
 
 
 def probe_windows(
-    tm, cands: np.ndarray, *, device: torch.device | str
-) -> tuple[np.ndarray, np.ndarray, int, np.ndarray]:
-    """Batched guided probes of one term -> (found bool, rank int64, bytes,
-    wide): ``bytes`` counts the packed correction stream bytes the windows
-    touched (metadata is accounted by the caller at model-load time);
-    ``wide`` holds the window lengths of the probes wider than MAX_W.
-    """
-    from repro_torch.postings.search import _touched_words, flatten_windows
-
-    d = np.asarray(cands, np.int64)
-    seg, r_lo, lens, probe_of, col, flat_ranks = flatten_windows(tm, d)
-    found = np.zeros(len(d), bool)
-    rank = r_lo.copy()
-    wide = lens > MAX_W
-    if len(flat_ranks) == 0:
-        return found, rank, 0, lens[wide]
-    touched = 4 * _touched_words(flat_ranks, tm.width)
-    groups = [np.nonzero(~wide & (lens > 0))[0]]
-    if wide.any():
-        rows = np.nonzero(wide)[0]
-        per = max(1, WIDE_CELLS // _bucket(int(lens[rows].max()), _LANES))
-        groups += [rows[i : i + per] for i in range(0, len(rows), per)]
+    arena, term: np.ndarray, seg: np.ndarray, r_lo: np.ndarray, lens: np.ndarray,
+    cands: np.ndarray, *, device: torch.device | str,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Batched guided probes, one per candidate, of any terms of ``arena``
+    -> (found bool, lt int64: window ids below the candidate).  ``term`` is
+    each probe's term row and ``seg`` its global segment (arena.first_seg
+    of the term row + the term's own segment index)."""
     dev = torch.device(device)
-    for rows in groups:
-        if len(rows):
-            kf, lt = _launch(tm, d, seg, r_lo, lens, rows, probe_of, col, flat_ranks, dev)
-            found[rows] = kf
-            rank[rows] += lt
-    return found, rank, touched, lens[wide]
+    rows = probe_rows(term, seg, r_lo, lens, cands)
+    P = len(lens)
+    found, lt = np.zeros(P, bool), np.zeros(P, np.int64)
+    slot = rows[:, 5]
+    per = max(1, TABLE_CHUNK_BYTES // (4 * ROW_COLS))
+    i = 0
+    while i < len(rows):
+        # the rows of whole probes: at most ``per``, or one probe's if it has more
+        j = min(i + per, len(rows))
+        if j < len(rows):
+            j = max(int(np.searchsorted(slot, slot[j])),
+                    int(np.searchsorted(slot, slot[i], side="right")))
+        lo, hi = int(slot[i]), int(slot[j - 1]) + 1
+        part = rows[i:j].copy()
+        part[:, 5] -= lo
+        res = probe_table(arena, part, hi - lo, dev)
+        found[lo:hi] = res[0] != 0
+        lt[lo:hi] = res[1]
+        i = j
+    return found, lt

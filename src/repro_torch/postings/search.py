@@ -31,13 +31,16 @@ caller-supplied accessor.
 
 ``GuidedPostings`` wraps a HybridPostings store and keeps honest byte
 accounting (``ProbeStats``) so benchmarks can compare the stream bytes a
-guided probe touches against what a full decode would have read.  Its
-ε-window probes run as one batched ``guided_search`` call per (term,
-candidate set) on the prober's ``device``: the CUDA kernel on a card, the
-plain PyTorch version on the CPU.  Full decodes (``decode_terms``, and
-``full_decode`` for one term) run on the ``plm_decode`` kernel for
-learned-codec terms and on the ``pfor`` kernel for optpfd terms the same
-way, one launch per kernel for a whole batch of lists.
+guided probe touches against what a full decode would have read.  The
+segment tables and packed corrections of every learned term lie on the
+prober's ``device`` in one ``StreamArena``, uploaded at its first guided
+probe; ``probe_many``/``contains_many`` answer the ε-window probes of a
+whole batch of (term, candidate set) items, of any terms, with one
+``guided_search`` launch: the CUDA kernel on a card, the plain PyTorch
+version on the CPU.  Full decodes (``decode_terms``, and ``full_decode`` for
+one term) run on the ``plm_decode`` kernel for learned-codec terms and on
+the ``pfor`` kernel for optpfd terms the same way, one launch per kernel for
+a whole batch of lists.
 """
 from __future__ import annotations
 
@@ -126,6 +129,30 @@ def _touched_words(indices: np.ndarray, width: int) -> int:
     return len(np.unique(bitpos // 32))
 
 
+def window_words(r_lo: np.ndarray, lens: np.ndarray, width: int) -> int:
+    """``_touched_words`` of every rank of the windows [r_lo, r_lo + lens),
+    without listing the ranks: for width <= 32 the ranks of one window start
+    in every word from r_lo*w // 32 to (r_lo+len-1)*w // 32, so the count is
+    the size of the union of those word intervals."""
+    keep = np.asarray(lens) > 0
+    if width == 0:
+        return 0
+    lo = np.asarray(r_lo, np.int64)[keep]
+    return union_size(lo * width // 32, (lo + np.asarray(lens, np.int64)[keep] - 1) * width // 32)
+
+
+def union_size(first: np.ndarray, last: np.ndarray) -> int:
+    """#integers in the union of the closed intervals [first_i, last_i]."""
+    if len(first) == 0:
+        return 0
+    order = np.argsort(first, kind="stable")
+    first, last = first[order], last[order]
+    # the integers of interval i that no interval before it covers
+    reach = np.maximum.accumulate(last)
+    prev = np.concatenate([[first[0] - 1], reach[:-1]])
+    return int(np.maximum(last - np.maximum(first - 1, prev), 0).sum())
+
+
 def rank_windows(tm: TermModel, cands: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-candidate exact rank bracket -> (seg, r_lo, r_hi) int64 arrays.
 
@@ -173,8 +200,8 @@ def flatten_windows(
 
     -> (seg, r_lo, lens, probe_of, col, flat_ranks): probe_of[i] is the
     candidate index owning flat rank i, col[i] its position inside that
-    candidate's window (flat_ranks = r_lo[probe_of] + col).  The single
-    source of truth for the kernel bridge, host checks, and tests.
+    candidate's window (flat_ranks = r_lo[probe_of] + col).  For host checks
+    and tests: the probe path itself never lists the ranks.
     """
     seg, r_lo, r_hi = rank_windows(tm, cands)
     lens = np.maximum(r_hi - r_lo + 1, 0)
@@ -263,6 +290,56 @@ def full_decode(store: HybridPostings, t: int, device: torch.device) -> np.ndarr
 
 
 @dataclass
+class StreamArena:
+    """The learned (plm/rmi) streams of a store, resident on a device, as
+    ``guided_search`` reads them: term row l = [first word, width, corr_min]
+    of its packed corrections in ``words`` (terms end to end), segment row g
+    = [start, base, slope bits] (terms end to end, term row l's first at
+    ``first_seg[l]``).  ``row[t]`` is term t's term row."""
+
+    row: dict[int, int]
+    first_seg: np.ndarray  # (L,) int64
+    terms: torch.Tensor  # (L, 3) int32
+    segs: torch.Tensor  # (S, 3) int32
+    words: torch.Tensor  # (n_words,) int32
+
+
+def build_arena(store: HybridPostings, device: torch.device) -> StreamArena:
+    """Parse every non-empty plm/rmi stream of ``store`` and upload the
+    three tables through one pinned staging buffer in one copy."""
+    from repro_torch.kernels.cuda import staging
+
+    learned = [t for t in range(store.n_terms)
+               if int(store.lens[t]) and int(store.tags[t]) in _LEARNED_TAGS]
+    parsed = [parse_segments(store.streams[t][1:]) for t in learned]
+    n_seg = np.array([len(p[0]) for p in parsed], np.int64)
+    n_words = np.array([len(p[5]) for p in parsed], np.int64)
+    L, S, W = len(learned), int(n_seg.sum()), int(n_words.sum())
+    if W >= 2**31 or 3 * (L + S) + W >= 2**31:
+        raise ValueError(f"{W} correction words exceed the kernel's int32 positions")
+    host = staging(3 * (L + S) + W, device)
+    h = host.numpy()
+    terms, segs = h[: 3 * L].reshape(L, 3), h[3 * L : 3 * (L + S)].reshape(S, 3)
+    if L:
+        terms[:, 0] = np.cumsum(n_words) - n_words
+        terms[:, 1] = [p[3] for p in parsed]
+        terms[:, 2] = [p[4] for p in parsed]
+        segs[:, 0] = np.concatenate([p[0] for p in parsed])
+        segs[:, 1] = np.concatenate([p[1] for p in parsed])
+        segs[:, 2] = np.concatenate([p[2] for p in parsed]).view(np.int32)
+        np.concatenate([p[5] for p in parsed], out=h[3 * (L + S) :].view(np.uint32),
+                       casting="unsafe")
+    buf = host.to(device, non_blocking=True)
+    return StreamArena(
+        row={t: l for l, t in enumerate(learned)},
+        first_seg=np.cumsum(n_seg) - n_seg,
+        terms=buf[: 3 * L].view(L, 3),
+        segs=buf[3 * L : 3 * (L + S)].view(S, 3),
+        words=buf[3 * (L + S) :],
+    )
+
+
+@dataclass
 class ProbeStats:
     """Stream-byte accounting for the guided-vs-full comparison."""
 
@@ -274,8 +351,8 @@ class ProbeStats:
     metadata_bytes: int = 0  # header/segment-table bytes (once per term)
     fallback_bytes: int = 0  # full stream bytes of classical-codec decodes
     full_equiv_bytes: int = 0  # what full decode would have touched instead
-    wide_probes: int = 0  # guided probes whose window exceeded the main launch's MAX_W
-    wide_ranks: int = 0  # ranks those windows decoded (in launches of their own)
+    wide_probes: int = 0  # guided probes whose window exceeds CHUNK_RANKS (cut into chunks)
+    wide_ranks: int = 0  # ranks those windows decoded
 
     def guided_bytes(self) -> int:
         return self.window_bytes + self.metadata_bytes + self.fallback_bytes
@@ -300,8 +377,9 @@ class GuidedPostings:
     decodes on ``device``; classical-codec terms fall back to `fallback(t)`
     (full decode).  The fallback must cache decodes — `stats.fallback_bytes`
     charges each term's stream once, which is only honest if repeat calls
-    don't re-decode.  The default wraps store.postings in a per-term cache;
-    the serving engine passes its decode-cost-budgeted LRU accessor instead.
+    don't re-decode.  The default is a per-term cache that a batch fills
+    with one ``decode_terms`` call; the serving engine passes its
+    decode-cost budgeted LRU accessor instead.
     """
 
     def __init__(
@@ -313,19 +391,14 @@ class GuidedPostings:
     ):
         self.store = store
         self.device = resolve_device(device)
-        if fallback is None:
-            cache: dict[int, np.ndarray] = {}
-
-            def fallback(t: int) -> np.ndarray:
-                p = cache.get(t)
-                if p is None:
-                    cache[t] = p = full_decode(store, t, self.device)
-                return p
-
-        self.fallback = fallback
+        # the default decode cache, which _answer fills a batch at a time
+        # before it reads any list
+        self._cache: dict[int, np.ndarray] | None = None if fallback else {}
+        self.fallback = fallback or self._cache.__getitem__
         self.stats = ProbeStats()
         self._models: dict[int, TermModel | None] = {}
         self._fallback_seen: set[int] = set()
+        self._arena: StreamArena | None = None
 
     # ------------------------------------------------------------- models
     def term_model(self, t: int) -> TermModel | None:
@@ -344,6 +417,15 @@ class GuidedPostings:
 
     def is_guided(self, t: int) -> bool:
         return self.term_model(t) is not None
+
+    @property
+    def arena(self) -> StreamArena:
+        """Every learned stream of the store on ``device``, uploaded once, at
+        the first guided probe; no accounting (the bytes a probe reads are
+        charged per window and per parsed model, as without an arena)."""
+        if self._arena is None:
+            self._arena = build_arena(self.store, self.device)
+        return self._arena
 
     # ------------------------------------------------------------- probes
     def route(self, t: int, n_cands: int, hint: str | None = None) -> str:
@@ -398,14 +480,72 @@ class GuidedPostings:
             self.stats.fallback_bytes += 4 * int(self.store.streams[t].size)
         return p
 
-    def _probe_guided(self, tm: TermModel, cands: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        from repro_torch.kernels.guided_search.ops import probe_windows
+    def _probe_guided(self, work) -> list[tuple[np.ndarray, np.ndarray]]:
+        """ε-window probes of (t, TermModel, candidates) items, all in one
+        ``guided_search`` launch -> (found, rank) per item."""
+        from repro_torch.kernels.guided_search.ops import CHUNK_RANKS, probe_windows
 
-        found, rank, touched, wide = probe_windows(tm, cands, device=self.device)
-        self.stats.window_bytes += touched
-        self.stats.wide_probes += len(wide)
-        self.stats.wide_ranks += int(wide.sum())
-        return found, rank
+        arena = self.arena
+        parts = []
+        for t, tm, cands in work:
+            seg, r_lo, r_hi = rank_windows(tm, cands)
+            lens = np.maximum(r_hi - r_lo + 1, 0)
+            self.stats.window_bytes += 4 * window_words(r_lo, lens, tm.width)
+            wide = lens[lens > CHUNK_RANKS]
+            self.stats.wide_probes += len(wide)
+            self.stats.wide_ranks += int(wide.sum())
+            row = arena.row[t]
+            parts.append((np.full(len(cands), row), arena.first_seg[row] + seg, r_lo, lens, cands))
+        term, seg, r_lo, lens, cands = (np.concatenate(c) for c in zip(*parts))
+        found, lt = probe_windows(arena, term, seg, r_lo, lens, cands, device=self.device)
+        rank = r_lo + lt
+        bounds = np.cumsum([0] + [len(c) for _, _, c in work])
+        return [(found[a:b], rank[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+
+    def _answer(self, items, ranks: bool) -> list:
+        """The probes of (t, sorted candidates, route hint) items, in item
+        order, with the accounting of answering them one by one: the default
+        decode cache fetches the batch's full lists in one ``decode_terms``
+        call, and the guided items share one ``guided_search`` launch.  Each
+        answer is (found, rank) with ``ranks``, else found (fallback terms
+        gallop instead of binary-searching every candidate)."""
+        items = [(int(t), np.asarray(c), hint) for t, c, hint in items]
+        routes = [self._route(t, len(c), hint) for t, c, hint in items]
+        full = [t for (t, _, _), (r, _) in zip(items, routes) if r in ("fallback", "decode")]
+        if self._cache is not None:
+            todo = list(dict.fromkeys(t for t in full if t not in self._cache))
+            if todo:
+                self._cache.update(zip(todo, decode_terms(self.store, todo, self.device)))
+        out: list = [None] * len(items)
+        guided = []
+        for i, ((t, cands, _), (route, tm)) in enumerate(zip(items, routes)):
+            if route == "guided":
+                guided.append(i)
+            elif route == "empty":
+                found = np.zeros(len(cands), bool)
+                out[i] = (found, np.zeros(len(cands), np.int64)) if ranks else found
+            elif ranks:
+                p = self._fallback_list(t)
+                sel = np.searchsorted(p, cands)
+                found = (sel < len(p)) & (p[np.minimum(sel, len(p) - 1)] == cands)
+                out[i] = (found, sel.astype(np.int64))
+            else:
+                out[i] = gallop_membership(self._fallback_list(t), cands)
+        if guided:
+            got = self._probe_guided([(items[i][0], routes[i][1], items[i][1]) for i in guided])
+            for i, res in zip(guided, got):
+                out[i] = res if ranks else res[0]
+        return out
+
+    def probe_many(self, items) -> list[tuple[np.ndarray, np.ndarray]]:
+        """(t, candidates, route hint) items -> (contains bool mask, rank
+        int64) per item, each what ``probe`` gives it alone."""
+        return self._answer(items, ranks=True)
+
+    def contains_many(self, items) -> list[np.ndarray]:
+        """(t, sorted ascending candidates, route hint) items -> membership
+        mask per item, each what ``contains`` gives it alone."""
+        return self._answer(items, ranks=False)
 
     def probe(
         self, t: int, cands: np.ndarray, *, route: str | None = None
@@ -415,16 +555,7 @@ class GuidedPostings:
         rank(d) = #postings of t strictly below d (searchsorted-left), exact
         whether or not d is present.
         """
-        cands = np.asarray(cands)
-        route, tm = self._route(t, len(cands), route)
-        if route == "empty":
-            return np.zeros(len(cands), bool), np.zeros(len(cands), np.int64)
-        if route in ("fallback", "decode"):
-            p = self._fallback_list(t)
-            sel = np.searchsorted(p, cands)
-            found = (sel < len(p)) & (p[np.minimum(sel, len(p) - 1)] == cands)
-            return found, sel.astype(np.int64)
-        return self._probe_guided(tm, cands)
+        return self.probe_many([(t, cands, route)])[0]
 
     def contains(
         self, t: int, cands: np.ndarray, *, route: str | None = None
@@ -432,18 +563,12 @@ class GuidedPostings:
         """Membership mask for *sorted ascending* candidates (the shape the
         verification loop produces).  Fallback terms skip rank computation
         and gallop instead of binary-searching every candidate."""
-        cands = np.asarray(cands)
-        route, tm = self._route(t, len(cands), route)
-        if route == "empty":
-            return np.zeros(len(cands), bool)
-        if route in ("fallback", "decode"):
-            return gallop_membership(self._fallback_list(t), cands)
-        return self._probe_guided(tm, cands)[0]
+        return self.contains_many([(t, cands, route)])[0]
 
     def reset_stats(self) -> None:
         """Zero the accounting window: models and fallback decodes will both
         recharge their bytes on next use (parsed metadata is re-read too, so
-        the two paths stay symmetric across a reset)."""
+        the two paths stay symmetric across a reset).  The arena stays."""
         self.stats = ProbeStats()
         self._fallback_seen.clear()
         self._models.clear()

@@ -446,16 +446,6 @@ class ShardEngine:
         """Exact candidate re-check of one query in local term order."""
         return self._verify_batch([(self._local_order(query), ids, None)])[0]
 
-    def _reads_list(self, t: int, n_cands: int, routes: dict[int, str] | None) -> bool:
-        """Whether checking ``n_cands`` candidates against term t reads its
-        full list: the guided router's own decision (``GuidedPostings.route``),
-        or always without guided probes."""
-        guided = self.guided
-        if guided is None:
-            return True
-        hint = routes.get(t) if routes else None
-        return guided.route(t, n_cands, hint) in ("fallback", "decode")
-
     def _verify_batch(self, jobs) -> list[np.ndarray]:
         """Exact re-check of a batch's candidates against tier-2; ``jobs``
         holds one (terms in order, sorted candidate ids, planner routes or
@@ -465,11 +455,14 @@ class ShardEngine:
         probes (learned-codec terms, honoring the planner's route hint) or
         by galloping search over the fully-decoded list.  The batch goes
         term-major: round r applies the r-th term of every query that still
-        has survivors, after one ``_postings_many`` call has fetched the
-        full lists that round reads, so a list is decoded only if it is
-        read.  The decode LRU is only peeked meanwhile; the reads are then
-        replayed query by query, so its gets, puts and counters are those
-        of verifying one query after another.
+        has survivors.  The guided router (``GuidedPostings.route``, the
+        rule the probe itself runs) splits the round: its guided items go to
+        one ``contains_many`` call, one ``guided_search`` launch, and the
+        full lists the others read are fetched by one ``_postings_many``
+        call first, so a list is decoded only if it is read.  The decode
+        LRU is only peeked meanwhile; the reads are then replayed query by
+        query, so its gets, puts and counters are those of verifying one
+        query after another.
         """
         out = [ids for _, ids, _ in jobs]
         live = []
@@ -486,16 +479,26 @@ class ShardEngine:
             try:
                 r = 0
                 while live:
-                    self._postings_many(
-                        jobs[j][0][r] for j in live
-                        if self._reads_list(jobs[j][0][r], len(out[j]), jobs[j][2])
-                    )
+                    items = {}
                     for j in live:
                         terms, _, routes = jobs[j]
-                        t, ids = terms[r], out[j]
+                        hint = routes.get(terms[r]) if routes else None
+                        route = None if guided is None else guided.route(terms[r], len(out[j]), hint)
+                        items[j] = (terms[r], hint, route)
+                    self._postings_many(t for t, _, route in items.values() if route != "guided")
+                    probed = [j for j in live if items[j][2] == "guided"]
+                    if probed:
+                        masks = guided.contains_many(
+                            [(items[j][0], out[j], items[j][1]) for j in probed])
+                        for j, mask in zip(probed, masks):
+                            out[j] = out[j][mask]
+                    for j in live:
+                        t, hint, route = items[j]
+                        if route == "guided":
+                            continue
                         self._reads = reads[j]
+                        ids = out[j]
                         if guided is not None:
-                            hint = routes.get(t) if routes else None
                             out[j] = ids[guided.contains(t, ids, route=hint)]
                         else:
                             out[j] = ids[gallop_membership(self._postings(t), ids)]

@@ -103,6 +103,45 @@ def pfor_lists(meta6, gaps, list_blocks):
     return meta, np.append((ids & 0xFFFFFFFF).astype(np.uint32).view(np.int32), flag)
 
 
+def probe_tables(rng, n_probes, lengths, widths=(0, 7, 13, 32), n_ranks=4096, n_seg=4):
+    """Packed inputs of the guided_search kernel: one term row per width
+    (``n_ranks`` corrections packed at that width, some straddling word
+    boundaries), ``n_seg`` segments a term (some half-integer slopes, for
+    round-half-to-even), and ``n_probes`` rows of one slot each, window
+    lengths drawn from ``lengths``, half of the candidates in their window.
+    -> (rows, terms, segs, words, vals): int32 arrays as probe_batch takes
+    them, and each term's unpacked corrections (int64, corr_min added)."""
+    terms, segs, words, vals = [], [], [], []
+    n_words = 0
+    for w in widths:
+        v = rng.integers(0, 1 << w, n_ranks, dtype=np.uint64).astype(np.uint32) if w else \
+            np.zeros(n_ranks, np.uint32)
+        packed = pack_bits(v, w)
+        cmin = int(rng.integers(-64, 64))
+        terms.append((n_words, w, cmin))
+        words.append(packed)
+        vals.append(v.astype(np.int64) + cmin)
+        n_words += len(packed)
+        for g in range(n_seg):
+            slope = (rng.integers(0, 6) + 0.5) if g % 2 else rng.random() * 300
+            segs.append((g * n_ranks // n_seg, int(rng.integers(0, 1 << 22)),
+                         int(np.array(slope, np.float32).view(np.int32))))
+    terms, segs = np.array(terms, np.int32), np.array(segs, np.int32)
+    rows = np.zeros((n_probes, 6), np.int32)
+    for p in range(n_probes):
+        l = int(rng.integers(len(widths)))
+        n = int(lengths[p % len(lengths)])
+        g = l * n_seg + int(rng.integers(n_seg))
+        r_lo = int(rng.integers(0, n_ranks - n + 1))
+        j = r_lo + int(rng.integers(max(n, 1)))
+        start, base, bits = (int(x) for x in segs[g])
+        slope = np.array(bits, np.int32).view(np.float32)
+        cand = base + int(np.rint(slope * np.float32(j - start))) + int(vals[l][j % n_ranks])
+        cand += int(rng.random() < 0.5)
+        rows[p] = (l, g, r_lo, n, np.array(cand, np.int64).astype(np.int32), p)
+    return rows, terms, segs, np.concatenate(words).astype(np.uint32), vals
+
+
 def plm_batch(streams, lens):
     """plm/rmi streams (postings/plm.py layout) -> the (seg_pos, bases,
     slopes, list rows, packed words, n) arrays decode_batch takes, read
@@ -228,24 +267,35 @@ def test_bitset_kernel_matches_plain_on_card():
 
 @pytest.mark.cuda
 def test_guided_search_kernel_matches_plain_on_card():
+    """A ragged table of 5,000+ probes over terms of widths 0..32: windows of
+    0, 1, 31, 33 and 1,024 ranks, and longer ones cut into rows of 1,024
+    whose found/lt combine by atomics; a CUDA graph replayed twice gives the
+    same outputs (the launch's memset zeroes them each time)."""
+    from repro_torch.kernels.guided_search.ops import probe_rows
+
     dev = _card()
     rng = np.random.default_rng(3)
-    p, w = 5000, 512
-    seg = rng.integers(0, 5000, p).astype(np.int32)
-    base = rng.integers(0, 1 << 22, p).astype(np.int32)
-    # half-integer products exercise round-half-to-even
-    slope = np.where(rng.random(p) < 0.3, rng.integers(0, 6, p) + 0.5,
-                     rng.random(p) * 300).astype(np.float32)
-    r_lo = (seg + rng.integers(0, 3000, p)).astype(np.int32)
-    n_valid = rng.integers(0, w + 1, p).astype(np.int32)
-    corr = rng.integers(-64, 64, (p, w)).astype(np.int32)
-    j = rng.integers(0, w, p)
-    cand = base + np.rint(slope * (r_lo + j - seg).astype(np.float32)).astype(np.int32)
-    cand = np.where(rng.random(p) < 0.5, cand + corr[np.arange(p), j], cand + 1)
-    cols = [_t(c).to(dev) for c in (seg, base, slope, r_lo, n_valid, cand.astype(np.int32), corr)]
-    (gf, gl), (wf, wl) = probe_batch(*cols), probe_ref(*cols)
-    assert torch.equal(gf, wf) and torch.equal(gl, wl)
-    assert 0 < int(gf.sum()) < p
+    lengths = (0, 1, 31, 33, 1024, 5000, 7, 300)
+    rows, terms, segs, words, _ = probe_tables(rng, 5200, lengths, widths=range(33),
+                                               n_ranks=8192)
+    rows = probe_rows(*rows[:, :5].T)  # the host's chunking of long windows
+    assert len(rows) > 5200 and (rows[:, 3] <= 1024).all()
+    args = [_t(a).to(dev) for a in (rows, terms, segs, words)] + [5200]
+    got, want = probe_batch(*args), probe_ref(*args)
+    assert torch.equal(got, want)
+    assert 0 < int(got[0].sum()) < 5200 and int(got[1].max()) > 1024
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        probe_batch(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = probe_batch(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 @pytest.mark.cuda

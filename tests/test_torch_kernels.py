@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_cuda import _t as _tw
-from test_torch_cuda import pfor_blocks, pfor_lists, plm_batch
+from test_torch_cuda import pfor_blocks, pfor_lists, plm_batch, probe_tables
 
 from repro.index.compress import optpfd_decode as ref_optpfd_decode
 from repro.index.compress import undgaps as ref_undgaps
@@ -149,31 +149,29 @@ def test_bitset_plain_matches_pallas(t):
 
 
 # ----------------------------------------------------------- guided_search
-def _probe_inputs(rng, p, w):
-    seg = rng.integers(0, 5000, p).astype(np.int32)
-    base = rng.integers(0, 1 << 22, p).astype(np.int32)
-    # half-integer products (slope 0.5, 1.5, 2.5) exercise round-half-to-even
-    slope = np.where(rng.random(p) < 0.3, rng.integers(0, 6, p) + 0.5,
-                     rng.random(p) * 300).astype(np.float32)
-    r_lo = (seg + rng.integers(0, 3000, p)).astype(np.int32)
-    n_valid = rng.integers(0, w + 1, p).astype(np.int32)
-    corr = rng.integers(-64, 64, (p, w)).astype(np.int32)
-    j = rng.integers(0, w, p)
-    di = (r_lo + j - seg).astype(np.float32)
-    cand = base + np.rint(slope * di).astype(np.int32) + corr[np.arange(p), j]
-    cand = np.where(rng.random(p) < 0.5, cand, cand + 1).astype(np.int32)
-    return seg, base, slope, r_lo, n_valid, cand, corr
-
-
 @pytest.mark.parametrize("p,w", [(8, 128), (37, 256), (200, 1024)])
 def test_guided_search_plain_matches_pallas(p, w):
-    cols = _probe_inputs(np.random.default_rng(300 + p), p, w)
-    want_f, want_lt = ref_probe(*(jnp.asarray(c.reshape(-1, 1)) for c in cols[:6]),
-                                jnp.asarray(cols[6]), interpret=True)
-    got_f, got_lt = probe_batch(*(_t(c) for c in cols))
-    assert np.array_equal(got_f.numpy(), np.asarray(want_f).reshape(-1))
-    assert np.array_equal(got_lt.numpy(), np.asarray(want_lt).reshape(-1))
-    assert got_f.numpy().any() and not got_f.numpy().all()
+    """Packed probe rows (widths 0, 7, 13 and 32, values straddling word
+    boundaries, half-integer products) against the reference kernel on the
+    same windows unpacked into its dense (P, 1) / (P, W) inputs."""
+    rng = np.random.default_rng(300 + p)
+    lengths = rng.integers(0, w + 1, p)
+    lengths[:4] = (0, 1, w, w - 1)
+    rows, terms, segs, words, vals = probe_tables(rng, p, lengths)
+    term, seg, r_lo, n, cand = (rows[:, c].astype(np.int64) for c in range(5))
+    corr = np.zeros((p, w), np.int64)
+    for i in range(p):
+        corr[i, : n[i]] = vals[term[i]][r_lo[i] : r_lo[i] + n[i]]
+    dense = (segs[seg, 0], segs[seg, 1], segs[seg, 2].view(np.float32), r_lo, n, cand)
+    want_f, want_lt = ref_probe(*(jnp.asarray(np.asarray(c, np.int32 if k != 2 else np.float32)
+                                              .reshape(-1, 1)) for k, c in enumerate(dense)),
+                                jnp.asarray(corr.astype(np.uint32).view(np.int32)),
+                                interpret=True)
+    got = probe_batch(_t(rows), _t(terms), _t(segs), _t(words.view(np.int32)), p)
+    assert np.array_equal(got[0].numpy(), np.asarray(want_f).reshape(-1))
+    assert np.array_equal(got[1].numpy(), np.asarray(want_lt).reshape(-1))
+    assert got[0].numpy().any() and not got[0].numpy().all()
+    assert {0, 7, 13, 32} == set(terms[np.unique(term), 1])
 
 
 # ----------------------------------------------------------- plm_decode

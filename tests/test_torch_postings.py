@@ -257,40 +257,167 @@ def test_guided_probes_match_reference(stores, route):
     assert gp.stats.guided_terms > 0 or route == "decode"
 
 
-def test_wide_windows_run_on_the_kernel_path(monkeypatch):
-    """Brackets wider than MAX_W (slope 0: every bracket is the whole list)
-    go to launches of their own, cut at WIDE_CELLS corrections, and give the
-    reference's verdicts; the prober counts them."""
-    from repro.postings.search import ProbeStats as RefStats
-    from repro_torch.kernels.guided_search import ops
+def _flat_list(rng):
+    """A 1,500-id list stored as one plm segment of slope 0: every bracket
+    is the whole list, wider than CHUNK_RANKS."""
     from repro_torch.postings.plm import emit_stream
-    from repro_torch.postings.search import ProbeStats
 
-    rng = np.random.default_rng(19)
     ids = np.sort(rng.choice(UNIVERSE, 1500, replace=False)).astype(np.int32)
     words = emit_stream(ids, np.array([0], np.int64), np.array([int(ids[0])], np.int64),
                         np.array([0.0], np.float32), eps=0)
-    tm = load_term_model(words, len(ids))
+    return ids, words
+
+
+def _with_terms(store, extra):
+    """``store`` with terms appended: (ids, plm stream words or None)."""
+    from dataclasses import replace
+
+    lens = [len(ids) for ids, _ in extra]
+    tags = [hybrid.CANDIDATES.index("plm") if len(ids) else 0 for ids, _ in extra]
+    streams = [np.concatenate([np.array([tag], np.uint32), words]) if words is not None
+               else np.zeros(0, np.uint32) for tag, (_, words) in zip(tags, extra)]
+    return replace(store, lens=np.concatenate([store.lens, lens]).astype(np.int64),
+                   tags=np.concatenate([store.tags, tags]).astype(np.uint8),
+                   bits=np.concatenate([store.bits, [32 * len(x) for x in streams]]),
+                   streams=[*store.streams, *streams])
+
+
+def test_wide_windows_run_on_the_kernel_path(monkeypatch):
+    """Brackets wider than CHUNK_RANKS (slope 0: every bracket is the whole
+    list) are cut into rows of CHUNK_RANKS and answered in the same, single
+    launch as the rest, with the reference's verdicts; the prober counts
+    them."""
+    from repro.postings.search import ProbeStats as RefStats
+    from repro_torch.kernels.guided_search import ops
+
+    rng = np.random.default_rng(19)
+    ids, words = _flat_list(rng)
+    store = _with_terms(hybrid.HybridPostings.build(np.zeros(1, np.int64),
+                                                    np.zeros(0, np.int32), UNIVERSE),
+                        [(ids, words)])
     cands = _cands(rng, ids)
     ref_gp = RefGuided.__new__(RefGuided)
     ref_gp.stats = RefStats()
     want_found, want_rank = ref_gp._probe_host(ref_load_model(words, len(ids)), cands)
 
-    rows_per_launch = []
-    launch = ops._launch
+    launches = []
+    launch = ops.probe_batch
 
-    def counted(tm_, d, seg, r_lo, lens, rows, *rest):
-        rows_per_launch.append(len(rows))
-        return launch(tm_, d, seg, r_lo, lens, rows, *rest)
+    def counted(rows, *rest):
+        launches.append(rows.shape[0])
+        return launch(rows, *rest)
 
-    monkeypatch.setattr(ops, "_launch", counted)
-    monkeypatch.setattr(ops, "WIDE_CELLS", 2048 * 20)  # 20 wide rows per launch
-    gp = GuidedPostings.__new__(GuidedPostings)
-    gp.stats, gp.device = ProbeStats(), "cpu"
-    found, rank = gp._probe_guided(tm, cands)
+    monkeypatch.setattr(ops, "probe_batch", counted)
+    gp = GuidedPostings(store, device="cpu")
+    found, rank = gp.probe(0, cands, route="guided")
     assert np.array_equal(found, want_found) and np.array_equal(rank, want_rank)
-    lens = flatten_windows(tm, cands)[2]
-    wide = lens[lens > ops.MAX_W]
-    assert len(wide) > 20 and gp.stats.window_bytes > 0
+    lens = flatten_windows(gp.term_model(0), cands)[2]
+    wide = lens[lens > ops.CHUNK_RANKS]
+    assert len(wide) > 20 and gp.stats.window_bytes == ref_gp.stats.window_bytes > 0
     assert (gp.stats.wide_probes, gp.stats.wide_ranks) == (len(wide), int(wide.sum()))
-    assert sum(rows_per_launch) == int((lens > 0).sum()) and max(rows_per_launch) <= 20
+    assert launches == [int((-(-lens // ops.CHUNK_RANKS)).sum())]
+
+
+def test_probe_table_cut_at_probe_boundaries(stores, monkeypatch):
+    """A probe table larger than TABLE_CHUNK_BYTES goes out in several
+    launches, each holding whole probes (a probe with more rows than a
+    launch takes gets a launch of its own), with the answers of one launch."""
+    from repro_torch.kernels.guided_search import ops
+
+    port, _ = stores
+    rng = np.random.default_rng(37)
+    flat, words = _flat_list(rng)
+    port = _with_terms(port, [(flat, words)])
+    items = [(t, _cands(rng, port.postings(t)), "guided") for t in (0, 7, port.n_terms - 1)]
+    want = GuidedPostings(port, device="cpu").probe_many(items)
+    tables = []
+    launch = ops.probe_batch
+
+    def counted(rows, *rest):
+        tables.append(rows.numpy().copy())
+        return launch(rows, *rest)
+
+    monkeypatch.setattr(ops, "probe_batch", counted)
+    monkeypatch.setattr(ops, "TABLE_CHUNK_BYTES", 4 * ops.ROW_COLS * 3)  # 3 rows a launch
+    got = GuidedPostings(port, device="cpu").probe_many(items)
+    for g, w in zip(got, want):
+        assert np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+    rows = np.concatenate(tables)
+    assert len(tables) > 2 and (rows[:, 3] > 0).all()
+    for t in tables:  # slots rebased to each launch (a split probe would lose a chunk's lt)
+        assert t[0, 5] == 0 and len(t) <= 3
+    split = [len(t) for t in tables if len(np.unique(t[:, 5])) < len(t)]
+    assert split  # the slope-0 list's windows: 2 rows of one probe in one launch
+
+
+@pytest.mark.parametrize("ranks", [True, False], ids=["probe_many", "contains_many"])
+def test_probe_many_matches_reference(stores, monkeypatch, ranks):
+    """One batch of mixed items (guided, planner hints 'guided' and
+    'decode', classical fallbacks, an empty list, empty windows, candidates
+    below the first id, the slope-0 list's wide windows, a term twice)
+    gives every item the reference's answer, from the host probe and from
+    the Pallas kernel in interpret mode, and the accounting of answering
+    the items one by one, with one guided_search launch and one decode call."""
+    from repro.kernels.guided_search.ops import probe_windows as pallas_windows
+    from repro_torch.kernels.guided_search import ops
+
+    port, ref = stores
+    rng = np.random.default_rng(29)
+    flat, words = _flat_list(rng)
+    port = _with_terms(port, [(flat, words), (np.zeros(0, np.int32), None)])
+    ref = _with_terms(ref, [(flat, words), (np.zeros(0, np.int32), None)])
+    n = port.n_terms
+    hints = [None, "guided", "decode"]
+    items = [(t, _cands(rng, ref.postings(t)) if ref.lens[t] else np.arange(5), hints[t % 3])
+             for t in range(n)]
+    items += [(n - 2, _cands(rng, flat), "guided"), (0, np.zeros(0, np.int64), None),
+              (3, np.array([0, 1, 2]), "guided")]
+
+    calls = {"probe_batch": 0, "decode_terms": 0}
+    launch, decode = ops.probe_batch, search.decode_terms
+    monkeypatch.setattr(ops, "probe_batch",
+                        lambda *a: calls.__setitem__("probe_batch", calls["probe_batch"] + 1)
+                        or launch(*a))
+    monkeypatch.setattr(search, "decode_terms",
+                        lambda *a: calls.__setitem__("decode_terms", calls["decode_terms"] + 1)
+                        or decode(*a))
+    gp = GuidedPostings(port, device="cpu")
+    got = gp.probe_many(items) if ranks else gp.contains_many(items)
+    assert calls == {"probe_batch": 1, "decode_terms": 1}
+
+    one, gr = GuidedPostings(port, device="cpu"), RefGuided(ref)
+    for (t, cands, hint), g in zip(items, got):
+        if ranks:
+            want = gr.probe(t, cands, route=hint)
+            assert all(np.array_equal(a, b) for a, b in zip(g, want)), (t, hint)
+            assert all(np.array_equal(a, b) for a, b in zip(g, one.probe(t, cands, route=hint)))
+            if gp.route(t, len(cands), hint) == "guided":
+                pf, pr, _ = pallas_windows(ref_load_model(ref.streams[t][1:], int(ref.lens[t])),
+                                           cands, interpret=True)
+                assert np.array_equal(g[0], pf) and np.array_equal(g[1], pr), t
+        else:
+            assert np.array_equal(g, gr.contains(t, cands, route=hint)), (t, hint)
+            assert np.array_equal(g, one.contains(t, cands, route=hint))
+    assert gp.stats == one.stats
+    assert gp.stats.wide_probes > 20 and gp.stats.guided_terms and gp.stats.routed_terms
+    assert gp.stats.fallback_terms
+    want = gr.stats.as_dict()
+    assert {k: gp.stats.as_dict()[k] for k in want} == want
+
+
+def test_arena_survives_reset_and_window_bytes_match_touched_words(stores):
+    """The arena is built once and kept across ``reset_stats``; the byte
+    count of a batch of windows equals ``_touched_words`` of their ranks."""
+    port, _ = stores
+    gp = GuidedPostings(port, device="cpu")
+    rng = np.random.default_rng(31)
+    learned = [t for t in range(port.n_terms) if gp.is_guided(t)]
+    gp.probe_many([(t, _cands(rng, port.postings(t)), "guided") for t in learned])
+    arena = gp.arena
+    assert sorted(arena.row) == learned and len(arena.first_seg) == len(learned)
+    gp.reset_stats()
+    assert gp.arena is arena and gp.stats == search.ProbeStats()
+    for t in learned:
+        tm = gp.term_model(t)
+        _, r_lo, lens, _, _, ranks = flatten_windows(tm, _cands(rng, port.postings(t)))
+        assert search.window_words(r_lo, lens, tm.width) == search._touched_words(ranks, tm.width)

@@ -233,6 +233,103 @@ def test_ranked_prefetch_keeps_results_and_decode_cache(system, monkeypatch, con
         assert counts["one"] == 0
 
 
+def _learned_tier2(inv, terms, seed=41, universe=1 << 20):
+    """A tier-2 store over ``inv``'s vocabulary whose lists for ``terms``
+    are long and smooth (plm/rmi win) or, every fourth, random (a classical
+    codec wins); every other term's list is empty."""
+    from repro_torch.postings import HybridPostings
+
+    rng = np.random.default_rng(seed)
+    lists = [np.zeros(0, np.int32)] * inv.n_terms
+    for i, t in enumerate(terms):
+        n = 4000 // (i + 1) + 300
+        if i % 4 == 3:
+            ids = rng.choice(universe, n, replace=False)
+        else:
+            slope = int(rng.integers(16, 200))
+            ids = int(rng.integers(0, universe // 2)) + np.arange(n) * slope \
+                + rng.integers(0, slope // 4, n)
+        lists[t] = np.unique(ids).astype(np.int32)
+    offsets = np.zeros(inv.n_terms + 1, np.int64)
+    np.cumsum([len(x) for x in lists], out=offsets[1:])
+    return HybridPostings.build(offsets, np.concatenate(lists), universe), lists
+
+
+@pytest.mark.parametrize("budget", [32 << 20, 6000], ids=["cached", "evicting"])
+def test_learned_shard_verifies_each_round_in_one_guided_call(system, monkeypatch, budget):
+    """A shard whose tier-2 holds learned-codec lists: ``_verify_batch``
+    answers each round's guided items with one ``contains_many`` call, one
+    guided_search launch (the plain version here), and gives the results,
+    ``serving_stats()`` and decode-cache entries of the same batch answered
+    item by item, and the results, guided accounting and decode-cache
+    counters of verifying query after query."""
+    from repro_torch.kernels.guided_search import kernel as guided_kernel
+    from repro_torch.postings.search import GuidedPostings
+    from repro_torch.serve.shard import ShardEngine
+
+    _, inv, lb, li_cfg, *_ = system
+    terms = [int(t) for t in np.argsort(-inv.dfs, kind="stable")[:12]]
+    store, lists = _learned_tier2(inv, terms)
+    assert {"plm", "rmi"} & set(store.codec_histogram())
+    rng = np.random.default_rng(43)
+    jobs = []
+    for q in range(20):
+        ts = sorted(rng.choice(terms, int(rng.integers(2, 6)), replace=False),
+                    key=lambda t: len(lists[t]))
+        cur = lists[ts[0]]
+        for t in ts[1:]:
+            cur = np.intersect1d(cur, lists[t])
+        cands = np.union1d(np.union1d(cur, rng.choice(lists[ts[0]], 40)),
+                           rng.integers(0, 1 << 20, 60)).astype(np.int32)
+        routes = {int(ts[-1]): "decode"} if q % 5 == 4 else None
+        jobs.append((tuple(int(t) for t in ts), cands, routes))
+    exact = []
+    for ts, cands, _ in jobs:
+        for t in ts:
+            cands = cands[np.isin(cands, lists[t])]
+        exact.append(cands)
+
+    def run(mode):
+        calls = {"plain": 0, "guided": 0}
+        with monkeypatch.context() as m:
+            plain, many = guided_kernel.probe_ref, GuidedPostings.contains_many
+
+            def counted_plain(*a):
+                calls["plain"] += 1
+                return plain(*a)
+
+            def counted_many(self, items):  # the calls that hold guided items
+                calls["guided"] += any(self.route(t, len(c), h) == "guided" for t, c, h in items)
+                if mode == "items":
+                    return [many(self, [item])[0] for item in items]
+                return many(self, items)
+
+            m.setattr(guided_kernel, "probe_ref", counted_plain)
+            m.setattr(GuidedPostings, "contains_many", counted_many)
+            shard = ShardEngine(lb, inv, li_cfg, ServeConfig(device="cpu",
+                                cache_budget_bytes=budget), tier2=store)
+            if mode == "queries":
+                res = [shard._verify_batch([job])[0] for job in jobs]
+            else:
+                res = shard._verify_batch(jobs)
+        entries = [(k, v) for k, (v, _) in shard._decode_cache._entries.items()]
+        return res, shard.serving_stats(), entries, calls
+
+    (got, stats, entries, calls), (want, stats1, entries1, calls1), (got_q, stats_q, _, _) = (
+        run("batch"), run("items"), run("queries"))
+    for g, w, q, e in zip(got, want, got_q, exact):
+        assert np.array_equal(g, e) and np.array_equal(w, e) and np.array_equal(q, e)
+    assert stats == stats1 and stats["guided"]["guided_terms"] > 0
+    assert stats["guided"]["routed_terms"] > 0 and stats["guided"]["fallback_terms"] > 0
+    _same_entries([entries], [entries1])
+    assert stats_q["guided"] == stats["guided"]
+    assert stats_q["decode_cache"] == stats["decode_cache"]
+    # one launch per round with guided items, at most one per term position
+    assert 1 < calls["plain"] == calls["guided"] <= max(len(ts) for ts, _, _ in jobs)
+    # item by item: one launch per guided item whose windows are not all empty
+    assert stats["guided"]["guided_terms"] >= calls1["plain"] > calls["plain"]
+
+
 # ------------------------------------------------------------ host pieces
 @pytest.mark.parametrize("n_docs,k", [(400, 1), (400, 4), (1000, 3), (40, 4)])
 def test_shard_ranges_and_bitmaps_match_reference(n_docs, k):
