@@ -32,11 +32,20 @@ card's name and power limit first, then one JSON line per phase:
          queries, top-10) through ``BooleanEngine.query_topk``: on phase A's
          K=1 engine with 8-bit payloads in configuration (a) (multi-phase
          MaxScore, exhaustive queries on bm25_score) and (b) (fused_topk
-         launches), (b) again on the K=4 engine, then (a) and (c) (the dense
-         arena loop, with mixed-required queries on fused_topk) on the
-         launcher's default collection of 2,000 docs; every result list
-         asserted equal to ``brute_force_topk``; the decode accounting of A
-         per configuration
+         launches), (b) again on the K=4 engine, then (a) (cold and warm)
+         and (c) (the dense arena loop, with mixed-required queries on
+         fused_topk) on the launcher's default collection of 2,000 docs;
+         every result list asserted equal to ``brute_force_topk``; per run
+         the launches (in a package with ``rank.topk.topk_batch``, (a)
+         makes at most one bm25_score launch per shard, asserted) and the
+         decode accounting of A; the time of building the 2,000-doc
+         shard's guided stream arena on its own
+  A_block
+         Algorithm 3's candidate step on one of A's K=1 batches: its time
+         (``block_query_ms``), launches and device memory allocated per
+         call (one membership and one bitset launch and less than a
+         (Q*T, words) tensor, asserted where the package has the fused
+         ``block_candidates``)
   D      one list's whole decode through ``postings.search.full_decode``
          (the one-term decode entry of every version of the port): phase A's
          optpfd list closest to 100,000 ids, checked against the host
@@ -49,15 +58,17 @@ card's name and power limit first, then one JSON line per phase:
          for membership at the shapes most of its launches saw (the K=4
          shard), for fused_topk on the tile with the most true candidates,
          and for pfor and plm_decode on one list of about 100,000 ids
-         (``case`` tells the rows apart); the time of
-         Algorithm 3's whole candidate step on one batch, and of one dense
-         arena pass
+         (``case`` tells the rows apart); bitset is Algorithm 3's fused
+         block step (``block_candidates``) at A's K=1 shape, bm25_score
+         the stacked exhaustive windows of an (a) batch; the time of one
+         dense arena pass
 
 then the ``kernels`` line (launch counts from phases A, B and R, times,
 bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero.  ``--phases`` runs a subset (R and D
-need A; C needs A, B and R), ``--src`` drives the package of another
-checkout (phases A, B, R and D only need what every version of the port has),
+need A; C needs A, B and R; A_block runs with A), ``--src`` drives the
+package of another checkout (phases A, A_block, B, R and D only need what
+every version of the port has),
 so that two versions can be compared on one card in one call.
 """
 from __future__ import annotations
@@ -386,8 +397,11 @@ def phase_a(args, dev, launches, clock: DecodeClock, keep: dict) -> dict:
         timed(f"tier2_build_k{k}", lambda: [sh.tier2 for sh in eng.shards])
         per_batch, res = served(f"serve_k{k}", eng)
         served(f"serve_warm_k{k}", eng)
-        if k == 1:  # for phase C's time of the whole candidate step
-            keep["state"], keep["queries"] = eng.shards[0].state, q
+        if k == 1:  # for the time of the whole candidate step, at the
+            # (Q, max_query_terms) shape the engine hands it
+            pad = max(0, eng.cfg.max_query_terms - q.shape[1])
+            keep["state"] = eng.shards[0].state
+            keep["queries"] = np.pad(q, ((0, 0), (0, pad)), constant_values=-1)
         keep.setdefault("engines", {})[k] = eng  # phase R serves ranked on them
         stats = eng.serving_stats()
         shards[f"k{k}"] = {
@@ -577,6 +591,8 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
     from repro_torch.data.queries import zipf_disjunctions
     from repro_torch.index.build import build_inverted_index
     from repro_torch.kernels.fused_query import dense
+    from repro_torch.postings import search
+    from repro_torch.rank import topk
     from repro_torch.rank.score import brute_force_topk
     from repro_torch.serve import BooleanEngine, ServeConfig
 
@@ -616,7 +632,7 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
     timed("payloads_k4", lambda: [sh.ensure_payloads() for sh in eng4.shards])
     oracle = timed("oracle", lambda: brute_force_topk(inv, eng1.impact_model, q, R_TOPK))
     eng1.cfg.ranked.score_kernel = True  # (a)
-    serve("a_k1", eng1, q, oracle)
+    a1 = serve("a_k1", eng1, q, oracle)
     eng1.cfg.ranked.score_kernel = False  # (b), as the launcher's --fused sets it
     eng1.cfg.ranked.fused_kernel = True
     eng1.cfg.ranked.topk_exhaustive_cutoff = 0
@@ -624,6 +640,9 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
     eng4.cfg.ranked.fused_kernel = True
     eng4.cfg.ranked.topk_exhaustive_cutoff = 0
     b4 = serve("b_k4", eng4, q, oracle)
+    if hasattr(topk, "topk_batch"):  # exhaustive items: one bm25_score launch per batch
+        if not 0 < a1["launches"]["bm25_score"] <= len(eng1.shards):
+            raise AssertionError(f"a_k1: {a1['launches']['bm25_score']} bm25_score launches")
     for name, run, eng in (("b_k1", b1, eng1), ("b_k4", b4, eng4)):
         # at 528k docs no shard fits the arena (132k docs a shard > 2^17):
         # every item goes to fused_topk; a smaller --docs may fit it
@@ -646,7 +665,13 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
     timed("small_tier2", lambda: [(sh.tier2, sh.ensure_payloads()) for sh in eng_s.shards])
     qs, req = zipf_disjunctions(inv_s.dfs, R_QUERIES, seed=R_SEED, n_required=1)
     im = eng_s.impact_model
-    serve("a_small", eng_s, qs, brute_force_topk(inv_s, im, qs, R_TOPK))
+    small_oracle = brute_force_topk(inv_s, im, qs, R_TOPK)
+    serve("a_small", eng_s, qs, small_oracle)
+    # the same batch warm; and, alone, the build of the guided prober's
+    # device arena, which the first batch on an engine pays
+    serve("a_small_warm", eng_s, qs, small_oracle)
+    if hasattr(search, "build_arena"):
+        timed("small_stream_arena", lambda: search.build_arena(eng_s.shards[0].tier2, dev))
     eng_s.cfg.ranked.score_kernel = False  # (c): fused with the arena
     eng_s.cfg.ranked.fused_kernel = True
     eng_s.cfg.ranked.topk_exhaustive_cutoff = 0
@@ -670,6 +695,41 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
         "runs": runs,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
+
+
+def block_step(algorithms, kernels: dict, keep: dict) -> dict:
+    """Algorithm 3's whole candidate step on one of phase A's K=1 batches,
+    beside its kernels' own times: its launches and the device memory it
+    allocates in one call, then its time (CUDA events).  Launches made
+    here are taken back off the counters.  A package whose block step is
+    the fused ``block_candidates`` must make one membership and one bitset
+    launch and allocate less than a (Q*T, words) tensor."""
+    import torch
+
+    state, q = keep["state"], keep["queries"]
+    saved = {n: k.launches for n, k in kernels.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    algorithms.run_queries(state, q, "block")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launched = {n: k.launches - saved[n] for n, k in kernels.items()}
+    ms = cuda_ms(lambda: algorithms.run_queries(state, q, "block"))
+    for n, k in kernels.items():
+        k.launches = saved[n]
+    Q, T = q.shape
+    words = -(-state.n_docs // 32)
+    entry = "block_candidates" if hasattr(algorithms, "block_candidates") else "bitset_and_popcount"
+    out = {"phase": "A_block", "entry": entry, "queries": int(Q), "T": int(T), "words": words,
+           "block_query_ms": ms, "launches_per_call": {n: c for n, c in launched.items() if c},
+           "allocated_bytes_per_call": peak, "qt_words_bytes": 4 * Q * T * words}
+    log(f"[A] block step: {out}")
+    if entry == "block_candidates" and (
+            launched["membership"] != 1 or launched["bitset"] != 1 or peak >= 4 * Q * T * words):
+        raise AssertionError(f"Algorithm 3's block step is not one membership and one bitset "
+                             f"launch without a (Q*T, words) tensor: {out}")
+    return out
 
 
 def phase_d(dev, keep: dict) -> dict:
@@ -746,8 +806,8 @@ def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
     import torch
 
     from repro_torch.core.learned_bloom import NUMERIC_MARGIN
-    from repro_torch.kernels.bitset.kernel import bitset_and_popcount
-    from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref
+    from repro_torch.kernels.bitset.kernel import block_candidates
+    from repro_torch.kernels.bitset.ref import block_candidates_ref
     from repro_torch.kernels.guided_search.kernel import probe_batch
     from repro_torch.kernels.guided_search.ref import probe_ref
     from repro_torch.kernels.membership.kernel import membership_bitmask
@@ -808,16 +868,29 @@ def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
     membership_row(rec.inputs["membership"], "largest")
     membership_row(rec.second["membership"][0], "most_launched_shape")
 
-    maps, valid = rec.inputs["bitset"]
-    (ka, kc), (ra, rc) = bitset_and_popcount(maps, valid), bitset_and_popcount_ref(maps, valid)
-    err = max(int((ka.long() - ra.long()).abs().max()), int((kc.long() - rc.long()).abs().max()))
+    args = rec.inputs["bitset"]
+    got, want = block_candidates(*args), block_candidates_ref(*args)
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
     if err:
-        raise AssertionError("bitset differs from its plain version")
-    Qb, T, W = maps.shape
+        raise AssertionError("bitset (block_candidates) differs from its plain version")
+    table, terms, slots, mrows, n_docs, block_size = args
+    Qb, T = terms.shape
+    Wb, words = table.shape[1], mrows.shape[1]
+    n_valid = (terms >= 0).sum(dim=1)
+    blk = torch.arange(words, device=terms.device) * 32 // block_size
+    alive = ((got[1][:, blk // 32] >> (blk % 32).to(torch.int32)) & 1).bool()
+    # membership rows are read only in the words of surviving blocks
+    row_words = int((n_valid * alive.sum(dim=1)).sum())
+    need = (4 * row_words + 4 * int(n_valid.sum()) * Wb + 8 * Qb * T
+            + 4 * (Qb * words + Qb * Wb + Qb))
     row("bitset", "src/repro/kernels/bitset/kernel.py:49",
-        lambda: bitset_and_popcount(maps, valid), lambda: bitset_and_popcount_ref(maps, valid),
-        float(err), 4 * (Qb * T * W + Qb * T + Qb * W + Qb), 0,
-        extra={"shape": {"Q": Qb, "T": T, "W": W}})
+        lambda: block_candidates(*args), lambda: block_candidates_ref(*args),
+        float(err), need, 0,
+        extra={"entry": "block_candidates",
+               "shape": {"Q": Qb, "T": T, "R": int(mrows.shape[0]), "words": words, "Wb": Wb,
+                         "block_size": block_size, "row_words_read": row_words,
+                         "row_words_all": int(mrows.shape[0]) * words}})
 
     args = rec.inputs["guided_search"]
     got, want = probe_batch(*args), probe_ref(*args)
@@ -1040,7 +1113,7 @@ def main() -> int:
     rec = Recorder()
     if "C" in phases:
         rec.wrap(algorithms, "membership_bitmask", "membership", shape_frequency())
-        rec.wrap(algorithms, "bitset_and_popcount", "bitset")
+        rec.wrap(algorithms, "block_candidates", "bitset")
         rec.wrap(guided_ops, "probe_batch", "guided_search")
         rec.wrap(decode_ops, "decode_batch", "plm_decode")
         rec.wrap(pfor_ops, "pfor_decode", "pfor")
@@ -1078,15 +1151,13 @@ def main() -> int:
             if phase in counts and counts[phase][n] == 0:
                 raise AssertionError(f"{n} did not launch on its path (phase {phase})")
 
+    if "A" in phases:
+        emit(block_step(algorithms, kernels, keep))
     if "D" in phases:
         emit(phase_d(dev, keep))
     if "C" in phases:
         rows = phase_c(rec, total, keep)
-        # Algorithm 3's whole candidate step on one K=1 batch (both kernels,
-        # the block expansion and the AND), beside its kernels' own times
-        block_ms = cuda_ms(lambda: algorithms.run_queries(keep["state"], keep["queries"], "block"))
-        emit({"phase": "C", "kernels": [r["name"] for r in rows], "launches": total,
-              "block_query_ms": block_ms})
+        emit({"phase": "C", "kernels": [r["name"] for r in rows], "launches": total})
         emit(dense_line(rec))
         emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

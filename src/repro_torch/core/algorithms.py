@@ -13,9 +13,11 @@ candidates are supersets of the exact answer; serve/shard.py re-checks them
 against the exact tier-2 store.  Invalid (-1) terms act as all-ones and an
 all-pad query matches nothing.
 
-On a CUDA device the block AND runs on the ``bitset`` kernel and the f(t, ·)
-scan of every (query, term) row on one ``membership`` kernel launch; on the
-CPU the same wrappers run their plain versions.  Algorithm 2 (two-tier)
+On a CUDA device Algorithm 3 makes two launches: the f(t, ·) scan of every
+valid (query, term) slot on one ``membership`` launch, then the block AND,
+the AND over each query's terms and the block mask on one ``bitset``
+launch (``block_candidates``); on the CPU the same wrappers run their plain
+versions.  Algorithm 2 (two-tier)
 belongs to a later slice of the port.
 """
 from __future__ import annotations
@@ -27,7 +29,8 @@ import torch
 
 from repro_torch.core.membership import MembershipModel
 from repro_torch.index.build import InvertedIndex, block_lists
-from repro_torch.kernels.bitset.kernel import bitset_and_popcount
+from repro_torch.kernels.bitset.kernel import block_candidates
+from repro_torch.kernels.cuda import staging
 from repro_torch.kernels.membership.kernel import membership_bitmask
 from repro_torch.kernels.membership.ref import LANE
 
@@ -108,19 +111,37 @@ def exhaustive_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
 @torch.no_grad()
 def block_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     """(Q, T) -> (Q, words) packed candidates: f_hat ANDed over the query's
-    terms, kept only in blocks that survive the block-bitmap AND."""
+    terms, kept only in blocks that survive the block-bitmap AND.
+
+    One upload of the (Q, T) term ids, their slots in the compact row
+    table and the valid slots' term ids; one ``membership`` launch over the
+    valid slots; one ``block_candidates`` launch for the rest."""
+    Q, T = queries.shape
     dev = state.device
-    q = torch.from_numpy(queries.astype(np.int64)).to(dev)
-    valid = (q >= 0).to(torch.int32)
-    qmaps = state.block_bitmaps[q.clamp(min=0)].contiguous()  # (Q, T, Wb)
-    inter, _ = bitset_and_popcount(qmaps, valid.contiguous())
-    # every word's 32 docs lie in one block: a surviving block's words are
-    # all-ones (-1), the rest zero.  The tail bits of the last word come out
-    # zero from the AND, since the membership rows leave them zero.
+    flat = queries.reshape(-1)
+    valid = np.nonzero(flat >= 0)[0]
+    host = staging(2 * Q * T + len(valid), dev)
+    buf = host.numpy()
+    buf[: Q * T] = flat
+    buf[Q * T : 2 * Q * T] = -1
+    buf[Q * T + valid] = np.arange(len(valid), dtype=np.int32)
+    buf[2 * Q * T :] = flat[valid]
+    up = host.to(dev, non_blocking=True)
     words = -(-state.n_docs // LANE)
-    wb = torch.arange(words, device=dev) * LANE // state.block_size
-    cand = -((inter[:, wb // 32] >> (wb % 32).to(torch.int32)) & 1)
-    return _and_terms(_term_rows(state, queries), queries) & cand
+    if len(valid):
+        terms = up[2 * Q * T :].long()
+        rows = membership_bitmask(
+            state.model.term_embed.weight[terms],
+            state.model.doc_embed.weight.detach(),
+            state.tau[terms],
+            float(state.model.bias),
+        )
+    else:
+        rows = torch.zeros((0, words), dtype=torch.int32, device=dev)
+    cand, _, _ = block_candidates(
+        state.block_bitmaps, up[: Q * T].view(Q, T), up[Q * T : 2 * Q * T].view(Q, T), rows,
+        state.n_docs, state.block_size)
+    return cand
 
 
 # ---------------------------------------------------------------- dispatch

@@ -6,14 +6,23 @@
 // (8, 128)-lane tile per grid step, the term axis padded to 128 lanes).
 //
 // What bounds it on the H100: memory, the P*T*4 bytes of impacts read once
-// and 8 bytes written per row; one add per impact.
+// and 8 bytes written per row; one add per impact.  At the port's shapes
+// (a ranked batch's exhaustive windows stacked, a few thousand rows of at
+// most 6-8 terms) the bytes take far less than a launch, so the design's
+// aim is one launch per batch that does no work it need not.
 //
-// Design: one warp per candidate row.  The lanes stride over the row's true
-// T columns (no padding to 128: that was the TPU's lane layout), and a warp
-// shuffle reduction sums them; integer addition is associative, so the sum
-// is the reference's whatever the order.  __int2float_rn converts the exact
-// sum and __fmul_rn multiplies once without FMA contraction: the same single
-// rounding as bm25_score/ref.py.
+// Design: for T <= 8 (every ranked row the port builds: zipf_disjunctions
+// draws at most 6 terms) one thread per row, T a template parameter so the
+// row's loads are unrolled, each 16 bytes (T % 4 == 0) or 8 bytes (T even)
+// where the row stride and the base address allow, else 4.  Neighbouring
+// threads read neighbouring rows, so a warp's loads cover one contiguous
+// stretch.  The warp-per-row layout this replaces left at least 26 of 32
+// lanes idle on such rows and spent a 5-step shuffle ladder per row; it is
+// kept for wider T, where the lanes stride over the row's true columns and
+// a shuffle reduction sums them.  Integer addition is associative, so
+// either sum is the reference's whatever the order; __int2float_rn
+// converts the exact sum and __fmul_rn multiplies once without FMA
+// contraction: the same single rounding as bm25_score/ref.py.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -21,10 +30,51 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int ROWS_PER_BLOCK = THREADS / 32;
+constexpr int MAX_THREAD_T = 8;
 
+template <int V>
+struct Vec;
+template <>
+struct Vec<1> {
+  using type = int;
+  __device__ static int sum(int v) { return v; }
+};
+template <>
+struct Vec<2> {
+  using type = int2;
+  __device__ static int sum(int2 v) { return v.x + v.y; }
+};
+template <>
+struct Vec<4> {
+  using type = int4;
+  __device__ static int sum(int4 v) { return v.x + v.y + v.z + v.w; }
+};
+
+__device__ __forceinline__ void store(int32_t* ints, float* floats, int p, int32_t s,
+                                      float scale) {
+  ints[p] = s;
+  floats[p] = __fmul_rn(__int2float_rn(s), scale);
+}
+
+// one thread per row of T columns, read V int32 at a time
+template <int T, int V>
 __global__ void __launch_bounds__(THREADS)
-score_kernel(const int32_t* __restrict__ impacts, float scale, int32_t* __restrict__ ints,
-             float* __restrict__ floats, int P, int T) {
+row_kernel(const int32_t* __restrict__ impacts, float scale, int32_t* __restrict__ ints,
+           float* __restrict__ floats, int P) {
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  if (p >= P) return;
+  using VT = typename Vec<V>::type;
+  const VT* row = reinterpret_cast<const VT*>(impacts + (size_t)p * T);
+  int32_t s = 0;
+#pragma unroll
+  for (int j = 0; j < T / V; ++j) s += Vec<V>::sum(__ldg(row + j));
+  store(ints, floats, p, s, scale);
+}
+
+// one warp per row: T > 8 (and T == 0)
+__global__ void __launch_bounds__(THREADS)
+warp_kernel(const int32_t* __restrict__ impacts, float scale, int32_t* __restrict__ ints,
+            float* __restrict__ floats, int P, int T) {
   const int p = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (p >= P) return;  // warp-uniform
@@ -32,10 +82,27 @@ score_kernel(const int32_t* __restrict__ impacts, float scale, int32_t* __restri
   int32_t s = 0;
   for (int t = lane; t < T; t += 32) s += row[t];
   for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-  if (lane == 0) {
-    ints[p] = s;
-    floats[p] = __fmul_rn(__int2float_rn(s), scale);
+  if (lane == 0) store(ints, floats, p, s, scale);
+}
+
+template <int T>
+void launch_rows(const int32_t* impacts, float scale, int32_t* ints, float* floats, int P,
+                 cudaStream_t stream) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(impacts);
+  const int blocks = (P + THREADS - 1) / THREADS;
+  if constexpr (T % 4 == 0) {
+    if (base % 16 == 0) {
+      row_kernel<T, 4><<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P);
+      return;
+    }
   }
+  if constexpr (T % 2 == 0) {
+    if (base % 8 == 0) {
+      row_kernel<T, 2><<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P);
+      return;
+    }
+  }
+  row_kernel<T, 1><<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P);
 }
 
 }  // namespace
@@ -43,8 +110,21 @@ score_kernel(const int32_t* __restrict__ impacts, float scale, int32_t* __restri
 extern "C" int bm25_score_launch(const int32_t* impacts, int32_t* ints, float* floats, int P,
                                  int T, float scale, cudaStream_t stream) {
   if (P > 0) {
-    const int blocks = (P + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-    score_kernel<<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P, T);
+    switch (T) {
+      case 1: launch_rows<1>(impacts, scale, ints, floats, P, stream); break;
+      case 2: launch_rows<2>(impacts, scale, ints, floats, P, stream); break;
+      case 3: launch_rows<3>(impacts, scale, ints, floats, P, stream); break;
+      case 4: launch_rows<4>(impacts, scale, ints, floats, P, stream); break;
+      case 5: launch_rows<5>(impacts, scale, ints, floats, P, stream); break;
+      case 6: launch_rows<6>(impacts, scale, ints, floats, P, stream); break;
+      case 7: launch_rows<7>(impacts, scale, ints, floats, P, stream); break;
+      case 8: launch_rows<8>(impacts, scale, ints, floats, P, stream); break;
+      default: {
+        static_assert(MAX_THREAD_T == 8, "the switch covers T = 1..MAX_THREAD_T");
+        const int blocks = (P + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+        warp_kernel<<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P, T);
+      }
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -53,7 +53,9 @@ from repro_torch.kernels.fused_query.kernel import fused_topk
 from repro_torch.kernels.fused_query.ref import NEVER
 from repro_torch.postings.search import _touched_words, decode_window, rank_windows
 from repro_torch.rank.score import TopKResult, select_topk
-from repro_torch.rank.topk import _EMPTY, RankedStats, _exhaustive, _kth_partial, _merge_add
+from repro_torch.rank.topk import (
+    _EMPTY, RankedStats, _exhaustive, _kth_partial, _merge_add, _peel_terms,
+)
 
 _CANDQ = 128  # candidate-axis bucket quantum
 _ROWQ = 4  # query-row bucket quantum (the reference's kernel block)
@@ -77,21 +79,6 @@ class _Pending:
     tail: list  # non-essential term ids, descending upper bound
     k: int
     floor: int
-
-
-def _peel_terms(src, terms, required, cutoff):
-    """The order in which ``_peel`` takes an item's terms -> (live terms
-    ascending, required terms shortest first, optional terms by descending
-    bound, whether the item is scored exhaustively), or None when the item
-    is empty on this shard."""
-    live = sorted({int(t) for t in terms if src.n(int(t)) > 0})
-    req_all = {int(r) for r in required}
-    req = [t for t in sorted(req_all) if src.n(t) > 0]
-    if len(req) < len(req_all) or not live:
-        return None  # a required term absent on this shard: empty AND
-    exhaustive = not req and sum(src.n(t) for t in live) <= cutoff
-    optional = sorted((t for t in live if t not in set(req)), key=lambda t: (-src.ub(t), t))
-    return live, sorted(req, key=src.n), optional, exhaustive
 
 
 def _tail_reads_list(tm) -> bool:
@@ -118,7 +105,7 @@ def _peel(src, terms, k, required, floor, cutoff, stats):
 
     if exhaustive:
         stats.exhaustive_queries += 1
-        return _exhaustive(src, terms, k, floor, stats, None)
+        return _exhaustive(src, terms, k, floor, stats)
 
     if req:
         cands, partial = src.full(req[0])

@@ -20,7 +20,7 @@ from repro_torch.rank.score import (
     dequantize_scores,
     select_topk,
 )
-from repro_torch.rank.topk import RankedStats, topk_query
+from repro_torch.rank.topk import RankedStats, topk_batch, topk_query
 
 __all__ = [
     "BM25Params",
@@ -30,5 +30,6 @@ __all__ = [
     "brute_force_topk",
     "dequantize_scores",
     "select_topk",
+    "topk_batch",
     "topk_query",
 ]

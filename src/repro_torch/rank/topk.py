@@ -28,8 +28,10 @@ forwarded from earlier shards, while intra-shard pruning keeps ties (>= θ).
 Scores are integer impact sums, so θ/floor comparisons never round.
 
 Queries whose total postings are below ``exhaustive_cutoff`` skip pruning:
-every term is decoded and scored in one batch (optionally on the
-bm25_score kernel) — at that size the bookkeeping costs more than it saves.
+every term is decoded and scored in one batch — at that size the
+bookkeeping costs more than it saves.  ``topk_batch`` serves a batch of
+items; its exhaustive items share one prefetch and, optionally, one
+bm25_score launch over their stacked impact windows.
 """
 from __future__ import annotations
 
@@ -131,6 +133,22 @@ def _kth_partial(scores: np.ndarray, k: int) -> int:
     return int(np.partition(scores, len(scores) - k)[len(scores) - k])
 
 
+def _peel_terms(src, terms, required, cutoff):
+    """The order in which MaxScore takes an item's terms -> (live terms
+    ascending, required terms shortest first, optional terms by descending
+    bound, whether the item is scored exhaustively), or None when the item
+    is empty on this shard.  The one predicate of the multi-phase batch
+    (``topk_batch``) and of the fused peel (kernels.fused_query.ops)."""
+    live = sorted({int(t) for t in terms if src.n(int(t)) > 0})
+    req_all = {int(r) for r in required}
+    req = [t for t in sorted(req_all) if src.n(t) > 0]
+    if len(req) < len(req_all) or not live:
+        return None  # a required term absent on this shard: empty AND
+    exhaustive = not req and sum(src.n(t) for t in live) <= cutoff
+    optional = sorted((t for t in live if t not in set(req)), key=lambda t: (-src.ub(t), t))
+    return live, sorted(req, key=src.n), optional, exhaustive
+
+
 def topk_query(
     src: RankedSource,
     terms: Sequence[int],
@@ -148,28 +166,71 @@ def topk_query(
     subset (empty = disjunctive, all = conjunctive, in between = mixed).
     ``floor`` is the score a result must strictly beat (the k-th best score
     of earlier shards); results are (score desc, id asc) like the oracle.
+    The one-item case of ``topk_batch``.
     """
-    if k <= 0:
-        return _EMPTY
+    return topk_batch(src, [(terms, k, required, floor)], exhaustive_cutoff=exhaustive_cutoff,
+                      stats=stats, batch_scorer=batch_scorer)[0]
+
+
+def topk_batch(
+    src: RankedSource,
+    items: Sequence[tuple],
+    *,
+    exhaustive_cutoff: int = 2048,
+    stats: RankedStats | None = None,
+    batch_scorer: Callable[[np.ndarray], np.ndarray] | None = None,
+) -> list[TopKResult]:
+    """Exact top-k of each (terms, k, required, floor) item, each equal to
+    ``topk_query``'s.
+
+    The exhaustive items' lists are fetched in one ``src.prefetch``; with a
+    ``batch_scorer`` their (candidate, term) windows are stacked, zero-padded
+    to the widest (a zero impact adds nothing), and scored in one call.
+    Every list is still read through ``src`` in item order, so a decode cache
+    behind it sees the reads of serving one item after another.
+    """
     stats = stats if stats is not None else RankedStats()
-    stats.queries += 1
-    terms = sorted({int(t) for t in terms if src.n(int(t)) > 0})
-    req_all = {int(r) for r in required}
-    req = [t for t in sorted(req_all) if src.n(t) > 0]
-    if len(req) < len(req_all):
-        return _EMPTY  # a required term absent on this shard: empty AND
-    if not terms:
-        return _EMPTY
-    stats.exhaustive_postings += sum(src.n(t) for t in terms)
+    orders = [_peel_terms(src, terms, required, exhaustive_cutoff) if k > 0 else None
+              for terms, k, required, _ in items]
+    out = [_EMPTY] * len(items)
+    windows: list[tuple[int, np.ndarray, np.ndarray]] = []
+    with src.prefetch([t for o in orders if o is not None and o[3] for t in o[0]]):
+        for i, ((_, k, _, floor), order) in enumerate(zip(items, orders)):
+            if k <= 0:
+                continue
+            stats.queries += 1
+            if order is None:
+                continue
+            live, req, optional, exhaustive = order
+            stats.exhaustive_postings += sum(src.n(t) for t in live)
+            if not exhaustive:
+                out[i] = _maxscore(src, req, optional, k, floor, stats)
+                continue
+            stats.exhaustive_queries += 1
+            uids, decoded = _read_all(src, live, stats)
+            if len(uids) == 0:
+                continue
+            if batch_scorer is None:
+                out[i] = select_topk(uids.astype(np.int32), _host_scores(uids, decoded), k, floor)
+            else:
+                windows.append((i, uids, _window(uids, decoded)))
+    if windows:
+        ends = np.cumsum([len(u) for _, u, _ in windows])
+        stacked = np.zeros((int(ends[-1]), max(w.shape[1] for _, _, w in windows)), np.int32)
+        for (_, _, w), end in zip(windows, ends):
+            stacked[end - len(w):end, : w.shape[1]] = w
+        scores = np.asarray(batch_scorer(stacked), np.int64)
+        for (i, uids, _), end in zip(windows, ends):
+            _, k, _, floor = items[i]
+            out[i] = select_topk(uids.astype(np.int32), scores[end - len(uids):end], k, floor)
+    return out
 
-    if not req and sum(src.n(t) for t in terms) <= exhaustive_cutoff:
-        stats.exhaustive_queries += 1
-        return _exhaustive(src, terms, k, floor, stats, batch_scorer)
 
+def _maxscore(src, req, optional, k: int, floor: int, stats: RankedStats) -> TopKResult:
+    """MaxScore over one item's ``_peel_terms`` order: the conjunctive seed
+    of its required terms, then the optional terms' peel."""
     # ---- conjunctive seed: required terms filter candidates by probe
-    optional = [t for t in terms if t not in set(req)]
     if req:
-        req = sorted(req, key=src.n)  # smallest list first shrinks fastest
         cands, partial = src.full(req[0])
         partial = partial.astype(np.int64)
         stats.scored_postings += len(cands)
@@ -188,7 +249,6 @@ def topk_query(
         accepting_new = True
 
     # ---- MaxScore peel: optional terms by descending upper bound
-    optional.sort(key=lambda t: (-src.ub(t), t))
     ubs = np.array([src.ub(t) for t in optional], np.int64)
     suffix = np.concatenate([np.cumsum(ubs[::-1])[::-1], [0]])
     theta = _kth_partial(partial, k)
@@ -218,32 +278,33 @@ def topk_query(
     return select_topk(cands, partial, k, floor)
 
 
-def _exhaustive(
-    src: RankedSource,
-    terms: Sequence[int],
-    k: int,
-    floor: int,
-    stats: RankedStats,
-    batch_scorer: Callable[[np.ndarray], np.ndarray] | None,
-) -> TopKResult:
-    """Decode every term, score the candidate union in one batch.
-
-    With a ``batch_scorer`` the (candidate, term) impact matrix reduces on
-    the bm25_score kernel; integer sums make both paths bit-equal.
-    """
-    with src.prefetch(terms):
-        decoded = [src.full(t) for t in terms]
+def _read_all(src, terms, stats: RankedStats) -> tuple[np.ndarray, list]:
+    """Every term's full list -> (the candidate union, [(ids, impacts)])."""
+    decoded = [src.full(t) for t in terms]
     stats.scored_postings += sum(len(ids) for ids, _ in decoded)
-    uids = np.unique(np.concatenate([ids for ids, _ in decoded]))
+    return np.unique(np.concatenate([ids for ids, _ in decoded])), decoded
+
+
+def _host_scores(uids: np.ndarray, decoded) -> np.ndarray:
+    scores = np.zeros(len(uids), np.int64)
+    for ids, q in decoded:
+        scores[np.searchsorted(uids, ids)] += q
+    return scores
+
+
+def _window(uids: np.ndarray, decoded) -> np.ndarray:
+    """The (candidate, term) int32 impact window of a candidate union."""
+    imp = np.zeros((len(uids), len(decoded)), np.int32)
+    for j, (ids, q) in enumerate(decoded):
+        imp[np.searchsorted(uids, ids), j] = q
+    return imp
+
+
+def _exhaustive(src: RankedSource, terms: Sequence[int], k: int, floor: int,
+                stats: RankedStats) -> TopKResult:
+    """Decode every term, score the candidate union on the host."""
+    with src.prefetch(terms):
+        uids, decoded = _read_all(src, terms, stats)
     if len(uids) == 0:
         return _EMPTY
-    if batch_scorer is None:
-        scores = np.zeros(len(uids), np.int64)
-        for ids, q in decoded:
-            scores[np.searchsorted(uids, ids)] += q
-    else:
-        imp = np.zeros((len(uids), len(terms)), np.int32)
-        for j, (ids, q) in enumerate(decoded):
-            imp[np.searchsorted(uids, ids), j] = q
-        scores = np.asarray(batch_scorer(imp), np.int64)
-    return select_topk(uids.astype(np.int32), scores, k, floor)
+    return select_topk(uids.astype(np.int32), _host_scores(uids, decoded), k, floor)

@@ -159,31 +159,9 @@ class BooleanEngine:
         runs = [ranked_run_mask(qplans, sh.local_dfs) for sh in active]
         # a shard whose run mask is all-empty contributes nothing to any heap
         live = [(sh, run) for sh, run in zip(active, runs) if run.any()]
-        if self.cfg.ranked.fused_kernel:
-            return self._query_topk_fused(qplans, live, k, empty)
-        out: list[TopKResult] = []
-        for i, qp in enumerate(qplans):
-            if qp.dead:
-                out.append(empty)
-                continue
-            heap = empty
-            # ascending doc ranges + ascending-id tie break make the floor a
-            # strict bar: a later shard's tie can never displace the heap
-            for sh, run in live:
-                if not run[i]:
-                    continue
-                floor = int(heap.scores[k - 1]) if len(heap.scores) == k else 0
-                part = sh.query_topk_local(qp.terms, k, required=qp.required, floor=floor)
-                if len(part.ids):
-                    heap = _merge_heap(heap, part, k)
-            out.append(heap)
-        return out
-
-    def _query_topk_fused(self, qplans, live, k: int, empty) -> list[TopKResult]:
-        """Fused ranked execution: shards outer, one batch per shard
-        (``shard.query_topk_batch``), heap floors forwarded between shards
-        exactly as the per-query loop does — shard doc ranges ascend, so each
-        shard sees the floors the previous shards established."""
+        # shards outer, one batch per shard, heap floors forwarded between
+        # shards exactly as a per-query loop does: shard doc ranges ascend,
+        # so each shard sees the floors the previous shards established
         heaps = [empty] * len(qplans)
         for sh, run in live:
             idx = [i for i, qp in enumerate(qplans) if not qp.dead and run[i]]

@@ -30,9 +30,10 @@ rank models landing directly on rank-aligned payloads, segment-granularity
 score bounds from the store — and returns its local top-k in *global* doc
 ids so the facade can merge shard heaps and forward score floors.  With
 ``ranked.score_kernel`` exhaustive queries score on the ``bm25_score``
-kernel; with ``ranked.fused_kernel`` ``query_topk_batch`` answers the batch's
-probe tails with ``fused_topk`` launches, or with the dense loop over a
-resident impact arena where the shard fits one.
+kernel, one launch per batch (``query_topk_batch``); with
+``ranked.fused_kernel`` it answers the batch's probe tails with
+``fused_topk`` launches, or with the dense loop over a resident impact
+arena where the shard fits one.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ from repro_torch.index.build import InvertedIndex, slice_index
 from repro_torch.index.intersect import gallop_membership
 from repro_torch.postings.search import decode_kernel, decode_terms, full_decode
 from repro_torch.rank.score import TopKResult
-from repro_torch.rank.topk import RankedStats, topk_query
+from repro_torch.rank.topk import RankedStats, topk_batch
 from repro_torch.serve.cache import CostLRU
 from repro_torch.serve.planner import QueryPlan, ShardPlan
 
@@ -334,17 +335,8 @@ class ShardEngine:
         """This shard's exact top-k in *global* doc ids — descending score
         with ties ascending id.  ``floor`` is the facade's running k-th best
         score: only strictly better docs can matter here (later shards hold
-        larger ids, so floor ties lose)."""
-        if self.cfg.ranked.fused_kernel:
-            return self.query_topk_batch([(tuple(terms), k, tuple(required), floor)])[0]
-        scorer = self._batch_scorer() if self.cfg.ranked.score_kernel else None
-        ans = topk_query(
-            self.ranked, terms, k,
-            required=required, floor=floor,
-            exhaustive_cutoff=self.cfg.ranked.topk_exhaustive_cutoff,
-            stats=self.ranked_stats, batch_scorer=scorer,
-        )
-        return self._globalize(ans)
+        larger ids, so floor ties lose).  The one-item ``query_topk_batch``."""
+        return self.query_topk_batch([(tuple(terms), k, tuple(required), floor)])[0]
 
     def query_topk_batch(self, items) -> list[TopKResult]:
         """Batched ranked entry point: [(terms, k, required, floor), ...] ->
@@ -352,20 +344,21 @@ class ShardEngine:
 
         With ``ranked.fused_kernel`` the batch's probe tails go to
         ``fused_topk`` launches (and the dense loop where an arena fits);
-        otherwise it loops the multi-phase ``query_topk_local``.  Both
+        otherwise multi-phase MaxScore (``rank.topk.topk_batch``), whose
+        exhaustive items are decoded together and, with
+        ``ranked.score_kernel``, scored in one ``bm25_score`` launch.  Both
         paths are bit-identical.
         """
-        if not self.cfg.ranked.fused_kernel:
-            return [
-                self.query_topk_local(t, k, required=r, floor=f) for (t, k, r, f) in items
-            ]
-        from repro_torch.kernels.fused_query.ops import fused_topk_batch
+        cutoff = self.cfg.ranked.topk_exhaustive_cutoff
+        if self.cfg.ranked.fused_kernel:
+            from repro_torch.kernels.fused_query.ops import fused_topk_batch
 
-        answers = fused_topk_batch(
-            self.ranked, items,
-            exhaustive_cutoff=self.cfg.ranked.topk_exhaustive_cutoff,
-            stats=self.ranked_stats,
-        )
+            answers = fused_topk_batch(
+                self.ranked, items, exhaustive_cutoff=cutoff, stats=self.ranked_stats)
+        else:
+            answers = topk_batch(
+                self.ranked, items, exhaustive_cutoff=cutoff, stats=self.ranked_stats,
+                batch_scorer=self._batch_scorer() if self.cfg.ranked.score_kernel else None)
         return [self._globalize(a) for a in answers]
 
     def _globalize(self, ans: TopKResult) -> TopKResult:

@@ -185,6 +185,47 @@ def test_candidate_masks_match_reference(tiny, algorithm):
         assert got[i, ans].all()
 
 
+@pytest.mark.parametrize("block_size", [32, 128])
+def test_block_step_matches_reference_block_query(tiny, block_size):
+    """Algorithm 3 through the fused block step (one membership call, one
+    block_candidates call) at two more block sizes, 400 docs (off a word
+    edge), an all-pad query (3) and a one-term query (4): within the margin
+    of the reference's block_query, zero false negatives, and bit for bit
+    the composition it replaces (Algorithm 1's AND over the terms, masked by
+    the expanded bitset_and_popcount of the block bitmaps)."""
+    from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref
+
+    corpus, _, params_np = tiny
+    inv = build_inverted_index(corpus)
+    model = params_from_jax(params_np, device="cpu")
+    tau = fit_thresholds(model, inv).tau
+    state = alg.build_engine(model, tau, inv, block_size=block_size)
+    ref_state = ref_alg.build_engine(_ref_params(params_np), tau.numpy(), inv,
+                                     truncation_k=16, block_size=block_size)
+    q = _queries(corpus)
+    words = alg.run_queries(state, q, "block").numpy().view(np.uint32)
+    got = np.unpackbits(words.view(np.uint8), axis=-1, bitorder="little")
+    assert not got[:, inv.n_docs:].any()
+    got = got[:, : inv.n_docs]
+    want = ref_alg.run_queries(ref_state, q, "block")
+    assert not got[3].any() and not want[3].any() and got[4].any()
+    logits = params_np["term_embed"]["table"].astype(np.float64) @ params_np["doc_embed"][
+        "table"].astype(np.float64).T + float(params_np["bias"])
+    margin = NUMERIC_MARGIN * (1 + np.abs(tau.numpy()))
+    for i, d in np.argwhere(got.astype(bool) != want):
+        terms = q[i][q[i] >= 0]
+        assert (np.abs(logits[terms, d] - tau.numpy()[terms]) <= margin[terms]).any(), (i, d)
+    for i, ans in enumerate(brute_force_answers(corpus, q)):
+        assert got[i, ans].all()
+    qt = torch.from_numpy(q.astype(np.int64))
+    inter, _ = bitset_and_popcount_ref(state.block_bitmaps[qt.clamp(min=0)],
+                                       (qt >= 0).to(torch.int32))
+    wb = torch.arange(words.shape[1]) * 32 // block_size
+    expand = -((inter[:, wb // 32] >> (wb % 32).to(torch.int32)) & 1)
+    composed = (alg.exhaustive_query(state, q) & expand).numpy().view(np.uint32)
+    assert np.array_equal(words, composed)
+
+
 # ------------------------------------------------------------ isolation
 def test_port_imports_neither_jax_nor_reference():
     """Every module of the port imports with jax and repro made unimportable."""

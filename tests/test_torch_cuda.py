@@ -14,9 +14,9 @@ membership bits may differ only where the logit lies within
 NUMERIC_MARGIN * (1 + |tau|) of tau, since the two float32 products sum in
 different orders.
 
-``pfor_blocks``, ``pfor_lists``, ``plm_batch`` and ``fused_tiles`` make the
-inputs that tests/test_torch_kernels.py and tests/test_torch_fused.py also
-hand to the reference's kernels on the CPU.
+``pfor_blocks``, ``pfor_lists``, ``plm_batch``, ``fused_tiles`` and
+``block_step`` make the inputs that tests/test_torch_kernels.py and
+tests/test_torch_fused.py also hand to the reference's kernels on the CPU.
 """
 import numpy as np
 import pytest
@@ -32,8 +32,8 @@ from repro_torch.kernels.fused_query.ref import NEVER, fused_topk_ref
 from repro_torch.kernels.pfor.kernel import pfor_decode
 from repro_torch.kernels.pfor.ops import decode_lists as pfor_decode_lists
 from repro_torch.kernels.pfor.ref import pfor_decode_ref
-from repro_torch.kernels.bitset.kernel import bitset_and_popcount
-from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref
+from repro_torch.kernels.bitset.kernel import bitset_and_popcount, block_candidates
+from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref, block_candidates_ref
 from repro_torch.kernels.guided_search.kernel import probe_batch
 from repro_torch.kernels.guided_search.ref import probe_ref
 from repro_torch.kernels.membership.kernel import membership_bitmask
@@ -255,6 +255,50 @@ def test_membership_kernel_matches_plain_on_card(q, d, e):
     assert 0 < np.unpackbits(got.view(np.uint8)).sum() < q * d  # both verdicts occur
 
 
+def block_step(rng, n_docs, block_size, Q=64, T=8, n_terms=300, density=0.85):
+    """Inputs of Algorithm 3's block step -> (table (n_terms, Wb), terms
+    (Q, T), slots (Q, T), rows (R, words)), numpy int32/uint32.  Query 0 is
+    all pad, query 1 has one term, the others a random mix of terms and pad
+    slots; table bits are set with ``density`` (so some blocks survive an
+    8-way AND and some die); rows are random, tail bits included."""
+    n_blocks = -(-n_docs // block_size)
+    words = -(-n_docs // 32)
+    wb = -(-n_blocks // 32)
+    table = (rng.random((n_terms, wb * 32)) < density)
+    table = np.packbits(table, axis=1, bitorder="little").view(np.uint32)
+    terms = rng.integers(0, n_terms, (Q, T)).astype(np.int32)
+    terms[rng.random((Q, T)) < 0.3] = -1
+    terms[0] = -1
+    terms[1] = -1
+    terms[1, T // 2] = int(rng.integers(0, n_terms))
+    slots = np.full((Q, T), -1, np.int32)
+    valid = terms >= 0
+    slots[valid] = np.arange(int(valid.sum()), dtype=np.int32)
+    rows = rng.integers(0, 2**32, (int(valid.sum()), words), dtype=np.uint64).astype(np.uint32)
+    return table, terms, slots, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_docs,block_size", [(1000, 64), (100_003, 32), (528_000, 1024),
+                                               (40_001, 4096)])
+def test_block_candidates_kernel_matches_plain_on_card(n_docs, block_size):
+    """All-pad and one-term queries, n_docs off a word edge, block words
+    spanning less than, exactly and more than a CTA's 1,024 words; the
+    launch zeroes its own count, so a CUDA graph replays to the same
+    output."""
+    dev = _card()
+    rng = np.random.default_rng(n_docs)
+    args = [_t(a).to(dev) for a in block_step(rng, n_docs, block_size, Q=128)]
+    got = block_candidates(*args, n_docs, block_size)
+    want = block_candidates_ref(*args, n_docs, block_size)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    cand = got[0]
+    assert not cand[0].any() and cand.any()  # the all-pad query and some survivors
+    for out in _replays(lambda: block_candidates(*args, n_docs, block_size)[2]):
+        assert torch.equal(out, want[2])
+
+
 @pytest.mark.cuda
 def test_bitset_kernel_matches_plain_on_card():
     dev = _card()
@@ -436,6 +480,22 @@ def test_decode_kernels_replay_in_cuda_graphs():
     want = decode_ref(*tabs, n)
     for out in _replays(lambda: decode_batch(*tabs, n)):
         assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 6, 8, 40])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+def test_bm25_score_rows_on_card(t, offset):
+    """Thread-per-row (T <= 8, 16-, 8- or 4-byte loads as the stride and
+    the base address allow: an offset of one int32 forces narrower loads)
+    and warp-per-row (T = 40) layouts, P spanning several CTAs."""
+    dev = _card()
+    rng = np.random.default_rng(70 + t)
+    p = 1331
+    flat = _t(rng.integers(0, 256, p * t + offset).astype(np.int32)).to(dev)
+    imp = flat[offset:].view(p, t)
+    (gi, gf), (wi, wf) = score_batch(imp, 0.0371), score_ref(imp, 0.0371)
+    assert torch.equal(gi, wi) and torch.equal(gf, wf)
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_cuda import _t as _tw
-from test_torch_cuda import pfor_blocks, pfor_lists, plm_batch, probe_tables
+from test_torch_cuda import block_step, pfor_blocks, pfor_lists, plm_batch, probe_tables
 
 from repro.index.compress import optpfd_decode as ref_optpfd_decode
 from repro.index.compress import undgaps as ref_undgaps
@@ -36,7 +36,7 @@ from repro.postings.plm import decode_stream as ref_plm_decode_stream
 from repro.postings.plm import parse_stream as ref_parse_stream, plm_encode as ref_plm_encode
 from repro.postings.rmi import rmi_encode as ref_rmi_encode
 from repro_torch.core.learned_bloom import NUMERIC_MARGIN
-from repro_torch.kernels.bitset.kernel import bitset_and_popcount
+from repro_torch.kernels.bitset.kernel import bitset_and_popcount, block_candidates
 from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref
 from repro_torch.kernels.bm25_score.kernel import score_batch
 from repro_torch.kernels.bm25_score.ops import score_candidates
@@ -146,6 +146,42 @@ def test_bitset_plain_matches_pallas(t):
     assert np.array_equal(_words(got_and), np.asarray(want_and))
     assert np.array_equal(got_cnt.numpy(), np.asarray(want_cnt))
     assert int(got_cnt[1]) == 32 * w
+
+
+@pytest.mark.parametrize("n_docs,block_size", [(400, 64), (1000, 32), (5000, 1024)])
+def test_block_candidates_plain_matches_pallas_bitset(n_docs, block_size):
+    """Algorithm 3's fused block step, plain version: its (Q, Wb) AND and
+    count are the reference's Pallas bitset_and_popcount (interpret mode) of
+    the queries' table rows, and its candidate words are, word by word, the
+    rows ANDed over the valid slots where the word's block survives, zero
+    past n_docs and for the all-pad query 0."""
+    rng = np.random.default_rng(n_docs + block_size)
+    table, terms, slots, rows = block_step(rng, n_docs, block_size, Q=12, T=5, n_terms=40)
+    cand, anded, count = block_candidates(*map(_tw, (table, terms, slots, rows)),
+                                          n_docs, block_size)
+    wb = table.shape[1]
+    # the reference kernel tiles W by W_BLK: zero words past Wb AND to zero
+    maps = np.zeros((len(terms), terms.shape[1], W_BLK), np.uint32)
+    maps[:, :, :wb] = table[np.maximum(terms, 0)]
+    valid = (terms >= 0).astype(np.int32)
+    want_and, want_cnt = ref_bitset(jnp.asarray(maps), jnp.asarray(valid), interpret=True)
+    want_and, want_cnt = np.asarray(want_and), np.asarray(want_cnt)
+    assert np.array_equal(_words(anded), want_and[:, :wb])
+    live = valid.any(axis=1)
+    # an all-pad query's pad words are all-ones in the reference's wider tile
+    assert np.array_equal(count.numpy(), want_cnt - np.where(live, 0, 32 * (W_BLK - wb)))
+    words = rows.shape[1]
+    blk = np.arange(words) * 32 // block_size
+    for q in range(len(terms)):
+        acc = np.full(words, 0xFFFFFFFF, np.uint32)
+        for s in slots[q][slots[q] >= 0]:
+            acc &= rows[s]
+        alive = (want_and[q, blk // 32] >> (blk % 32).astype(np.uint32)) & 1
+        want = np.where(alive.astype(bool) & live[q], acc, 0).astype(np.uint32)
+        if n_docs % 32:
+            want[-1] &= np.uint32((1 << (n_docs % 32)) - 1)
+        assert np.array_equal(_words(cand)[q], want), q
+    assert not _words(cand)[0].any() and _words(cand).any()
 
 
 # ----------------------------------------------------------- guided_search

@@ -32,7 +32,9 @@ from repro_torch.data.queries import zipf_disjunctions
 from repro_torch.index.build import build_inverted_index
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.rank import RankedStats
-from repro_torch.rank.score import BM25Params, ImpactModel, brute_force_topk, select_topk
+from repro_torch.rank.score import (
+    BM25Params, ImpactModel, TopKResult, brute_force_topk, select_topk,
+)
 from repro_torch.serve import BooleanEngine, ServeConfig
 from repro_torch.serve.planner import plan_ranked, ranked_run_mask
 
@@ -229,6 +231,118 @@ def test_query_topk_matches_reference_engine_in_the_same_configuration(system, c
     eng, ref = _engine(system, config, 2), _ref_engine(system, 2, config)
     for kw in (dict(), dict(required=req)):
         _assert_same(eng.query_topk(q, 10, **kw), ref.query_topk(q, 10, **kw), config)
+
+
+def _per_item_topk(eng, q, k, **kw):
+    """The loop the batched multi-phase path replaces: queries outer,
+    shards inner, one ``query_topk_local`` call per (query, shard), the
+    running k-th best score forwarded as the next shard's floor."""
+    from repro_torch.serve.boolean import _merge_heap
+
+    empty = TopKResult(ids=np.zeros(0, np.int32), scores=np.zeros(0, np.int64))
+    qplans = plan_ranked(q, eng._global_dfs, **kw)
+    runs = [ranked_run_mask(qplans, sh.local_dfs) for sh in eng.shards]
+    out = []
+    for i, qp in enumerate(qplans):
+        heap = empty
+        for sh, run in zip(eng.shards, runs):
+            if qp.dead or not run[i]:
+                continue
+            floor = int(heap.scores[k - 1]) if len(heap.scores) == k else 0
+            part = sh.query_topk_local(qp.terms, k, required=qp.required, floor=floor)
+            if len(part.ids):
+                heap = _merge_heap(heap, part, k)
+        out.append(heap)
+    return out
+
+
+def _lru(eng):
+    return [[(key, value) for key, (value, _) in sh._decode_cache._entries.items()]
+            for sh in eng.shards]
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+@pytest.mark.parametrize("score_kernel", [True, False], ids=["kernel", "host"])
+def test_batched_multiphase_matches_per_item_loop_and_reference(system, score_kernel, n_shards):
+    """The multi-phase path serves each shard's items in one batch
+    (``topk_batch``): exhaustive items decoded together and, with the score
+    kernel, scored in one call.  A mix of exhaustive, pruned and
+    required-term items, a decode budget that evicts, and floors forwarded
+    between shards: ids, scores, RankedStats, and the decode LRU's entries
+    and counters equal the per-item loop's; results equal the reference
+    engine's in the same configuration and brute force.  Prefetch calls,
+    decodes and takes may differ (that is the batching); no prefetched list
+    goes unread, and the batch decodes no list the loop does not."""
+    inv, lb, li, ref_lb, ref_li, q, req = system
+    ranked = dict(score_kernel=score_kernel, topk_exhaustive_cutoff=450 // n_shards)
+    cfg = dict(n_shards=n_shards, cache_budget_bytes=6000, ranked=ranked)
+    batched, loop = (BooleanEngine(lb, inv, li, ServeConfig(device="cpu", **cfg))
+                     for _ in range(2))
+    ref = RefEngine(ref_lb, inv, ref_li, RefServeConfig(**cfg))
+    for kw in (dict(), dict(required=req), dict(mode="and")):
+        got = batched.query_topk(q, 10, **kw)
+        _assert_same(got, _per_item_topk(loop, q, 10, **kw), ("loop", kw))
+        _assert_same(got, ref.query_topk(q, 10, **kw), ("reference", kw))
+        _assert_same(got, brute_force_topk(inv, batched.impact_model, q, 10, **kw), kw)
+    stats, stats0 = batched.serving_stats(), loop.serving_stats()
+    assert stats["ranked"] == stats0["ranked"]
+    assert 0 < stats["ranked"]["exhaustive_queries"] < stats["ranked"]["queries"]
+    assert stats["ranked"]["probed_postings"] > 0
+    assert stats["decode_cache"] == stats0["decode_cache"]
+    assert stats["decode_cache"]["evictions"] > 0
+    got_lru, want_lru = _lru(batched), _lru(loop)
+    assert [[k for k, _ in sh] for sh in got_lru] == [[k for k, _ in sh] for sh in want_lru]
+    for sa, sb in zip(got_lru, want_lru):
+        for (_, va), (_, vb) in zip(sa, sb):
+            assert np.array_equal(va, vb)
+    pre, pre0 = stats["prefetch"], stats0["prefetch"]
+    assert pre["unused"] == pre0["unused"] == 0
+    assert pre["decoded"] <= pre0["decoded"] and pre["calls"] <= pre0["calls"]
+    if n_shards == 1:  # the K=4 shards of 100 docs hold few kernel-coded lists
+        assert 0 < pre["calls"] < pre0["calls"]
+
+
+@pytest.mark.parametrize("score_kernel", [True, False], ids=["kernel", "host"])
+def test_shard_batch_with_floors_matches_reference_shard(system, score_kernel):
+    """One shard's batch with nonzero floors (every item's own) against the
+    reference shard's per-item ``query_topk_local``: ids, scores and the
+    shard's RankedStats."""
+    inv, lb, li, ref_lb, ref_li, q, req = system
+    ranked = dict(score_kernel=score_kernel, topk_exhaustive_cutoff=450)
+    eng = BooleanEngine(lb, inv, li, ServeConfig(device="cpu", ranked=ranked))
+    ref = RefEngine(ref_lb, inv, ref_li, RefServeConfig(ranked=ranked))
+    rng = np.random.default_rng(12)
+    items = []
+    for row, r in zip(q, req):
+        terms = tuple(sorted({int(t) for t in row if t >= 0}))
+        required = tuple(int(t) for t, m in zip(row, r) if m and t >= 0) if rng.random() < 0.3 else ()
+        items.append((terms, int(rng.choice([1, 10])), required, int(rng.integers(0, 40))))
+    sh, rsh = eng.shards[0], ref.shards[0]
+    got = sh.query_topk_batch(items)
+    _assert_same(got, [rsh.query_topk_local(t, k, required=r, floor=f) for t, k, r, f in items],
+                 "shard")
+    assert any(f > 0 and len(g.ids) for (*_, f), g in zip(items, got))
+    assert any(len(g.ids) < k for (_, k, _, _), g in zip(items, got))  # a floor cut some
+    want = rsh.ranked_stats
+    for field in ("queries", "exhaustive_queries", "scored_postings", "probed_postings",
+                  "exhaustive_postings"):
+        assert getattr(sh.ranked_stats, field) == getattr(want, field), field
+
+
+def test_exhaustive_items_score_in_one_launch_per_shard(system, monkeypatch):
+    """Configuration (a) at two shards: a batch with several exhaustive
+    items on each shard makes one score_batch call per shard."""
+    import repro_torch.kernels.bm25_score.ops as bm25_ops
+
+    calls = []
+    score = bm25_ops.score_batch
+    monkeypatch.setattr(bm25_ops, "score_batch",
+                        lambda imp, scale: calls.append(tuple(imp.shape)) or score(imp, scale))
+    inv, lb, li, *_, q, _ = system
+    eng = BooleanEngine(lb, inv, li, ServeConfig(n_shards=2, device="cpu", ranked=CONFIGS["a"]))
+    eng.query_topk(q, 10)
+    per_shard = [sh.ranked_stats.exhaustive_queries for sh in eng.shards]
+    assert min(per_shard) > 1 and len(calls) == 2
 
 
 def test_ranked_stats_keys_and_counts(system):
