@@ -36,16 +36,10 @@ card's name and power limit first, then one JSON line per phase:
          and (c) (the dense arena loop, with mixed-required queries on
          fused_topk) on the launcher's default collection of 2,000 docs;
          every result list asserted equal to ``brute_force_topk``; per run
-         the launches (in a package with ``rank.topk.topk_batch``, (a)
-         makes at most one bm25_score launch per shard, asserted) and the
-         decode accounting of A; the time of building the 2,000-doc
+         the launches (in a package with ``rank.topk.topk_batch``, every
+         (a) batch makes at most one bm25_score launch per shard, asserted)
+         and the decode accounting of A; the time of building the 2,000-doc
          shard's guided stream arena on its own
-  A_block
-         Algorithm 3's candidate step on one of A's K=1 batches: its time
-         (``block_query_ms``), launches and device memory allocated per
-         call (one membership and one bitset launch and less than a
-         (Q*T, words) tensor, asserted where the package has the fused
-         ``block_candidates``)
   D      one list's whole decode through ``postings.search.full_decode``
          (the one-term decode entry of every version of the port): phase A's
          optpfd list closest to 100,000 ids, checked against the host
@@ -60,8 +54,15 @@ card's name and power limit first, then one JSON line per phase:
          and for pfor and plm_decode on one list of about 100,000 ids
          (``case`` tells the rows apart); bitset is Algorithm 3's fused
          block step (``block_candidates``) at A's K=1 shape, bm25_score
-         the stacked exhaustive windows of an (a) batch; the time of one
-         dense arena pass
+         the stacked exhaustive windows of an (a) batch (and its time on
+         the same window one int32 off a 16-byte edge, where it reads
+         with 4-byte loads); the time of one dense arena pass
+  A_block
+         Algorithm 3's candidate step on one of A's K=1 batches, after C
+         (its calls are all at that shape): its time (``block_query_ms``),
+         launches and device memory allocated per call (one membership and one bitset launch and less than a
+         (Q*T, words) tensor, asserted where the package has the fused
+         ``block_candidates``)
 
 then the ``kernels`` line (launch counts from phases A, B and R, times,
 bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
@@ -640,9 +641,7 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
     eng4.cfg.ranked.fused_kernel = True
     eng4.cfg.ranked.topk_exhaustive_cutoff = 0
     b4 = serve("b_k4", eng4, q, oracle)
-    if hasattr(topk, "topk_batch"):  # exhaustive items: one bm25_score launch per batch
-        if not 0 < a1["launches"]["bm25_score"] <= len(eng1.shards):
-            raise AssertionError(f"a_k1: {a1['launches']['bm25_score']} bm25_score launches")
+    one_score_launch(topk, "a_k1", a1, eng1)
     for name, run, eng in (("b_k1", b1, eng1), ("b_k4", b4, eng4)):
         # at 528k docs no shard fits the arena (132k docs a shard > 2^17):
         # every item goes to fused_topk; a smaller --docs may fit it
@@ -666,10 +665,10 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
     qs, req = zipf_disjunctions(inv_s.dfs, R_QUERIES, seed=R_SEED, n_required=1)
     im = eng_s.impact_model
     small_oracle = brute_force_topk(inv_s, im, qs, R_TOPK)
-    serve("a_small", eng_s, qs, small_oracle)
+    one_score_launch(topk, "a_small", serve("a_small", eng_s, qs, small_oracle), eng_s)
     # the same batch warm; and, alone, the build of the guided prober's
     # device arena, which the first batch on an engine pays
-    serve("a_small_warm", eng_s, qs, small_oracle)
+    one_score_launch(topk, "a_small_warm", serve("a_small_warm", eng_s, qs, small_oracle), eng_s)
     if hasattr(search, "build_arena"):
         timed("small_stream_arena", lambda: search.build_arena(eng_s.shards[0].tier2, dev))
     eng_s.cfg.ranked.score_kernel = False  # (c): fused with the arena
@@ -695,6 +694,14 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
         "runs": runs,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
+
+
+def one_score_launch(topk, name: str, run: dict, eng) -> None:
+    """In a package with ``rank.topk.topk_batch`` a multi-phase (a) batch
+    scores its exhaustive items in one bm25_score launch per shard."""
+    n = run["launches"]["bm25_score"]
+    if hasattr(topk, "topk_batch") and not 0 < n <= len(eng.shards):
+        raise AssertionError(f"{name}: {n} bm25_score launches on {len(eng.shards)} shards")
 
 
 def block_step(algorithms, kernels: dict, keep: dict) -> dict:
@@ -993,10 +1000,15 @@ def phase_c_ranked(rec: Recorder, row, keep: dict) -> None:
     if not (torch.equal(gi, wi) and torch.equal(gf, wf)):
         raise AssertionError("bm25_score differs from its plain version")
     P, T = imp.shape
+    # the same window one int32 off a 16-byte edge: the kernel's 4-byte loads
+    flat = torch.empty(P * T + 1, dtype=imp.dtype, device=imp.device)
+    skew = flat[1:].view(P, T)
+    skew.copy_(imp)
     row("bm25_score", "src/repro/kernels/bm25_score/kernel.py:37",
         lambda: score_batch(imp, scale), lambda: score_ref(imp, scale),
         0.0, 4 * P * T + 8 * P, 0, library=lambda: imp.sum(1),
-        extra={"shape": {"P": P, "T": T}})
+        extra={"shape": {"P": P, "T": T},
+               "scalar_load_ms": graph_ms(lambda: score_batch(skew, scale))})
 
     def fused_row(tiles, kw, case):
         (gi, gs), (wi, ws) = fused_topk(*tiles, **kw), fused_topk_ref(*tiles, **kw)
@@ -1151,12 +1163,14 @@ def main() -> int:
             if phase in counts and counts[phase][n] == 0:
                 raise AssertionError(f"{n} did not launch on its path (phase {phase})")
 
-    if "A" in phases:
-        emit(block_step(algorithms, kernels, keep))
     if "D" in phases:
         emit(phase_d(dev, keep))
-    if "C" in phases:
-        rows = phase_c(rec, total, keep)
+    rows = phase_c(rec, total, keep) if "C" in phases else None
+    if "A" in phases:
+        # after phase C, which holds membership at its most launched shape:
+        # the Recorder sees these calls, all at phase A's K=1 shape
+        emit(block_step(algorithms, kernels, keep))
+    if rows is not None:
         emit({"phase": "C", "kernels": [r["name"] for r in rows], "launches": total})
         emit(dense_line(rec))
         emit({"kernels": rows})

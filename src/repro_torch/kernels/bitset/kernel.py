@@ -1,42 +1,18 @@
-"""Wrappers of the packed-bitset kernels (csrc/bitset.cu): the block AND +
-popcount, and Algorithm 3's block step fused around it."""
+"""Wrapper of the packed-bitset kernel (csrc/bitset.cu): Algorithm 3's block
+step, the block AND + popcount and the AND of the membership rows in the
+blocks that survive it, in one launch."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref, block_candidates_ref
+from repro_torch.kernels.bitset.ref import block_candidates_ref
 from repro_torch.kernels.cuda import I, P, CudaKernel, check
 
-AND_KERNEL = CudaKernel("bitset", "bitset_and_popcount_launch", [P, P, P, P, I, I, I])
 # the kernel Algorithm 3's block step launches (core/algorithms.py:block_query)
 KERNEL = CudaKernel("bitset", "block_candidates_launch",
                     [P, I, P, P, I, P, I, I, I, P, P, P, I])
 MAX_TERMS = 64  # query slots the fused kernel keeps in shared memory
 MAX_GRID_Y = 65535
-
-
-def bitset_and_popcount(
-    bitmaps: torch.Tensor,  # (Q, T, W) int32 (uint32 bit patterns)
-    valid: torch.Tensor,  # (Q, T) int32, > 0 marks a real term
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> ((Q, W) int32 AND over each query's valid terms, (Q,) int32 count
-    of surviving blocks).  Invalid terms act as all-ones."""
-    dev = bitmaps.device
-    if dev.type == "cpu":
-        return bitset_and_popcount_ref(bitmaps, valid)
-    if dev.type != "cuda":
-        raise ValueError(f"bitset_and_popcount: unsupported device {dev}")
-    check(bitmaps, "bitmaps", torch.int32, 3, dev)
-    check(valid, "valid", torch.int32, 2, dev)
-    Q, T, W = bitmaps.shape
-    if tuple(valid.shape) != (Q, T):
-        raise ValueError(f"valid shape {tuple(valid.shape)} != {(Q, T)}")
-    if Q > MAX_GRID_Y:
-        raise ValueError(f"{Q} queries exceed the kernel's grid ({MAX_GRID_Y})")
-    anded = torch.empty((Q, W), dtype=torch.int32, device=dev)
-    count = torch.zeros(Q, dtype=torch.int32, device=dev)  # atomic accumulator
-    AND_KERNEL.launch(*(t.data_ptr() for t in (bitmaps, valid, anded, count)), Q, T, W)
-    return anded, count
 
 
 def block_candidates(
@@ -51,7 +27,7 @@ def block_candidates(
     rows ANDed over each query's valid terms, kept in the blocks that
     survive the block AND, zero past ``n_docs`` and for an all-pad query;
     (Q, Wb) int32 block AND; (Q,) int32 surviving-block count).  The last
-    two are ``bitset_and_popcount`` of the query's table rows."""
+    two are ``bitset_and_popcount_ref`` of the query's table rows."""
     dev = table.device
     if dev.type == "cpu":
         return block_candidates_ref(table, terms, slots, rows, n_docs, block_size)

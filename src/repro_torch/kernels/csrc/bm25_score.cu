@@ -12,17 +12,18 @@
 // aim is one launch per batch that does no work it need not.
 //
 // Design: for T <= 8 (every ranked row the port builds: zipf_disjunctions
-// draws at most 6 terms) one thread per row, T a template parameter so the
-// row's loads are unrolled, each 16 bytes (T % 4 == 0) or 8 bytes (T even)
-// where the row stride and the base address allow, else 4.  Neighbouring
-// threads read neighbouring rows, so a warp's loads cover one contiguous
-// stretch.  The warp-per-row layout this replaces left at least 26 of 32
-// lanes idle on such rows and spent a 5-step shuffle ladder per row; it is
-// kept for wider T, where the lanes stride over the row's true columns and
-// a shuffle reduction sums them.  Integer addition is associative, so
-// either sum is the reference's whatever the order; __int2float_rn
-// converts the exact sum and __fmul_rn multiplies once without FMA
-// contraction: the same single rounding as bm25_score/ref.py.
+// draws at most 6 terms) one thread per row, its loads unrolled to at most
+// 8 columns and guarded by T, each 16 bytes (T % 4 == 0) or 8 bytes (T
+// even) where the row stride and the base address allow, else 4: three
+// variants, one per load width.  Neighbouring threads read neighbouring
+// rows, so a warp's loads cover one contiguous stretch.  The warp-per-row
+// layout this replaces left at least 26 of 32 lanes idle on such rows and
+// spent a 5-step shuffle ladder per row; it is kept for wider T, where the
+// lanes stride over the row's true columns and a shuffle reduction sums
+// them.  Integer addition is associative, so either sum is the
+// reference's whatever the order; __int2float_rn converts the exact sum
+// and __fmul_rn multiplies once without FMA contraction: the same single
+// rounding as bm25_score/ref.py.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -56,18 +57,21 @@ __device__ __forceinline__ void store(int32_t* ints, float* floats, int p, int32
   floats[p] = __fmul_rn(__int2float_rn(s), scale);
 }
 
-// one thread per row of T columns, read V int32 at a time
-template <int T, int V>
+// one thread per row of T <= 8 columns, read V int32 at a time (T % V == 0)
+template <int V>
 __global__ void __launch_bounds__(THREADS)
 row_kernel(const int32_t* __restrict__ impacts, float scale, int32_t* __restrict__ ints,
-           float* __restrict__ floats, int P) {
+           float* __restrict__ floats, int P, int T) {
   const int p = blockIdx.x * THREADS + threadIdx.x;
   if (p >= P) return;
   using VT = typename Vec<V>::type;
   const VT* row = reinterpret_cast<const VT*>(impacts + (size_t)p * T);
+  const int n = T / V;
   int32_t s = 0;
 #pragma unroll
-  for (int j = 0; j < T / V; ++j) s += Vec<V>::sum(__ldg(row + j));
+  for (int j = 0; j < MAX_THREAD_T / V; ++j) {
+    if (j < n) s += Vec<V>::sum(__ldg(row + j));
+  }
   store(ints, floats, p, s, scale);
 }
 
@@ -85,45 +89,25 @@ warp_kernel(const int32_t* __restrict__ impacts, float scale, int32_t* __restric
   if (lane == 0) store(ints, floats, p, s, scale);
 }
 
-template <int T>
-void launch_rows(const int32_t* impacts, float scale, int32_t* ints, float* floats, int P,
-                 cudaStream_t stream) {
-  const uintptr_t base = reinterpret_cast<uintptr_t>(impacts);
-  const int blocks = (P + THREADS - 1) / THREADS;
-  if constexpr (T % 4 == 0) {
-    if (base % 16 == 0) {
-      row_kernel<T, 4><<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P);
-      return;
-    }
-  }
-  if constexpr (T % 2 == 0) {
-    if (base % 8 == 0) {
-      row_kernel<T, 2><<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P);
-      return;
-    }
-  }
-  row_kernel<T, 1><<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P);
-}
-
 }  // namespace
 
 extern "C" int bm25_score_launch(const int32_t* impacts, int32_t* ints, float* floats, int P,
                                  int T, float scale, cudaStream_t stream) {
   if (P > 0) {
-    switch (T) {
-      case 1: launch_rows<1>(impacts, scale, ints, floats, P, stream); break;
-      case 2: launch_rows<2>(impacts, scale, ints, floats, P, stream); break;
-      case 3: launch_rows<3>(impacts, scale, ints, floats, P, stream); break;
-      case 4: launch_rows<4>(impacts, scale, ints, floats, P, stream); break;
-      case 5: launch_rows<5>(impacts, scale, ints, floats, P, stream); break;
-      case 6: launch_rows<6>(impacts, scale, ints, floats, P, stream); break;
-      case 7: launch_rows<7>(impacts, scale, ints, floats, P, stream); break;
-      case 8: launch_rows<8>(impacts, scale, ints, floats, P, stream); break;
-      default: {
-        static_assert(MAX_THREAD_T == 8, "the switch covers T = 1..MAX_THREAD_T");
-        const int blocks = (P + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-        warp_kernel<<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P, T);
+    if (T >= 1 && T <= MAX_THREAD_T) {
+      // a row starts at base + 4*T*p bytes: aligned to V int32 when T % V == 0
+      const uintptr_t base = reinterpret_cast<uintptr_t>(impacts);
+      const int blocks = (P + THREADS - 1) / THREADS;
+      if (T % 4 == 0 && base % 16 == 0) {
+        row_kernel<4><<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P, T);
+      } else if (T % 2 == 0 && base % 8 == 0) {
+        row_kernel<2><<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P, T);
+      } else {
+        row_kernel<1><<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P, T);
       }
+    } else {
+      const int blocks = (P + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+      warp_kernel<<<blocks, THREADS, 0, stream>>>(impacts, scale, ints, floats, P, T);
     }
   }
   return (int)cudaGetLastError();
