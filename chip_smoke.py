@@ -9,7 +9,7 @@ It needs a CUDA card, ``nvcc`` and the repository checkout it lives in; it
 exits non-zero without a result when either is missing.  It prints the
 card's name and power limit first, then one JSON line per phase:
 
-  build  the seven kernels compiled from ``src/repro_torch/kernels/csrc``
+  build  the eight kernels compiled from ``src/repro_torch/kernels/csrc``
   A      the main path at Robust scale: corpus, inverted index, 300 training
          steps of the membership model, zero-false-negative thresholds, then
          128 conjunctive queries through ``BooleanEngine.query_batch`` at one
@@ -40,6 +40,18 @@ card's name and power limit first, then one JSON line per phase:
          (a) batch makes at most one bm25_score launch per shard, asserted)
          and the decode accounting of A; the time of building the 2,000-doc
          shard's guided stream arena on its own
+  S      the persistent shard-store and Algorithm 2 on phase A's K=4
+         engine after R attached its payloads: ``save`` to a directory
+         under ``build/`` (removed at the end; seconds and bytes on disk
+         per array kind), ``from_store`` as a block engine that serves A's
+         128 queries cold and warm (asserted equal to A's K=4 results) and
+         R's (a) ranked batch (asserted equal to brute force), then as a
+         two-tier engine (tier-1 lists of the config's 4,000 entries,
+         uploaded once, timed on their own) that serves the batch verified,
+         cold and warm: every query guaranteed on every shard exact, every
+         result a subset of the exact one, at least one guaranteed, one
+         two_tier launch per batch and running shard; last, on every
+         shard, two_tier == exhaustive AND the tier-1 union, word for word
   D      one list's whole decode through ``postings.search.full_decode``
          (the one-term decode entry of every version of the port): phase A's
          optpfd list closest to 100,000 ids, checked against the host
@@ -56,7 +68,10 @@ card's name and power limit first, then one JSON line per phase:
          block step (``block_candidates``) at A's K=1 shape, bm25_score
          the stacked exhaustive windows of an (a) batch (and its time on
          the same window one int32 off a 16-byte edge, where it reads
-         with 4-byte loads); the time of one dense arena pass
+         with 4-byte loads); two_tier on the batch S gave it with the most
+         candidates and on its largest inputs (the bits may differ only
+         within the margin of tau; its plain version reads a count back,
+         so its plain time is eager); the time of one dense arena pass
   A_block
          Algorithm 3's candidate step on one of A's K=1 batches, after C
          (its calls are all at that shape): its time (``block_query_ms``),
@@ -64,18 +79,19 @@ card's name and power limit first, then one JSON line per phase:
          (Q*T, words) tensor, asserted where the package has the fused
          ``block_candidates``)
 
-then the ``kernels`` line (launch counts from phases A, B and R, times,
+then the ``kernels`` line (launch counts from phases A, B, R and S, times,
 bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero.  ``--phases`` runs a subset (R and D
-need A; C needs A, B and R; A_block runs with A), ``--src`` drives the
-package of another checkout (phases A, A_block, B, R and D only need what
-every version of the port has),
+need A; S needs A and R; C needs A, B and R; A_block runs with A), ``--src``
+drives the package of another checkout (phases A, A_block, B, R and D only
+need what every version of the port has),
 so that two versions can be compared on one card in one call.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -397,6 +413,7 @@ def phase_a(args, dev, launches, clock: DecodeClock, keep: dict) -> dict:
         eng = BooleanEngine(lb, inv, li_cfg, ServeConfig(n_shards=k, device=str(dev)))
         timed(f"tier2_build_k{k}", lambda: [sh.tier2 for sh in eng.shards])
         per_batch, res = served(f"serve_k{k}", eng)
+        keep.setdefault("results", {})[k] = res  # phase S serves the batch again
         served(f"serve_warm_k{k}", eng)
         if k == 1:  # for the time of the whole candidate step, at the
             # (Q, max_query_terms) shape the engine hands it
@@ -412,7 +429,7 @@ def phase_a(args, dev, launches, clock: DecodeClock, keep: dict) -> dict:
             "guided": stats["guided"],
             "results": int(sum(len(r) for r in res)),
         }
-    keep["inv"] = inv
+    keep.update(inv=inv, lb=lb, li_cfg=li_cfg, batch=q, exact=exact)
     return {
         "phase": "A",
         "docs": corpus.n_docs,
@@ -634,6 +651,7 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
     oracle = timed("oracle", lambda: brute_force_topk(inv, eng1.impact_model, q, R_TOPK))
     eng1.cfg.ranked.score_kernel = True  # (a)
     a1 = serve("a_k1", eng1, q, oracle)
+    keep["ranked"] = (q, oracle)  # phase S serves (a) again from the store
     eng1.cfg.ranked.score_kernel = False  # (b), as the launcher's --fused sets it
     eng1.cfg.ranked.fused_kernel = True
     eng1.cfg.ranked.topk_exhaustive_cutoff = 0
@@ -690,6 +708,138 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
         "topk": R_TOPK,
         "small_collection": R_SMALL,
         "exact": True,
+        "seconds": secs,
+        "runs": runs,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def phase_s(dev, launches, clock: DecodeClock, keep: dict) -> dict:
+    """The persistent shard-store and Algorithm 2 at phase A's scale: phase
+    A's K=4 engine (with R's payloads) saved, reloaded and served as block
+    and as two-tier engines; the store directory is removed at the end."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.kernels.membership.ref import pack_bool_words
+    from repro_torch.kernels.two_tier.kernel import KERNEL as TWO_TIER
+    from repro_torch.kernels.two_tier.ref import tier1_union
+    from repro_torch.launch.serve import check_two_tier
+    from repro_torch.serve import BooleanEngine, ServeConfig
+    from repro_torch.serve.planner import plan_batch
+
+    secs: dict[str, float] = {}
+    runs: dict[str, dict] = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"[S] {name}: {secs[name]:.2f}s")
+        return out
+
+    q, exact = keep["batch"], keep["exact"]
+    lb, li_cfg, eng4 = keep["lb"], keep["li_cfg"], keep["engines"][4]
+
+    def served(name, eng):
+        """One Boolean batch -> its results; launches, decode accounting and
+        the shard's guided-probe counters under runs[name]."""
+        eng.reset_stats()
+        before = launches()
+        res, decode = clock.account(eng, launches, lambda: eng.query_batch(q))
+        secs[name] = decode["batch_s"]
+        guided = eng.serving_stats()["guided"]
+        runs[name] = {"launches": {n: c - before[n] for n, c in launches().items()},
+                      "decode": decode, "probes": guided["probes"] if guided else 0,
+                      "results": int(sum(len(r) for r in res))}
+        log(f"[S] {name}: {secs[name]:.2f}s, {runs[name]}")
+        return res
+
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    path = tempfile.mkdtemp(prefix="chip_smoke_store_", dir=root)
+    try:
+        timed("save", lambda: eng4.save(path))
+        disk: dict[str, int] = {}
+        for d, _, files in os.walk(path):
+            for f in files:
+                kind = f[:-4] if f.endswith(".bin") else f
+                disk[kind] = disk.get(kind, 0) + os.path.getsize(os.path.join(d, f))
+
+        # block serving from the store: phase A's K=4 results, phase R's (a)
+        eng_b = timed("from_store_block", lambda: BooleanEngine.from_store(
+            lb, li_cfg, ServeConfig(n_shards=4, device=str(dev), ranked=dict(score_kernel=True)),
+            path))
+        for name in ("block_cold", "block_warm"):
+            res = served(name, eng_b)
+            bad = [i for i, (r, e) in enumerate(zip(res, keep["results"][4]))
+                   if not np.array_equal(r, e)]
+            if bad:
+                raise AssertionError(f"{name}: {len(bad)} queries differ from phase A's K=4 "
+                                     f"results, first {bad[:5]}")
+        rq, oracle = keep["ranked"]
+        before = launches()
+        got, decode = clock.account(eng_b, launches, lambda: eng_b.query_topk(rq, R_TOPK))
+        secs["ranked_a"] = decode["batch_s"]
+        _check_topk(got, oracle, "S ranked (a) from the store")
+        runs["ranked_a"] = {"launches": {n: c - before[n] for n, c in launches().items()},
+                            "decode": decode, "ranked_stats": eng_b.serving_stats()["ranked"]}
+        log(f"[S] ranked_a: {runs['ranked_a']}")
+        del eng_b
+
+        # two-tier serving from the store, verified
+        eng_t = timed("from_store_two_tier", lambda: BooleanEngine.from_store(
+            lb, li_cfg, ServeConfig(algorithm="two_tier", n_shards=4, device=str(dev)), path))
+        tier1_bytes = sum(sh.state.tier1_bits // 8 for sh in eng_t.shards)
+        timed("tier1_upload", lambda: [sh.state.tier1 for sh in eng_t.shards])
+        qpad = eng_t._padded(q)
+        plan = plan_batch(qpad, eng_t._global_dfs, eng_t.shards, verified=True)
+        running = sum(bool(sp.run.any()) for sp in plan.shard_plans)
+        for name in ("two_tier_cold", "two_tier_warm"):
+            res = served(name, eng_t)
+            guar = check_two_tier(eng_t, q, res, exact, li_cfg.truncation_k)
+            n = runs[name]["launches"]["two_tier"]
+            if n != running:
+                raise AssertionError(f"{name}: {n} two_tier launches for one batch on "
+                                     f"{running} shards")
+        if not guar.any():
+            raise AssertionError("no query is guaranteed on every shard")
+        n_exact = sum(np.array_equal(r, e) for r, e in zip(res, exact))
+
+        # the f_hat identity on the card: two_tier == exhaustive AND the
+        # tier-1 union, word for word, on every shard (launches taken back)
+        saved = launches()
+        for sh in eng_t.shards:
+            st = sh.state
+            got = alg.run_queries(st, qpad, "two_tier")
+            union = pack_bool_words(tier1_union(
+                st.tier1, st.tier1_len, torch.from_numpy(qpad).to(dev), st.n_docs))
+            want = alg.run_queries(st, qpad, "exhaustive") & union
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"shard {sh.shard_id}: {bad} two_tier words differ from "
+                                     f"exhaustive AND the tier-1 union")
+        for n, k in keep["kernels"].items():
+            k.launches = saved[n]
+        del eng_t
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return {
+        "phase": "S",
+        "docs": keep["inv"].n_docs,
+        "shards": 4,
+        "truncation_k": li_cfg.truncation_k,
+        "queries": int(q.shape[0]),
+        "disk_bytes": disk,
+        "tier1_bytes": tier1_bytes,
+        "guaranteed": int(guar.sum()),
+        "exact_results": int(n_exact),
+        "identity_shards": len(eng4.shards),
         "seconds": secs,
         "runs": runs,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
@@ -931,7 +1081,74 @@ def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
     plm_row(rec.inputs["plm_decode"], "largest")
     plm_row(single_plm_list(rec.inputs["plm_decode"][0].device), "single_list")
     phase_c_ranked(rec, row, keep)
+    if "two_tier" in rec.inputs:  # phase S ran
+        two_tier_row(rec.inputs["two_tier"], rec.kwargs["two_tier"], row, "largest")
+        two_tier_row(*rec.second["two_tier"], row, "most_candidates")
     return rows
+
+
+def candidate_total(args) -> int:
+    """A Recorder measure of a two_tier call: the positions of its queries'
+    valid tier-1 lists, summed over the batch."""
+    import torch
+
+    tier1_len, queries = args[1], args[2]
+    lens = torch.where(queries >= 0, tier1_len[queries.clamp(min=0).long()], 0)
+    return int(lens.sum())
+
+
+def two_tier_row(args, kw, row, case: str) -> None:
+    """two_tier against its plain version, the bits allowed to differ only
+    where a valid term's logit lies within the margin of its tau.  The bound
+    counts what these inputs need: the (Q, T) ids, the valid slots' tau,
+    lengths and term rows, their tier-1 entries, the doc row of every doc
+    in some query's union (read once), the bitmap written; and 2 E FLOPs
+    per (union doc, valid slot) of each query."""
+    import torch
+
+    from repro_torch.core.learned_bloom import NUMERIC_MARGIN
+    from repro_torch.kernels.two_tier.kernel import two_tier_candidates
+    from repro_torch.kernels.two_tier.ref import tier1_union, two_tier_ref
+
+    tier1, tier1_len, queries, te, de, tau, bias = args
+    got = two_tier_candidates(*args, **kw)
+    want = two_tier_ref(*args)
+    D, E = de.shape
+    Q, T = queries.shape
+    differ = bits_of(got ^ want, D)
+    qi, di = differ.nonzero(as_tuple=True)
+    err = 0.0
+    if len(qi):  # each differing bit: its nearest valid term's |logit - tau|
+        qs = queries.long()
+        gap = torch.full((len(qi),), float("inf"), device=de.device)
+        rel = torch.full((len(qi),), float("inf"), device=de.device)
+        for t in range(T):
+            ts = qs[qi, t].clamp(min=0)
+            g = ((te[ts] * de[di]).sum(-1) + bias - tau[ts]).abs()
+            g = torch.where(qs[qi, t] >= 0, g, float("inf"))
+            rel = torch.minimum(rel, g / (1 + tau[ts].abs()))
+            gap = torch.minimum(gap, g)
+        if bool((rel > NUMERIC_MARGIN).any()):
+            raise AssertionError(f"two_tier ({case}): {int((rel > NUMERIC_MARGIN).sum())} "
+                                 f"bits differ outside the margin")
+        err = float(gap.max())
+    union = tier1_union(tier1, tier1_len, queries, D)
+    valid = queries >= 0
+    n_valid = valid.sum(dim=1)
+    pairs = int((union.sum(dim=1) * n_valid).sum())
+    terms = queries[valid].long()
+    lens = int(tier1_len[terms].sum())
+    docs = int(union.any(dim=0).sum())
+    need = (4 * Q * T + 8 * int(n_valid.sum()) + 4 * E * int(terms.unique().numel())
+            + 4 * lens + 4 * E * docs + 4 * got.numel())
+    row("two_tier", "src/repro/core/algorithms.py:97",
+        lambda: two_tier_candidates(*args, **kw), lambda: two_tier_ref(*args),
+        err, need, 2 * E * pairs, plain_in_graph=False,
+        extra={"case": case, "differing_bits": int(differ.sum()), "margin": NUMERIC_MARGIN,
+               "shape": {"Q": Q, "T": T, "valid_slots": int(n_valid.sum()),
+                         "k": int(tier1.shape[1]), "D": D, "E": E,
+                         "list_entries": lens, "union_docs": int(union.sum()),
+                         "distinct_docs": docs, "pairs": pairs}})
 
 
 def single_pfor_list(keep: dict, dev):
@@ -1068,14 +1285,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=528_000,
                     help="documents in phase A's collection (Robust04's 528k by default)")
-    ap.add_argument("--phases", default="ABRDC",
-                    help="phases to run (R and D need A; C needs A, B and R)")
+    ap.add_argument("--phases", default="ABRSDC",
+                    help="phases to run (R and D need A; S needs A and R; C needs A, B and R)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory that holds the repro_torch package to drive")
     args = ap.parse_args()
     phases = set(args.phases.upper())
-    if ({"R", "D"} & phases and "A" not in phases) or ("C" in phases and not {"A", "B", "R"} <= phases):
-        ap.error(f"--phases {args.phases}: R and D need A, and C needs A, B and R")
+    if ({"R", "D"} & phases and "A" not in phases) or ("C" in phases and not {"A", "B", "R"} <= phases) \
+            or ("S" in phases and not {"A", "R"} <= phases):
+        ap.error(f"--phases {args.phases}: R and D need A, S needs A and R, and C needs A, B and R")
 
     import torch
 
@@ -1115,6 +1333,10 @@ def main() -> int:
 
     kernels = {"membership": MEMBERSHIP, "bitset": BITSET, "guided_search": GUIDED,
                "plm_decode": DECODE, "pfor": PFOR, "bm25_score": BM25, "fused_topk": FUSED}
+    if "S" in phases:  # a package with Algorithm 2's kernel
+        from repro_torch.kernels.two_tier.kernel import KERNEL as TWO_TIER
+
+        kernels["two_tier"] = TWO_TIER
 
     t0 = time.perf_counter()
     reports = cuda.build_all()
@@ -1132,16 +1354,19 @@ def main() -> int:
         rec.wrap(bm25_ops, "score_batch", "bm25_score")
         rec.wrap(fused_ops, "fused_topk", "fused_topk", true_candidates)
         rec.wrap(dense, "dense_impl", "dense")
+        if "S" in phases:
+            rec.wrap(algorithms, "two_tier_candidates", "two_tier", candidate_total)
     clock = DecodeClock()
     clock.install()
 
     def launches() -> dict[str, int]:
         return {n: k.launches for n, k in kernels.items()}
 
-    counts, keep = {}, {}
+    counts, keep = {}, {"kernels": kernels}
     for name, run in (("A", lambda: phase_a(args, dev, launches, clock, keep)),
                       ("B", lambda: phase_b(dev, launches)),
-                      ("R", lambda: phase_r(dev, launches, clock, keep))):
+                      ("R", lambda: phase_r(dev, launches, clock, keep)),
+                      ("S", lambda: phase_s(dev, launches, clock, keep))):
         if name not in phases:
             continue
         for k in kernels.values():
@@ -1155,10 +1380,11 @@ def main() -> int:
     total = {n: sum(c[n] for c in counts.values()) for n in kernels}
     missing = [n for n, c in total.items() if c == 0]
     if missing and {"A", "B", "R"} <= phases:
-        raise AssertionError(f"kernels never launched on phases A, B and R: {missing}")
+        raise AssertionError(f"kernels never launched on phases A, B, R and S: {missing}")
     for phase, names in (("A", ("membership", "bitset", "pfor")),
                          ("B", ("guided_search", "plm_decode")),
-                         ("R", ("pfor", "bm25_score", "fused_topk"))):
+                         ("R", ("pfor", "bm25_score", "fused_topk")),
+                         ("S", ("membership", "bitset", "pfor", "bm25_score", "two_tier"))):
         for n in names:
             if phase in counts and counts[phase][n] == 0:
                 raise AssertionError(f"{n} did not launch on its path (phase {phase})")

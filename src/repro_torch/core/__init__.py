@@ -1,6 +1,14 @@
 """The paper's contribution in PyTorch: the learned membership model f(t, d),
-its zero-false-negative thresholds, and Algorithms 1 and 3."""
-from repro_torch.core.algorithms import EngineState, block_query, build_engine, exhaustive_query, run_queries
+its zero-false-negative thresholds, and Algorithms 1-3."""
+from repro_torch.core.algorithms import (
+    EngineState,
+    block_query,
+    build_engine,
+    exhaustive_query,
+    run_queries,
+    two_tier_guaranteed,
+    two_tier_query,
+)
 from repro_torch.core.learned_bloom import (
     NUMERIC_MARGIN,
     LearnedBloom,
@@ -32,4 +40,6 @@ __all__ = [
     "params_from_jax",
     "run_queries",
     "term_doc_logits",
+    "two_tier_guaranteed",
+    "two_tier_query",
 ]

@@ -1,38 +1,45 @@
-"""Algorithms 1 and 3 from the paper, as batched evaluators on one device.
+"""Algorithms 1–3 from the paper, as batched evaluators on one device.
 
-Both take a padded query batch (Q, T) of term ids (-1 = pad) and return the
-candidate documents of each query as a packed (Q, ceil(n_docs/32)) int32
+All three take a padded query batch (Q, T) of term ids (-1 = pad) and return
+the candidate documents of each query as a packed (Q, ceil(n_docs/32)) int32
 bitmap (uint32 bit patterns, bit d%32 of word d//32):
 
   * exhaustive — f_hat over every doc for every query term (Alg. 1)
+  * two_tier   — f_hat only on the union of the query's tier-1 lists, each
+                 term's list truncated to its k lowest doc ids (Alg. 2)
   * block      — f_hat only matters inside blocks that survive the per-term
                  block-bitmap AND (Alg. 3)
 
 Document scoring uses the learned-Bloom thresholds (no false negatives), so
-candidates are supersets of the exact answer; serve/shard.py re-checks them
-against the exact tier-2 store.  Invalid (-1) terms act as all-ones and an
-all-pad query matches nothing.
+candidates are supersets of the exact answer (for two_tier only where the
+tier-1 lists cover it: ``two_tier_guaranteed``); serve/shard.py re-checks
+them against the exact tier-2 store.  Invalid (-1) terms act as all-ones
+and an all-pad query matches nothing.
 
 On a CUDA device Algorithm 3 makes two launches: the f(t, ·) scan of every
 valid (query, term) slot on one ``membership`` launch, then the block AND,
 the AND over each query's terms and the block mask on one ``bitset``
-launch (``block_candidates``); on the CPU the same wrappers run their plain
-versions.  Algorithm 2 (two-tier)
-belongs to a later slice of the port.
+launch (``block_candidates``).  Algorithm 2 is one ``two_tier`` launch
+(``two_tier_candidates``): the tier-1 union and its f_hat test, with the
+membership kernel's dot product, so its candidates are Algorithm 1's ANDed
+with the union, bit for bit.  On the CPU the same wrappers run their plain
+versions.  The (n_terms, k) tier-1 table reaches the device at the first
+two-tier call, not when the state is built.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from repro_torch.core.membership import MembershipModel
-from repro_torch.index.build import InvertedIndex, block_lists
+from repro_torch.index.build import InvertedIndex, block_lists, truncate_index
 from repro_torch.kernels.bitset.kernel import block_candidates
 from repro_torch.kernels.cuda import staging
 from repro_torch.kernels.membership.kernel import membership_bitmask
 from repro_torch.kernels.membership.ref import LANE
+from repro_torch.kernels.two_tier.kernel import two_tier_candidates
 
 
 @dataclass
@@ -43,29 +50,69 @@ class EngineState:
     tau: torch.Tensor  # (n_terms,) float32 per-term zero-FN thresholds
     n_docs: int
     block_size: int
+    truncation_k: int
+    tier1_len: torch.Tensor  # (n_terms,) int32 entries of each tier-1 list
+    dfs: np.ndarray  # (n_terms,) int32 local document frequencies
     block_bitmaps: torch.Tensor  # (n_terms, words) int32 (uint32 bit patterns)
     n_blocks: int
+    inv: InvertedIndex = field(repr=False)  # the index the tier-1 lists are cut from
+    _tier1: torch.Tensor | None = field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
         return self.tau.device
 
+    @property
+    def tier1_bits(self) -> int:
+        """Bits of the (n_terms, k) int32 tier-1 table, resident or not."""
+        return int(len(self.dfs) * self.truncation_k * 32)
+
+    @property
+    def tier1(self) -> torch.Tensor:
+        """(n_terms, k) int32: row t = the k lowest doc ids of term t, padded
+        with n_docs; built and moved to the device on first use."""
+        if self._tier1 is None:
+            self._tier1 = tier1_table(self.inv, self.truncation_k, self.device)
+        return self._tier1
+
+
+def tier1_table(inv: InvertedIndex, k: int, device: torch.device) -> torch.Tensor:
+    """(n_terms, k) int32 table of the truncated lists, padded with n_docs,
+    built on ``device``: only the truncated lists cross from the host, and
+    each lands in its row's first entries."""
+    tr = truncate_index(inv, k)
+    lens = torch.from_numpy(np.diff(tr.term_offsets)).to(device)
+    starts = torch.from_numpy(np.asarray(tr.term_offsets[:-1])).to(device)
+    table = torch.full((inv.n_terms, k), inv.n_docs, dtype=torch.int32, device=device)
+    rows = torch.repeat_interleave(torch.arange(inv.n_terms, device=device), lens)
+    cols = torch.arange(len(tr.doc_ids), device=device) - torch.repeat_interleave(starts, lens)
+    table[rows, cols] = torch.from_numpy(tr.doc_ids).to(device)
+    return table
+
 
 def build_engine(
-    model: MembershipModel, tau: torch.Tensor, inv: InvertedIndex, *, block_size: int
+    model: MembershipModel, tau: torch.Tensor, inv: InvertedIndex, *, truncation_k: int,
+    block_size: int,
 ) -> EngineState:
     if block_size % LANE:
         # block_query expands surviving blocks a packed word at a time
         raise ValueError(f"block_size {block_size} is not a multiple of {LANE}")
+    if truncation_k < 1:
+        raise ValueError(f"truncation_k {truncation_k} < 1")
     dev = tau.device
     bitmaps, n_blocks = block_lists(inv, block_size)
+    dfs = inv.dfs.astype(np.int32)
     return EngineState(
         model=model,
         tau=tau,
         n_docs=inv.n_docs,
         block_size=block_size,
+        truncation_k=truncation_k,
+        tier1_len=torch.from_numpy(np.minimum(dfs, truncation_k)).to(dev),
+        dfs=dfs,
         block_bitmaps=torch.from_numpy(bitmaps.view(np.int32)).to(dev),
         n_blocks=n_blocks,
+        inv=inv,
     )
 
 
@@ -105,6 +152,45 @@ def _and_terms(rows: torch.Tensor, queries: np.ndarray) -> torch.Tensor:
 def exhaustive_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     """(Q, T) padded queries -> (Q, words) packed candidate bitmap."""
     return _and_terms(_term_rows(state, queries), queries)
+
+
+# ---------------------------------------------------------------- Algorithm 2
+@torch.no_grad()
+def _f_hat_docs(state: EngineState, terms: torch.Tensor, doc_ids: torch.Tensor) -> torch.Tensor:
+    """(T,) terms x (D',) docs -> (T, D') thresholded membership."""
+    te = state.model.term_embed.weight[terms]
+    de = state.model.doc_embed.weight[doc_ids]
+    return te @ de.T + state.model.bias >= state.tau[terms][:, None]
+
+
+@torch.no_grad()
+def two_tier_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
+    """(Q, T) -> (Q, words) packed candidates: the union of the query's
+    valid tier-1 lists, kept where f_hat holds for every valid term.  One
+    ``two_tier`` launch on the resident tier-1 table."""
+    valid = queries >= 0
+    lens = np.where(valid, np.minimum(state.dfs[np.maximum(queries, 0)], state.truncation_k), 0)
+    return two_tier_candidates(
+        state.tier1, state.tier1_len,
+        torch.from_numpy(np.ascontiguousarray(queries)).to(state.device),
+        state.model.term_embed.weight.detach(), state.model.doc_embed.weight.detach(),
+        state.tau, float(state.model.bias),
+        max_candidates=int(lens.sum(axis=1).max()) if len(lens) else 0)
+
+
+def two_tier_guaranteed(dfs: np.ndarray, queries: np.ndarray, k: int, *, with_model: bool
+                        ) -> np.ndarray:
+    """Fig-3 correctness guarantee per query -> (Q,) bool.
+
+    with model:   ≥1 term has a complete tier-1 list (df ≤ k)     (paper §3.2)
+    without:      ALL terms must have complete lists.
+    """
+    queries = np.asarray(queries)
+    valid = queries >= 0
+    complete = np.asarray(dfs)[np.maximum(queries, 0)] <= k
+    if with_model:
+        return (complete & valid).any(axis=1)
+    return (complete | ~valid).all(axis=1) & valid.any(axis=1)
 
 
 # ---------------------------------------------------------------- Algorithm 3
@@ -152,4 +238,6 @@ def run_queries(state: EngineState, queries: np.ndarray, algorithm: str) -> torc
         return exhaustive_query(state, queries)
     if algorithm == "block":
         return block_query(state, queries)
-    raise ValueError(f"unknown algorithm {algorithm!r} (two_tier is not ported yet)")
+    if algorithm == "two_tier":
+        return two_tier_query(state, queries)
+    raise ValueError(f"unknown algorithm {algorithm!r}")

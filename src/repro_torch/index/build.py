@@ -85,6 +85,22 @@ def slice_index(inv: InvertedIndex, lo: int, hi: int) -> InvertedIndex:
     )
 
 
+def truncate_index(inv: InvertedIndex, k: int) -> InvertedIndex:
+    """Tier-1 index: every posting list truncated to its first k entries.
+
+    The paper makes no assumption about *which* k entries are kept (§3.2);
+    as the reference does, the k lowest doc ids are kept.  One vectorized
+    gather: entry j of term t's truncated list is entry j of its full list.
+    """
+    keep = np.minimum(inv.dfs, k)
+    offsets = np.zeros(inv.n_terms + 1, dtype=np.int64)
+    np.cumsum(keep, out=offsets[1:])
+    rank = np.arange(int(offsets[-1]), dtype=np.int64) - np.repeat(offsets[:-1], keep)
+    src = np.repeat(np.asarray(inv.term_offsets[:-1], np.int64), keep) + rank
+    doc_ids = np.asarray(inv.doc_ids)[src].astype(np.int32)
+    return InvertedIndex(inv.n_docs, inv.n_terms, offsets, doc_ids)
+
+
 def block_lists(inv: InvertedIndex, block_size: int) -> tuple[np.ndarray, np.ndarray]:
     """Per-term block bitmaps for Algorithm 3, packed into uint32 words.
 

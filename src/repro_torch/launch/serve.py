@@ -2,16 +2,25 @@
 
 Builds a synthetic collection, trains the membership model briefly, fits
 zero-FN thresholds, and serves batched conjunctive queries through
-``BooleanEngine.query_batch`` — Algorithm 3 candidates on the device, exact
-verification against the compressed tier-2 store — asserting exactness
-against brute force.  Then, unless ``--topk 0``, it serves a batch of Zipf
-OR queries through ``BooleanEngine.query_topk`` (multi-phase MaxScore, or
+``BooleanEngine.query_batch`` — learned-Bloom candidates on the device
+(``--algorithm``: Algorithm 3 ``block`` by default, Algorithm 2
+``two_tier`` with tier-1 lists of ``--k`` entries, or Algorithm 1
+``exhaustive``), exact verification against the compressed tier-2 store —
+asserting the results against brute force: every result exact, and for
+``two_tier`` every query that ``two_tier_guaranteed`` covers on every
+active shard exact and every other result a subset of the exact one (the
+paper's §3.2 guarantee).  ``--index-dir DIR`` saves the sharded index
+(index/store.py, the layout the reference reads) and serves from the
+reloaded store.  Then, unless ``--topk 0``, it serves a batch of Zipf OR
+queries through ``BooleanEngine.query_topk`` (multi-phase MaxScore, or
 ``--fused`` for the fused_topk kernel and the dense arena loop) and asserts
 the ranked results equal brute-force quantized BM25.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 64
   PYTHONPATH=src python -m repro_torch.launch.serve --shards 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --topk 10 --fused
+  PYTHONPATH=src python -m repro_torch.launch.serve --algorithm two_tier --shards 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --shards 4 --index-dir /tmp/idx
 """
 from __future__ import annotations
 
@@ -23,13 +32,13 @@ import torch
 
 from repro_torch.common.config import CorpusConfig, LearnedIndexConfig, OptimizerConfig
 from repro_torch.common.device import resolve_device
-from repro_torch.core import MembershipModel, fit_thresholds, membership_loss
+from repro_torch.core import MembershipModel, fit_thresholds, membership_loss, two_tier_guaranteed
 from repro_torch.core.learned_bloom import false_negative_rate
 from repro_torch.data.corpus import Corpus, synthesize_corpus
 from repro_torch.data.loader import membership_batches
 from repro_torch.data.queries import brute_force_answers, sample_queries, zipf_disjunctions
 from repro_torch.index.build import InvertedIndex, build_inverted_index
-from repro_torch.rank.score import brute_force_topk
+from repro_torch.rank.score import ImpactModel, brute_force_topk
 from repro_torch.serve import BooleanEngine, RankedConfig, ServeConfig
 from repro_torch.train import init_train_state, make_train_step
 
@@ -72,7 +81,7 @@ def train_membership(
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--algorithm", default="block", choices=["exhaustive", "block"])
+    ap.add_argument("--algorithm", default="block", choices=["exhaustive", "two_tier", "block"])
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--docs", type=int, default=2000)
     ap.add_argument("--terms", type=int, default=8000)
@@ -82,6 +91,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--no-verify", action="store_true")
     ap.add_argument("--shards", type=int, default=1,
                     help="document partitions served by the planner/executor")
+    ap.add_argument("--index-dir", default=None,
+                    help="persist the sharded index here, then serve from the "
+                         "reloaded store (build-then-serve round trip)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain PyTorch versions)")
     ap.add_argument("--topk", type=int, default=10,
@@ -110,6 +122,14 @@ def main(argv: list[str] | None = None) -> None:
                                   topk_exhaustive_cutoff=0 if args.fused
                                   else RankedConfig.topk_exhaustive_cutoff))
     eng = BooleanEngine(lb, inv, li_cfg, cfg)
+    if args.index_dir:
+        t0 = time.time()
+        eng.save(args.index_dir)
+        save_s = time.time() - t0
+        t0 = time.time()
+        eng = BooleanEngine.from_store(lb, li_cfg, cfg, args.index_dir)
+        print(f"[serve] index saved to {args.index_dir} in {save_s:.2f}s, "
+              f"reloaded in {time.time() - t0:.2f}s — serving from the store")
     print(f"[serve] {len(eng.shards)} active shard(s), ranges {eng._ranges}, device {dev}")
 
     q = sample_queries(corpus, args.queries, seed=3)
@@ -123,9 +143,12 @@ def main(argv: list[str] | None = None) -> None:
           f"included), exact={n_exact}/{args.queries}, superset={n_super}/{args.queries}")
     print("[serve] memory report (bits):", eng.memory_report())
     if not args.no_verify:
-        if n_exact != args.queries:
+        if args.algorithm == "two_tier":
+            check_two_tier(eng, q, results, exact, li_cfg.truncation_k)
+        elif n_exact != args.queries:
             raise SystemExit("verified mode must be exact")
-        print("[serve] verified mode: all results exact")
+        else:
+            print("[serve] verified mode: all results exact")
     s = eng.serving_stats()
     c, g = s["decode_cache"], s["guided"] or {}
     print(f"[serve] cache {c['hits']}h/{c['misses']}m/{c['evictions']}e, "
@@ -136,7 +159,8 @@ def main(argv: list[str] | None = None) -> None:
         t0 = time.time()
         ranked = eng.query_topk(ranked_q, args.topk)
         dt = (time.time() - t0) / args.queries * 1e3
-        oracle = brute_force_topk(inv, eng.impact_model, ranked_q, args.topk)
+        im = eng.impact_model or ImpactModel.build(inv)  # a loaded store fits none
+        oracle = brute_force_topk(inv, im, ranked_q, args.topk)
         ok = all(
             np.array_equal(r.ids, e.ids) and np.array_equal(r.scores, e.scores)
             for r, e in zip(ranked, oracle)
@@ -149,6 +173,24 @@ def main(argv: list[str] | None = None) -> None:
         print("[serve] ranked stats:", rs)
         if not ok:
             raise SystemExit("ranked serving must match brute-force BM25")
+
+
+def check_two_tier(eng: BooleanEngine, q: np.ndarray, results, exact, k: int) -> np.ndarray:
+    """The paper's §3.2 guarantee for verified two-tier results: a query
+    whose tier-1 lists cover it on every active shard (each shard truncates
+    its own local lists) is exact, every other result a subset of the
+    exact one.  Raises otherwise -> the (Q,) guaranteed mask."""
+    guar = np.ones(len(q), bool)
+    for sh in eng.shards:
+        guar &= two_tier_guaranteed(sh.state.dfs, q, k, with_model=True)
+    for i, (r, e) in enumerate(zip(results, exact)):
+        if guar[i] and not np.array_equal(r, e):
+            raise SystemExit(f"two_tier: guaranteed query {i} is not exact")
+        if not np.isin(r, e).all():
+            raise SystemExit(f"two_tier: query {i} returned a doc outside the exact answer")
+    print(f"[serve] two_tier: {int(guar.sum())}/{len(q)} queries guaranteed on every shard "
+          f"and exact, every result a subset of the exact one")
+    return guar
 
 
 if __name__ == "__main__":

@@ -147,7 +147,9 @@ class HybridPostings:
     lens: np.ndarray  # (n_terms,) int64 list lengths
     tags: np.ndarray  # (n_terms,) uint8 index into CANDIDATES
     bits: np.ndarray  # (n_terms,) int64 measured size incl. TAG_BITS
-    streams: list[np.ndarray]  # per-term uint32 word streams (tag-prefixed)
+    # per-term uint32 word streams (tag-prefixed): a list when built here, a
+    # lazy view of one memmapped array when loaded (index/store.StreamArena)
+    streams: list[np.ndarray]
     # ------- optional ranked-tier payloads (attach_payloads)
     payload_bits: int = 0  # quantized-impact width; 0 = no payloads
     payload_scale: float = 0.0  # dequant scale (ImpactModel.scale)
@@ -243,13 +245,22 @@ class HybridPostings:
             starts = _segment_starts(self.streams[t], int(self.tags[t]), n)
             seg_ubs.append(np.maximum.reduceat(q, starts).astype(np.uint32))
             ub_offsets[t + 1] = ub_offsets[t] + len(starts)
+        self.set_payloads(
+            streams, bits=bits, scale=scale, ub_offsets=ub_offsets,
+            seg_ubs=np.concatenate(seg_ubs) if seg_ubs else np.zeros(0, np.uint32),
+        )
+
+    def set_payloads(self, streams, *, bits: int, scale: float, ub_offsets: np.ndarray,
+                     seg_ubs: np.ndarray) -> None:
+        """Take packed payload streams as they are: ``attach_payloads``'
+        output, or a loaded store's arrays (index/store.py), where
+        ``streams`` is a lazy view of one memmapped word array and the
+        offsets and bounds are read-only memmaps."""
         self.payload_bits = int(bits)
         self.payload_scale = float(scale)
         self.payload_streams = streams
         self.ub_offsets = ub_offsets
-        self.seg_ubs = (
-            np.concatenate(seg_ubs) if seg_ubs else np.zeros(0, np.uint32)
-        )
+        self.seg_ubs = seg_ubs
         self.term_ubs = None  # rebuild the derived cache lazily
 
     def _require_payloads(self) -> None:

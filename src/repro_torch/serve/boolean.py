@@ -17,7 +17,10 @@ The paper's system in deployable form, in three layers:
      per-query sorted doc-id arrays.
 
 ``BooleanEngine`` is the thin facade over all three.  K=1 reproduces the
-unsharded engine bit-for-bit.
+unsharded engine bit-for-bit; engines can also start from the persistent
+shard-store (index/store.py) via ``from_store`` — no re-encoding, stream
+bytes page in lazily via mmap — and ``save`` writes one, in the layout the
+reference reads.
 
 ``query_topk`` is the ranked path over the same shards: the planner dedupes
 terms and computes per-shard run masks, each ShardEngine returns its local
@@ -27,8 +30,8 @@ the facade folds shard heaps in ascending doc-range order, forwarding the
 running k-th best score as the next shard's pruning floor.  Scores are
 integer quantized-impact sums with ties broken by ascending doc id, so the
 merged top-k is bit-identical for K=1 and any K>1 — and to the brute-force
-BM25 oracle (rank.score.brute_force_topk).  The reference's store
-persistence and metrics registry belong to later slices of the port.
+BM25 oracle (rank.score.brute_force_topk).  The reference's metrics
+registry belongs to a later slice of the port.
 """
 from __future__ import annotations
 
@@ -36,13 +39,14 @@ import numpy as np
 
 from repro_torch.common.config import LearnedIndexConfig
 from repro_torch.core.learned_bloom import LearnedBloom
+from repro_torch.index import store
 from repro_torch.index.build import InvertedIndex
 from repro_torch.postings.search import ProbeStats
 from repro_torch.rank.score import BM25Params, ImpactModel, TopKResult, select_topk
 from repro_torch.rank.topk import RankedStats
 from repro_torch.serve.config import RankedConfig, ServeConfig
 from repro_torch.serve.planner import plan_batch, plan_ranked, ranked_run_mask
-from repro_torch.serve.shard import WORD_BITS, ShardEngine, shard_ranges, unpack_row
+from repro_torch.serve.shard import WORD_BITS, ShardEngine, shard_ranges, slice_bloom, unpack_row
 
 __all__ = ["BooleanEngine", "RankedConfig", "ServeConfig"]
 
@@ -53,9 +57,11 @@ class BooleanEngine:
     def __init__(
         self,
         lb: LearnedBloom,
-        inv: InvertedIndex,
+        inv: InvertedIndex | None,
         li_cfg: LearnedIndexConfig,
         cfg: ServeConfig | None = None,
+        *,
+        shards: list[tuple[tuple[int, int], ShardEngine | None]] | None = None,
     ):
         self.cfg = cfg or ServeConfig()
         self.lb = lb
@@ -65,6 +71,7 @@ class BooleanEngine:
         self._impact_model = None
         can_rank = (
             self.cfg.ranked.enabled
+            and inv is not None
             and inv.tfs is not None
             and self.cfg.postings_store == "hybrid"
         )
@@ -72,15 +79,24 @@ class BooleanEngine:
         # O(n_postings) float64 pass that Boolean-only serving never needs,
         # so it runs at first ranked use (ensure_payloads), not construction
         provider = self._build_impact_model if can_rank else None
-        self._ranges = shard_ranges(inv.n_docs, self.cfg.n_shards)
-        self._shards = [
-            ShardEngine.from_range(lb, inv, li_cfg, self.cfg, lo, hi, impact_model=provider)
-            if hi > lo else None
-            for lo, hi in self._ranges
-        ]
-        for sid, sh in enumerate(self.shards):
+        if shards is None:
+            if inv is None:
+                raise ValueError("need an InvertedIndex (or prebuilt shards)")
+            shards = [
+                ((lo, hi),
+                 ShardEngine.from_range(lb, inv, li_cfg, self.cfg, lo, hi, impact_model=provider)
+                 if hi > lo else None)
+                for lo, hi in shard_ranges(inv.n_docs, self.cfg.n_shards)
+            ]
+        self._ranges = [r for r, _ in shards]
+        self._shards = [s for _, s in shards]
+        active = self.shards
+        for sid, sh in enumerate(active):
             sh.shard_id = sid
-        self._global_dfs = inv.dfs
+        if inv is not None:
+            self._global_dfs = inv.dfs
+        else:
+            self._global_dfs = sum((s.local_dfs for s in active), start=0)
 
     def _build_impact_model(self) -> ImpactModel:
         """Fit (once) the collection-global quantizer: every shard's payload
@@ -94,8 +110,49 @@ class BooleanEngine:
     @property
     def impact_model(self) -> ImpactModel | None:
         """The fitted global quantizer, or None before the first ranked use
-        (and for engines that cannot rank: no tfs or a raw store)."""
+        (and for engines that cannot rank from live arrays: no tfs, a raw
+        store, or a loaded store, whose payloads carry their own scale)."""
         return self._impact_model
+
+    @classmethod
+    def from_store(
+        cls,
+        lb: LearnedBloom,
+        li_cfg: LearnedIndexConfig,
+        cfg: ServeConfig | None,
+        index_dir: str,
+        *,
+        mmap: bool = True,
+    ) -> "BooleanEngine":
+        """Start from a persistent shard-store: no re-encoding, lazy streams.
+        Ranked serving reads the store's payloads, scale and width."""
+        cfg = cfg or ServeConfig()
+        n_docs, entries = store.load_sharded(index_dir, mmap=mmap)
+        if n_docs != lb.n_docs:
+            raise ValueError(f"store has {n_docs} docs, model {lb.n_docs}")
+        shards = [
+            ((lo, hi),
+             ShardEngine(slice_bloom(lb, lo, hi), inv, li_cfg, cfg, lo=lo, hi=hi, tier2=tier2)
+             if inv is not None else None)
+            for (lo, hi), inv, tier2 in entries
+        ]
+        return cls(lb, None, li_cfg, cfg, shards=shards)
+
+    def save(self, index_dir: str) -> None:
+        """Persist every shard's index + compressed store (build-then-serve).
+
+        Forces the tier-2 builds and the payloads first, so the saved layout
+        is complete and carries the ranked tier; a reloaded engine never
+        re-encodes."""
+        if self.cfg.postings_store != "hybrid":
+            raise ValueError("only the hybrid postings store is persistable")
+        for sh in self.shards:
+            sh.ensure_payloads()
+        entries = [
+            ((lo, hi), sh.inv if sh else None, sh.tier2 if sh else None)
+            for (lo, hi), sh in zip(self._ranges, self._shards)
+        ]
+        store.save_sharded(index_dir, self.n_docs, entries)
 
     # ------------------------------------------------------------- shards
     @property
@@ -208,15 +265,17 @@ class BooleanEngine:
     # ------------------------------------------------------------- stats
     def memory_report(self) -> dict[str, int]:
         """Bits used by each component (feeds the Eq.(2) comparison);
-        block-bitmap and tier-2 bits summed over shards."""
+        dense-state and tier-2 bits summed over shards."""
         report = {
             "model_bits": self.lb.size_bits(),
+            "tier1_bits": 0,
             "block_bitmap_bits": 0,
             "backup_bits": int(self.lb.backup_keys.size * 64),
         }
         tier2_bits = payload_bits = None
         for sh in self.shards:
             bits = sh.memory_bits()
+            report["tier1_bits"] += bits["tier1_bits"]
             report["block_bitmap_bits"] += bits["block_bitmap_bits"]
             if "tier2_bits" in bits:
                 tier2_bits = (tier2_bits or 0) + bits["tier2_bits"]

@@ -35,7 +35,7 @@ class RankedConfig:
 
 @dataclass
 class ServeConfig:
-    algorithm: str = "block"  # 'block' (Algorithm 3) | 'exhaustive' (Algorithm 1)
+    algorithm: str = "block"  # 'block' (Alg. 3) | 'two_tier' (Alg. 2) | 'exhaustive' (Alg. 1)
     verified: bool = True  # re-check candidates exactly against tier-2
     use_kernel: bool = False  # accepted for parity; see module doc
     max_query_terms: int = 8

@@ -158,7 +158,10 @@ class ShardEngine:
         self._reads: list[int] | None = None
         self._batch_depth = 0
         self.prefetch_stats = PrefetchStats()
-        self.state = alg.build_engine(lb.model, lb.tau, inv, block_size=li_cfg.block_size)
+        self.state = alg.build_engine(
+            lb.model, lb.tau, inv,
+            truncation_k=li_cfg.truncation_k, block_size=li_cfg.block_size,
+        )
 
     @classmethod
     def from_range(
@@ -504,8 +507,12 @@ class ShardEngine:
 
     # ------------------------------------------------------------- stats
     def memory_bits(self) -> dict[str, int]:
-        """This shard's block-bitmap + tier-2 bits (facade sums across shards)."""
-        bits = {"block_bitmap_bits": int(self.state.block_bitmaps.numel() * 32)}
+        """This shard's dense-state + tier-2 bits (facade sums across shards);
+        the tier-1 table counts whether or not it is resident yet."""
+        bits = {
+            "tier1_bits": self.state.tier1_bits,
+            "block_bitmap_bits": int(self.state.block_bitmaps.numel() * 32),
+        }
         if self._tier2 is not None:
             bits["tier2_bits"] = int(self._tier2.size_bits())
             if self._tier2.has_payloads:

@@ -158,13 +158,13 @@ def _queries(corpus):
     return np.pad(q, ((0, 0), (0, 2)), constant_values=-1)
 
 
-@pytest.mark.parametrize("algorithm", ["block", "exhaustive"])
+@pytest.mark.parametrize("algorithm", ["block", "exhaustive", "two_tier"])
 def test_candidate_masks_match_reference(tiny, algorithm):
     corpus, _, params_np = tiny
     inv = build_inverted_index(corpus)
     model = params_from_jax(params_np, device="cpu")
     tau = fit_thresholds(model, inv).tau  # both engines get the same thresholds
-    state = alg.build_engine(model, tau, inv, block_size=64)
+    state = alg.build_engine(model, tau, inv, truncation_k=16, block_size=64)
     tau = tau.numpy()
     ref_state = ref_alg.build_engine(_ref_params(params_np), tau, inv,
                                      truncation_k=16, block_size=64)
@@ -180,9 +180,13 @@ def test_candidate_masks_match_reference(tiny, algorithm):
     for i, d in np.argwhere(got.astype(bool) != want):
         terms = q[i][q[i] >= 0]
         assert (np.abs(logits[terms, d] - tau[terms]) <= margin[terms]).any(), (i, d)
-    # zero false negatives: every exact answer is a candidate
+    # zero false negatives: every exact answer is a candidate (for two_tier,
+    # of the queries whose tier-1 lists cover their answers)
+    covered = (alg.two_tier_guaranteed(state.dfs, q, 16, with_model=True)
+               if algorithm == "two_tier" else np.ones(len(q), bool))
+    assert covered.sum() > 2
     for i, ans in enumerate(brute_force_answers(corpus, q)):
-        assert got[i, ans].all()
+        assert got[i, ans].all() or not covered[i]
 
 
 @pytest.mark.parametrize("block_size", [32, 128])
@@ -199,7 +203,7 @@ def test_block_step_matches_reference_block_query(tiny, block_size):
     inv = build_inverted_index(corpus)
     model = params_from_jax(params_np, device="cpu")
     tau = fit_thresholds(model, inv).tau
-    state = alg.build_engine(model, tau, inv, block_size=block_size)
+    state = alg.build_engine(model, tau, inv, truncation_k=16, block_size=block_size)
     ref_state = ref_alg.build_engine(_ref_params(params_np), tau.numpy(), inv,
                                      truncation_k=16, block_size=block_size)
     q = _queries(corpus)
@@ -247,10 +251,13 @@ ranked = {"repro_torch.rank.score", "repro_torch.rank.topk", "repro_torch.kernel
           "repro_torch.kernels.pfor.ops", "repro_torch.kernels.bm25_score.ops",
           "repro_torch.kernels.fused_query.ops", "repro_torch.kernels.fused_query.dense"}
 assert ranked <= set(mods), ranked - set(mods)
+two_tier = {"repro_torch.index.store", "repro_torch.index.intersect",
+            "repro_torch.kernels.two_tier.kernel", "repro_torch.kernels.two_tier.ref"}
+assert two_tier <= set(mods), two_tier - set(mods)
 print(len(mods))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) > 45
+    assert int(out.stdout.strip()) > 48

@@ -10,9 +10,10 @@ Each decides inside the test whether a card exists and skips without one
 Bitset words and counts, probe verdicts, decoded ids and overflow flags,
 integer and float BM25 scores and fused top-k ids and scores must be exactly
 equal;
-membership bits may differ only where the logit lies within
-NUMERIC_MARGIN * (1 + |tau|) of tau, since the two float32 products sum in
-different orders.
+membership and two_tier bits may differ from their plain versions only
+where the logit lies within NUMERIC_MARGIN * (1 + |tau|) of tau, since the
+float32 products sum in different orders; two_tier equals membership's
+candidates ANDed with the tier-1 union exactly (the same sequential FMAs).
 
 ``pfor_blocks``, ``pfor_lists``, ``plm_batch``, ``fused_tiles`` and
 ``block_step`` make the inputs that tests/test_torch_kernels.py and
@@ -41,6 +42,8 @@ from repro_torch.kernels.membership.ref import membership_bitmask_ref
 from repro_torch.kernels.plm_decode.kernel import decode_batch
 from repro_torch.kernels.plm_decode.ops import decode_lists as plm_decode_lists
 from repro_torch.kernels.plm_decode.ref import decode_ref
+from repro_torch.kernels.two_tier.kernel import KERNEL as TWO_TIER, two_tier_candidates
+from repro_torch.kernels.two_tier.ref import tier1_union, two_tier_ref
 from repro_torch.postings.plm import plm_encode
 from repro_torch.postings.rmi import rmi_encode
 
@@ -549,3 +552,102 @@ def test_dense_loop_on_card_matches_cpu():
         got = dense_impl(_t(table).to(dev), _t(qt).to(dev), _t(floors).to(dev), k=k)
         want = dense_impl(_t(table), _t(qt), _t(floors), k=k)
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def two_tier_inputs(rng, Q, T, E, n_terms=300, k=50, D=5000):
+    """Inputs of Algorithm 2's candidate step -> numpy (tier1 (n_terms, k)
+    padded with D, tier1_len, queries (Q, T), term_embed, doc_embed, tau)
+    and the float64 logits.  Query 0 is all pad, query 1 has one term,
+    query 2 repeats a term, query 3 holds a term whose list is empty;
+    every fifth term's list is empty; tau sits mid-logits, and for some
+    terms exactly on one."""
+    lens = rng.integers(1, k + 1, n_terms).astype(np.int32)
+    lens[::5] = 0
+    tier1 = np.full((n_terms, k), D, np.int32)
+    for t in range(n_terms):
+        tier1[t, : lens[t]] = np.sort(rng.choice(D, lens[t], replace=False))
+    queries = rng.integers(0, n_terms, (Q, T)).astype(np.int32)
+    queries[rng.random((Q, T)) < 0.4] = -1
+    queries[0] = -1
+    queries[1] = -1
+    queries[1, T // 2] = 7
+    queries[2, :2] = 11
+    queries[3, :2] = (10, 12)  # term 10's list is empty
+    te = (rng.standard_normal((n_terms, E)) * 0.5).astype(np.float32)
+    de = (rng.standard_normal((D, E)) * 0.5).astype(np.float32)
+    logits = te.astype(np.float64) @ de.astype(np.float64).T + 0.05
+    tau = np.quantile(logits, 0.3, axis=1).astype(np.float32)
+    on = rng.choice(n_terms, n_terms // 4, replace=False)
+    tau[on] = logits[on, rng.integers(0, D, len(on))].astype(np.float32)
+    return (tier1, lens, queries, te, de, tau), logits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,T,E", [(37, 8, 128), (128, 8, 16), (5, 3, 50), (70, 64, 33)])
+def test_two_tier_kernel_matches_plain_on_card(Q, T, E):
+    """Ragged Q, an all-pad query, a one-term query, a repeated term, an
+    empty list, E off a multiple of 4 (4-byte loads) and 64 slots; the grid
+    sized from the candidate count or one CTA per query (the grid-stride
+    loop); bits past D never set."""
+    dev = _card()
+    rng = np.random.default_rng(Q * T + E)
+    arrays, logits = two_tier_inputs(rng, Q, T, E)
+    args = [_t(a).to(dev) for a in arrays]
+    want = two_tier_ref(*args, 0.05).cpu().numpy().view(np.uint32)
+    for hint in (None, 1):
+        got = two_tier_candidates(*args, 0.05, max_candidates=hint)
+        got = got.cpu().numpy().view(np.uint32)
+        assert got.shape == want.shape == (Q, -(-5000 // 32))
+        differ = np.unpackbits((got ^ want).view(np.uint8), axis=-1, bitorder="little")[:, :5000]
+        queries, tau = arrays[2], arrays[5]
+        for i, d in np.argwhere(differ):
+            terms = queries[i][queries[i] >= 0]
+            assert (np.abs(logits[terms, d] - tau[terms])
+                    <= NUMERIC_MARGIN * (1 + np.abs(tau[terms]))).any(), (i, d)
+        assert not got[0].any() and got[1].any() and got.any()
+        assert (got[:, -1] >> np.uint32(5000 % 32)).max() == 0
+
+
+@pytest.mark.cuda
+def test_two_tier_is_exhaustive_and_tier1_union_on_card():
+    """The f_hat identity: on the card, Algorithm 2's candidates are
+    Algorithm 1's (the membership kernel) ANDed with the tier-1 union, word
+    for word, with one two_tier launch for the batch."""
+    from repro_torch.common.config import CorpusConfig
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.learned_bloom import fit_thresholds
+    from repro_torch.core.membership import params_from_jax
+    from repro_torch.data.corpus import synthesize_corpus
+    from repro_torch.data.queries import sample_queries
+    from repro_torch.index.build import build_inverted_index
+    from repro_torch.kernels.membership.ref import pack_bool_words
+
+    dev = _card()
+    corpus = synthesize_corpus(CorpusConfig(n_docs=3000, n_terms=4000, avg_doc_len=60, seed=3))
+    inv = build_inverted_index(corpus)
+    rng = np.random.default_rng(4)
+    params = {"term_embed": {"table": (rng.standard_normal((4000, 64)) * 0.2).astype(np.float32)},
+              "doc_embed": {"table": (rng.standard_normal((3000, 64)) * 0.2).astype(np.float32)},
+              "bias": np.float32(0.1)}
+    lb = fit_thresholds(params_from_jax(params, device=dev), inv)
+    state = alg.build_engine(lb.model, lb.tau, inv, truncation_k=40, block_size=128)
+    q = np.pad(sample_queries(corpus, 100, seed=5), ((0, 0), (0, 2)), constant_values=-1)
+    q[0] = -1
+    before = TWO_TIER.launches
+    got = alg.run_queries(state, q, "two_tier")
+    assert TWO_TIER.launches == before + 1
+    union = pack_bool_words(tier1_union(state.tier1, state.tier1_len, _t(q).to(dev), 3000))
+    want = alg.run_queries(state, q, "exhaustive") & union
+    assert torch.equal(got, want) and got.any() and not got[0].any()
+
+
+@pytest.mark.cuda
+def test_two_tier_bitmap_zeroed_by_graph_replay():
+    """The launch zeroes its bitmap before the atomicOr pass, so two CUDA
+    graph replays give the same words."""
+    dev = _card()
+    arrays, _ = two_tier_inputs(np.random.default_rng(8), 64, 8, 128)
+    args = [_t(a).to(dev) for a in arrays]
+    want = two_tier_candidates(*args, 0.05)
+    for out in _replays(lambda: two_tier_candidates(*args, 0.05)):
+        assert torch.equal(out, want)

@@ -69,9 +69,7 @@ def test_query_batch_bit_identical_to_reference_and_brute_force(system, k):
     assert np.array_equal(eng.query_batch_bitmap(q), ref.query_batch_bitmap(q))
     stats = eng.serving_stats()
     assert stats["guided"]["probes"] > 0 and len(stats["shards"]) == k
-    mem, ref_mem = eng.memory_report(), ref.memory_report()
-    for key in ("model_bits", "block_bitmap_bits", "tier2_bits", "backup_bits"):
-        assert mem[key] == ref_mem[key], key
+    assert eng.memory_report() == ref.memory_report()
 
 
 @pytest.mark.parametrize("cfg", [
