@@ -9,7 +9,7 @@ It needs a CUDA card, ``nvcc`` and the repository checkout it lives in; it
 exits non-zero without a result when either is missing.  It prints the
 card's name and power limit first, then one JSON line per phase:
 
-  build  the eight kernels compiled from ``src/repro_torch/kernels/csrc``
+  build  the nine kernels compiled from ``src/repro_torch/kernels/csrc``
   A      the main path at Robust scale: corpus, inverted index, 300 training
          steps of the membership model, zero-false-negative thresholds, then
          128 conjunctive queries through ``BooleanEngine.query_batch`` at one
@@ -71,20 +71,26 @@ card's name and power limit first, then one JSON line per phase:
          with 4-byte loads); two_tier on the batch S gave it with the most
          candidates and on its largest inputs (the bits may differ only
          within the margin of tau; its plain version reads a count back,
-         so its plain time is eager); the time of one dense arena pass
+         so its plain time is eager); dense_topk on phase R's largest dense
+         pass and on a synthetic arena at the caps (131,072 docs, 511 terms, 64
+         queries, k = 10 and 32), its plain version the PyTorch peel loop
   A_block
          Algorithm 3's candidate step on one of A's K=1 batches, after C
          (its calls are all at that shape): its time (``block_query_ms``),
          launches and device memory allocated per call (one membership and one bitset launch and less than a
          (Q*T, words) tensor, asserted where the package has the fused
          ``block_candidates``)
+  C_dense
+         phase C's dense_topk rows and the dense passes of phases A to S
+         (one dense_topk launch a pass, asserted in phase R)
 
 then the ``kernels`` line (launch counts from phases A, B, R and S, times,
 bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero.  ``--phases`` runs a subset (R and D
 need A; S needs A and R; C needs A, B and R; A_block runs with A), ``--src``
 drives the package of another checkout (phases A, A_block, B, R and D only
-need what every version of the port has),
+need what every version of the port has; S and C need Algorithm 2's kernel,
+and C times dense_topk only in a package that has it),
 so that two versions can be compared on one card in one call.
 """
 from __future__ import annotations
@@ -698,6 +704,11 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
           required=req)
     if eng_s.shards[0].ranked.arena is None or c_or["dense_passes"] == 0:
         raise AssertionError("the dense arena path did not run on the small collection")
+    for name in ("c_small", "c_small_mixed"):  # a package whose dense pass is a kernel:
+        n = runs[name]["launches"].get("dense_topk")  # one launch a pass
+        if n is not None and n != runs[name]["dense_passes"]:
+            raise AssertionError(f"{name}: {n} dense_topk launches for "
+                                 f"{runs[name]['dense_passes']} dense passes")
     keep["dense_arena"] = eng_s.shards[0].ranked.arena
     return {
         "phase": "R",
@@ -1081,6 +1092,7 @@ def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
     plm_row(rec.inputs["plm_decode"], "largest")
     plm_row(single_plm_list(rec.inputs["plm_decode"][0].device), "single_list")
     phase_c_ranked(rec, row, keep)
+    dense_rows(rec, row)
     if "two_tier" in rec.inputs:  # phase S ran
         two_tier_row(rec.inputs["two_tier"], rec.kwargs["two_tier"], row, "largest")
         two_tier_row(*rec.second["two_tier"], row, "most_candidates")
@@ -1256,29 +1268,51 @@ def phase_c_ranked(rec: Recorder, row, keep: dict) -> None:
     fused_row(*rec.second["fused_topk"], "most_true_candidates")
 
 
-def dense_line(rec: Recorder) -> dict:
-    """The dense arena pass (the reference's XLA loop, PyTorch operations
-    here) on the largest batch phase R gave it: device time (graph replay)
-    and eager time against its byte bound, the table rows its true term
-    slots gather, read once, and the outputs."""
+def dense_rows(rec: Recorder, row) -> None:
+    """Phase C rows of dense_topk against its plain version (the PyTorch
+    peel loop the port ran before the kernel): on the largest batch phase R
+    gave it, and on a synthetic arena at the caps (131,072 docs, 511 terms,
+    a 64-query batch of 2 to 8 terms, k = 10 and 32).  Ids, scores and
+    rounds must be equal.  The bound counts the table rows the true (non-pad)
+    slots gather, read once, the (Q, T) ids, the floors and the outputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.fused_query import ref
     from repro_torch.kernels.fused_query.dense import dense_impl
 
-    table, qt, floors = rec.inputs["dense"]
-    kw = rec.kwargs["dense"]
-    slots = int((qt >= 0).sum())
-    need = slots * table.shape[1] * table.element_size() + 8 * qt.shape[0] * kw["k"]
-    out = {
-        "phase": "C_dense", "name": "dense_topk",
-        "replaces": "src/repro/kernels/fused_query/dense.py:67 (XLA, not Pallas)",
-        "route": "pytorch ops", "source": "src/repro_torch/kernels/fused_query/dense.py",
-        "shape": {"Q": int(qt.shape[0]), "T": int(qt.shape[1]), "docs": int(table.shape[1]),
-                  "true_slots": slots, "k": kw["k"]},
-        "ms": graph_ms(lambda: dense_impl(table, qt, floors, **kw)),
-        "eager_ms": cuda_ms(lambda: dense_impl(table, qt, floors, **kw)),
-        "bound_ms": need / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-    }
-    log(f"[C] {out}")
-    return out
+    if not hasattr(ref, "dense_ref"):  # a package whose dense pass is PyTorch operations
+        return
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.fused_query.ref import dense_ref
+
+    def one(table, qt, floors, k, case):
+        got, want = dense_impl(table, qt, floors, k=k), dense_ref(table, qt, floors, k=k)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"dense_topk ({case}) differs from its plain version")
+        Q, T = qt.shape
+        slots = int((qt >= 0).sum())
+        need = slots * table.shape[1] * table.element_size() + 4 * Q * T + 4 * Q + 8 * Q * k + 8
+        row("dense_topk", "src/repro/kernels/fused_query/dense.py:67 (XLA, not Pallas)",
+            lambda: dense_impl(table, qt, floors, k=k), lambda: dense_ref(table, qt, floors, k=k),
+            0.0, need, 0,
+            extra={"case": case, "shape": {"Q": Q, "T": T, "docs": int(table.shape[1]),
+                                          "terms": int(table.shape[0] - 1), "true_slots": slots,
+                                          "k": k, "rounds": int(got[2]),
+                                          "hits": int((got[1] > 0).sum())}})
+
+    table, qt, floors = rec.inputs["dense_topk"]
+    one(table, qt, floors, rec.kwargs["dense_topk"]["k"], "phase_r")
+    dev = table.device
+    arena = autotune._synthetic_arena(1 << 17, 511, 2048, seed=R_SEED, device=dev)
+    batch = autotune._workload(511, (64,), 8, seed=R_SEED + 1)[0]
+    qt = np.full((64, 8), -1, np.int32)
+    for i, ts in enumerate(batch):
+        qt[i, : len(ts)] = ts
+    qt = torch.from_numpy(qt).to(dev)
+    floors = torch.zeros(64, dtype=torch.int32, device=dev)
+    for k in (10, 32):
+        one(arena.table, qt, floors, k, f"cap_k{k}")
 
 
 def main() -> int:
@@ -1333,6 +1367,8 @@ def main() -> int:
 
     kernels = {"membership": MEMBERSHIP, "bitset": BITSET, "guided_search": GUIDED,
                "plm_decode": DECODE, "pfor": PFOR, "bm25_score": BM25, "fused_topk": FUSED}
+    if hasattr(dense, "KERNEL"):  # a package whose dense pass is a kernel
+        kernels["dense_topk"] = dense.KERNEL
     if "S" in phases:  # a package with Algorithm 2's kernel
         from repro_torch.kernels.two_tier.kernel import KERNEL as TWO_TIER
 
@@ -1353,7 +1389,7 @@ def main() -> int:
         rec.wrap(pfor_ops, "pfor_decode", "pfor")
         rec.wrap(bm25_ops, "score_batch", "bm25_score")
         rec.wrap(fused_ops, "fused_topk", "fused_topk", true_candidates)
-        rec.wrap(dense, "dense_impl", "dense")
+        rec.wrap(dense, "dense_impl", "dense_topk")
         if "S" in phases:
             rec.wrap(algorithms, "two_tier_candidates", "two_tier", candidate_total)
     clock = DecodeClock()
@@ -1362,7 +1398,7 @@ def main() -> int:
     def launches() -> dict[str, int]:
         return {n: k.launches for n, k in kernels.items()}
 
-    counts, keep = {}, {"kernels": kernels}
+    counts, passes, keep = {}, {}, {"kernels": kernels}
     for name, run in (("A", lambda: phase_a(args, dev, launches, clock, keep)),
                       ("B", lambda: phase_b(dev, launches)),
                       ("R", lambda: phase_r(dev, launches, clock, keep)),
@@ -1375,7 +1411,7 @@ def main() -> int:
         result = run()
         counts[name] = launches()
         result["launches"] = counts[name]
-        result["dense_passes"] = dense.launches
+        result["dense_passes"] = passes[name] = dense.launches
         emit(result)
     total = {n: sum(c[n] for c in counts.values()) for n in kernels}
     missing = [n for n, c in total.items() if c == 0]
@@ -1383,10 +1419,10 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on phases A, B, R and S: {missing}")
     for phase, names in (("A", ("membership", "bitset", "pfor")),
                          ("B", ("guided_search", "plm_decode")),
-                         ("R", ("pfor", "bm25_score", "fused_topk")),
+                         ("R", ("pfor", "bm25_score", "fused_topk", "dense_topk")),
                          ("S", ("membership", "bitset", "pfor", "bm25_score", "two_tier"))):
         for n in names:
-            if phase in counts and counts[phase][n] == 0:
+            if phase in counts and n in counts[phase] and counts[phase][n] == 0:
                 raise AssertionError(f"{n} did not launch on its path (phase {phase})")
 
     if "D" in phases:
@@ -1398,7 +1434,8 @@ def main() -> int:
         emit(block_step(algorithms, kernels, keep))
     if rows is not None:
         emit({"phase": "C", "kernels": [r["name"] for r in rows], "launches": total})
-        emit(dense_line(rec))
+        emit({"phase": "C_dense", "rows": [r for r in rows if r["name"] == "dense_topk"],
+              "dense_passes": sum(passes.values())})
         emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

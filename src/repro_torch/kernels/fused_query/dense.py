@@ -1,81 +1,107 @@
 """Dense ranked scoring over a shard's resident impact table.
 
 The reference runs this loop as one jitted XLA program (a gather-sum plus a
-``lax.while_loop`` of argmax peels), not as a Pallas kernel; the port runs
-the same steps as PyTorch operations on the table's device:
-
-  1. gather — each query row gathers its T term rows from the resident
-     (n_terms + 1, n_docs) impact table (padded slots hit the all-zero pad
-     row) and sums over the term axis into a (Q, n_docs) int32 accumulator;
-  2. θ-peel — k rounds, each one masked argmax per row (``torch.argmax``
-     returns the first maximum, so ties go to the smaller doc id, the
-     oracle's order), the peeled cell zeroed in place.  ``rounds`` is the
-     round count of the reference's loop, which stops once no row can still
-     beat its floor.
+``lax.while_loop`` of argmax peels), not as a Pallas kernel.  The port runs
+it as one hand-written kernel, csrc/dense_topk.cu: each query row's top k by
+(score desc, id asc) among docs whose summed impact beats max(floor, 0) —
+what k argmax peels with first-maximum ties pick — with no (Q, n_docs)
+accumulator in device memory.  ``dense_impl`` launches it on a CUDA table
+and runs the plain version (``ref.dense_ref``, the peel loop as PyTorch
+operations) on a CPU table.
 
 Exactness: the dense sum over term rows equals the host merge's posting
 sums (integer adds, order-free), per-row floors mask exactly
-``score > max(floor, 0)`` (the ``select_topk`` rule), and the argmax tie
-discipline matches the oracle's (score desc, id asc).
+``score > max(floor, 0)`` (the ``select_topk`` rule), and the tie order is
+the oracle's (score desc, id asc).
 
-Rows and term slots are padded to the reference's default quanta (8 rows,
-4 slots, each times 2^j), so both packages hand the same shapes to the loop.
+Rows and term slots are padded to power-of-two multiples of the tile quanta
+(``tile_params``: 8 rows and 4 slots unless ``set_tile_params`` or the
+autotuner, kernels.autotune, changed them), the reference's defaults, so
+both packages hand the same shapes to the pass.  ``observed_shapes()`` lists
+the (n_docs, Q, T, k) shapes this process has dispatched.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-NEVER = 1 << 30  # empty heap-slot sentinel
+from repro_torch.kernels.cuda import I, P, CudaKernel, check
+from repro_torch.kernels.fused_query.ref import NEVER, dense_ref  # NEVER: the empty-slot id
 
-# the peel loop costs one (Q, n_docs) scan per round: past this k the
-# bucketed kernel path wins, so the bridge routes large-k items there
+# the reference's cap (past it its peel loop loses to the bucketed path),
+# and the kernel's own: a CTA's top keys are sorted by one warp, a key a
+# lane, so k <= 32; the bridge routes larger k to the bucketed path
 DENSE_MAX_K = 32
 
-ROW_QUANTUM = 8
-TERM_QUANTUM = 4
+KERNEL = CudaKernel("dense_topk", "dense_topk_launch", [P, I, I, I, P, P, I, I, I, P, P, P, P, P])
+CHUNK = 4096  # docs one CTA of csrc/dense_topk.cu scores
+MAX_CHUNKS = 128  # CTAs a row (the merge copies the row's lists into 48 KB of shared memory)
+MAX_ROWS = 65535
+_ELEM_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}  # DeviceArena's table dtypes
+
+# shape-bucket quanta: power-of-two multiples bound the shape count; the
+# autotuner (kernels.autotune) may retune these per device
+_ROW_QUANTUM = 8
+_TERM_QUANTUM = 4
+
+# static shapes this process has dispatched: (n_docs, Q, T, k)
+_SHAPES: set[tuple[int, int, int, int]] = set()
 
 launches = 0  # dense passes issued (one per dense_topk call)
 
 
-def dense_impl(table: torch.Tensor, qt: torch.Tensor, floors: torch.Tensor, *, k: int):
-    """(n_terms+1, n_docs) table, (Q, T) int term ids (-1 = pad), (Q,) floors
-    -> ((Q, k) int32 ids (NEVER where empty), (Q, k) int32 scores, rounds),
-    all three tensors on the table's device.
+def tile_params() -> dict[str, int]:
+    return {"row_quantum": _ROW_QUANTUM, "term_quantum": _TERM_QUANTUM}
 
-    Every one of the k rounds runs, with no host sync in between, so the
-    pass queues on the device and returns at once.  The reference's loop
-    stops after the first round in which no row hits; every later round
-    would find nothing either (only cells at or below the floor are left,
-    and zeroing one changes nothing), so the outputs are the same and
-    ``rounds`` is that round's number, computed on the device.
-    """
-    Q = qt.shape[0]
+
+def set_tile_params(row_quantum: int | None = None, term_quantum: int | None = None) -> None:
+    global _ROW_QUANTUM, _TERM_QUANTUM
+    if row_quantum is not None:
+        _ROW_QUANTUM = max(1, int(row_quantum))
+    if term_quantum is not None:
+        _TERM_QUANTUM = max(1, int(term_quantum))
+
+
+def dense_impl(table: torch.Tensor, qt: torch.Tensor, floors: torch.Tensor, *, k: int):
+    """(n_terms+1, n_docs) table, (Q, T) int32 term ids (-1 = pad), (Q,)
+    int32 floors -> ((Q, k) int32 ids (NEVER where empty), (Q, k) int32
+    scores, 0-d int64 rounds), all three on the table's device.
+
+    ``rounds`` is the reference loop's round count: with H the most hits a
+    row has (at most k), H + 1 when H < k, else k, and 0 when k = 0.  On a
+    card the pass is one ``dense_topk`` launch and returns before the
+    kernel has run."""
     dev = table.device
-    n_pad = table.shape[0] - 1  # all-zero pad row
-    t = torch.where(qt >= 0, qt, n_pad).to(torch.int64)
-    scores = table[t].to(torch.int32).sum(dim=1, dtype=torch.int32)  # (Q, n_docs)
-    fl = floors.clamp(min=0)[:, None]  # select_topk's > floor rule
-    rows = torch.arange(Q, device=dev)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    out_i = torch.full((Q, k), NEVER, dtype=torch.int32, device=dev)
-    out_s = torch.zeros((Q, k), dtype=torch.int32, device=dev)
-    any_hit = []
-    for j in range(k):
-        elig = torch.where(scores > fl, scores, 0)
-        best = torch.argmax(elig, dim=1)  # first max: the smaller doc id
-        val = elig[rows, best]
-        hit = val > 0
-        out_i[:, j] = torch.where(hit, best.to(torch.int32), NEVER)
-        out_s[:, j] = torch.where(hit, val, 0)
-        # zero the peeled cell in place; a missed row zeroes an ineligible
-        # cell (best = 0 with every score <= floor), which changes nothing
-        scores[rows, best] = zero
-        any_hit.append(hit.any())
-    if k == 0:
-        return out_i, out_s, torch.zeros((), dtype=torch.int64, device=dev)
-    miss = ~torch.stack(any_hit)
-    rounds = torch.where(miss.any(), torch.argmax(miss.to(torch.int32)) + 1, k)
+    if dev.type == "cpu":
+        return dense_ref(table, qt, floors, k=k)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_impl: unsupported device {dev}")
+    if table.dtype not in _ELEM_BYTES:
+        raise TypeError(f"table has dtype {table.dtype}, expected one of {list(_ELEM_BYTES)}")
+    check(table, "table", table.dtype, 2, dev)
+    check(qt, "qt", torch.int32, 2, dev)
+    check(floors, "floors", torch.int32, 1, dev)
+    Q, T = qt.shape
+    n_rows, n_docs = table.shape
+    S = -(-n_docs // CHUNK)
+    if floors.shape[0] != Q or not 0 < S <= MAX_CHUNKS or Q > MAX_ROWS or not 0 <= k <= DENSE_MAX_K:
+        raise ValueError(f"table {tuple(table.shape)}, qt {tuple(qt.shape)}, "
+                         f"floors {tuple(floors.shape)}, k={k}: need Q <= {MAX_ROWS} floors, "
+                         f"0 < n_docs <= {CHUNK * MAX_CHUNKS} and 0 <= k <= {DENSE_MAX_K}")
+    if Q == 0 or k == 0:  # the reference's loop: no round when k = 0, else one empty round
+        return (torch.empty((Q, k), dtype=torch.int32, device=dev),
+                torch.empty((Q, k), dtype=torch.int32, device=dev),
+                torch.full((), 1 if k else 0, dtype=torch.int64, device=dev))
+    # one int64 buffer: rounds; each CTA's sorted top-k keys; the per-row
+    # arrival counts, the most hits of any row and the rows merged (int32,
+    # zeroed by the launch).  One int32 buffer: the ids, then the scores.
+    n_lists = Q * S * k
+    scratch = torch.empty(1 + n_lists + (Q + 3) // 2, dtype=torch.int64, device=dev)
+    rounds, lists, counts = scratch[0], scratch[1:1 + n_lists], scratch[1 + n_lists:]
+    out_i, out_s = torch.empty((2, Q, k), dtype=torch.int32, device=dev)
+    KERNEL.launch(table.data_ptr(), _ELEM_BYTES[table.dtype], n_rows, n_docs, qt.data_ptr(),
+                  floors.data_ptr(), Q, T, k, lists.data_ptr(), counts.data_ptr(),
+                  out_i.data_ptr(), out_s.data_ptr(), rounds.data_ptr())
     return out_i, out_s, rounds
 
 
@@ -84,9 +110,16 @@ def dense_topk(arena, qt: np.ndarray, floors: np.ndarray, *, k: int):
     tensors on the arena's device, still being computed when it returns."""
     global launches
     dev = arena.table.device
+    Q, T = qt.shape
+    _SHAPES.add((arena.n_docs, Q, T, int(k)))
     launches += 1
     arena.counters.hits += 1
     return dense_impl(
         arena.table, torch.from_numpy(np.ascontiguousarray(qt, np.int32)).to(dev),
         torch.from_numpy(np.ascontiguousarray(floors, np.int32)).to(dev), k=int(k),
     )
+
+
+def observed_shapes() -> list[tuple[int, int, int, int]]:
+    """Static shapes dispatched by this process: (n_docs, Q, T, k)."""
+    return sorted(_SHAPES)

@@ -35,8 +35,8 @@ a power of two from 1 (most windows resolve to a single lane).
 
 When the shard carries a ``DeviceArena`` (kernels.arena), items without
 required terms and with k <= DENSE_MAX_K skip the host peel entirely: the
-whole scoring loop — gather, sum, θ-peel — runs as PyTorch operations on the
-resident impact table (kernels.fused_query.dense).  Dense groups are issued
+whole scoring loop — gather, sum, top-k — runs as one ``dense_topk`` launch
+on the resident impact table (kernels.fused_query.dense).  Dense groups are issued
 first and their outputs copied back only at merge time, so the card works on
 them while the host peels and packs the other items.
 """
@@ -353,13 +353,14 @@ def _dispatch_dense(arena, dense_items, stats):
     Returns in-flight handles (device tensors still being computed); the
     caller copies them back at merge time.
     """
+    tp = dense.tile_params()
     groups: dict[int, list] = {}
     for it in dense_items:
         groups.setdefault(_bucket(it[2], 1), []).append(it)
     inflight = []
     for kb, grp in sorted(groups.items()):
-        Qb = _bucket(len(grp), dense.ROW_QUANTUM)
-        T = _bucket(max(len(tt) for _, tt, _, _ in grp), dense.TERM_QUANTUM)
+        Qb = _bucket(len(grp), tp["row_quantum"])
+        T = _bucket(max(len(tt) for _, tt, _, _ in grp), tp["term_quantum"])
         qt = np.full((Qb, T), -1, np.int32)
         floors = np.zeros(Qb, np.int32)
         for row, (_, tt, _, fl) in enumerate(grp):

@@ -13,8 +13,11 @@ KERNEL = CudaKernel("two_tier", "two_tier_launch", [P, I, P, P, I, P, P, I, P, F
 MAX_TERMS = 64  # query slots the kernel keeps in shared memory
 MAX_GRID_Y = 65535
 THREADS = 256
-PER_THREAD = 2  # candidate positions a thread takes, at the grid width chosen here
+PER_THREAD = 4  # candidate positions a thread takes, at the grid width chosen here
 MAX_SMEM = 227 << 10
+# shared memory beside the term rows: the 8 warps' staging tiles (32 rows
+# of 36 floats) and, rounded up, their queues and the slot tables
+OTHER_SMEM = 8 * 32 * 36 * 4 + (4 << 10)
 
 
 def two_tier_candidates(
@@ -51,9 +54,9 @@ def two_tier_candidates(
         raise ValueError(f"shapes tier1 {tuple(tier1.shape)}, tier1_len {tuple(tier1_len.shape)}, "
                          f"tau {tuple(tau.shape)}, term_embed {tuple(term_embed.shape)}, "
                          f"doc_embed {tuple(doc_embed.shape)}")
-    if T > MAX_TERMS or Q > MAX_GRID_Y or 4 * T * E > MAX_SMEM:
+    if T > MAX_TERMS or Q > MAX_GRID_Y or 16 * -(-T * E // 4) + OTHER_SMEM > MAX_SMEM:
         raise ValueError(f"(Q, T, E) = {(Q, T, E)} exceeds the kernel's {MAX_GRID_Y} queries, "
-                         f"{MAX_TERMS} slots and {MAX_SMEM} bytes of term rows")
+                         f"{MAX_TERMS} slots and {MAX_SMEM} bytes of shared memory")
     words = -(-D // 32)
     span = T * k if max_candidates is None else min(int(max_candidates), T * k)
     grid_x = max(1, -(-span // (THREADS * PER_THREAD)))

@@ -252,8 +252,12 @@ ranked = {"repro_torch.rank.score", "repro_torch.rank.topk", "repro_torch.kernel
           "repro_torch.kernels.fused_query.ops", "repro_torch.kernels.fused_query.dense"}
 assert ranked <= set(mods), ranked - set(mods)
 two_tier = {"repro_torch.index.store", "repro_torch.index.intersect",
-            "repro_torch.kernels.two_tier.kernel", "repro_torch.kernels.two_tier.ref"}
+            "repro_torch.kernels.two_tier.kernel", "repro_torch.kernels.two_tier.ref",
+            "repro_torch.kernels.two_tier.bench"}
 assert two_tier <= set(mods), two_tier - set(mods)
+tuned = {"repro_torch.kernels.autotune", "repro_torch.kernels.fused_query.dense",
+         "repro_torch.kernels.fused_query.ref"}
+assert tuned <= set(mods), tuned - set(mods)
 print(len(mods))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

@@ -29,7 +29,7 @@ from repro_torch.kernels.bm25_score.kernel import score_batch
 from repro_torch.kernels.bm25_score.ref import score_ref
 from repro_torch.kernels.fused_query.dense import dense_impl
 from repro_torch.kernels.fused_query.kernel import fused_topk
-from repro_torch.kernels.fused_query.ref import NEVER, fused_topk_ref
+from repro_torch.kernels.fused_query.ref import NEVER, dense_ref, fused_topk_ref
 from repro_torch.kernels.pfor.kernel import pfor_decode
 from repro_torch.kernels.pfor.ops import decode_lists as pfor_decode_lists
 from repro_torch.kernels.pfor.ref import pfor_decode_ref
@@ -536,22 +536,84 @@ def test_fused_topk_kernel_matches_plain_on_card(shape):
         assert (gs[0, :n] == 3).all() and (gi[0, 1:n] > gi[0, : n - 1]).all()
 
 
+def dense_inputs(rng, n_docs, n_terms=300, Q=64, T=8, density=0.05, high=4, dtype=np.uint8):
+    """A dense pass's inputs -> numpy (table, qt, floors): impacts in
+    [1, high) (ties everywhere at high=4), -1 pads, floors in 0..5; row 0 is
+    all pad, row 1's floor nothing beats, row 2 reads one term that every doc
+    holds at 2 (an all-tied row), row 3 repeats a term."""
+    table = np.zeros((n_terms + 1, n_docs), dtype)
+    mask = rng.random((n_terms, n_docs)) < density
+    table[:n_terms][mask] = rng.integers(1, high, int(mask.sum()))
+    table[n_terms - 1] = 2
+    qt = rng.integers(-1, n_terms - 1, (Q, T)).astype(np.int32)
+    floors = rng.integers(0, 6, Q).astype(np.int32)
+    qt[0] = -1
+    floors[1] = 1 << 30
+    qt[2] = -1
+    qt[2, T // 2] = n_terms - 1
+    floors[2] = 0
+    qt[3, :2] = qt[3, 2]
+    return table, qt, floors
+
+
 @pytest.mark.cuda
 def test_dense_loop_on_card_matches_cpu():
-    """The dense arena loop is PyTorch operations, not a kernel: the same
-    inputs must give the same ids, scores and rounds on the card as on the
-    CPU (torch.argmax returns the first maximum on both)."""
+    """The dense pass's kernel (dense_impl on a CUDA table) against its plain
+    version on the same card and on the CPU: ids, scores and rounds equal,
+    one dense_topk launch a pass."""
+    from repro_torch.kernels.fused_query.dense import KERNEL as DENSE
+
     dev = _card()
-    rng = np.random.default_rng(9)
-    table = np.zeros((301, 5000), np.uint8)
-    mask = rng.random((300, 5000)) < 0.05
-    table[:300][mask] = rng.integers(1, 4, int(mask.sum()))
-    qt = rng.integers(-1, 300, (64, 8)).astype(np.int32)
-    floors = rng.integers(0, 6, 64).astype(np.int32)
+    table, qt, floors = dense_inputs(np.random.default_rng(9), 5000)
+    args = [_t(a).to(dev) for a in (table, qt, floors)]
     for k in (1, 16, 32):
-        got = dense_impl(_t(table).to(dev), _t(qt).to(dev), _t(floors).to(dev), k=k)
-        want = dense_impl(_t(table), _t(qt), _t(floors), k=k)
-        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        before = DENSE.launches
+        got = dense_impl(*args, k=k)
+        assert DENSE.launches == before + 1
+        want = dense_ref(*args, k=k)
+        cpu = dense_ref(_t(table), _t(qt), _t(floors), k=k)
+        assert all(torch.equal(g, w) and torch.equal(g.cpu(), c) for g, w, c in zip(got, want, cpu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_docs,n_terms,dtype,high", [
+    (5000, 300, np.uint8, 4),
+    (131_072, 511, np.uint8, 4),      # the arena's caps: 32 chunks a row, 16-byte loads
+    (3 * 4096 + 1, 300, np.uint8, 4),  # one doc past a chunk edge; rows off 16 bytes
+    (100_003, 200, np.uint8, 200),     # odd width, wide scores: 4-byte loads, long s* search
+    (8192, 300, np.int16, 4),
+    (4100, 100, np.int32, 1 << 20),
+], ids=["5000", "cap", "chunk+1", "odd-wide", "int16", "int32"])
+@pytest.mark.parametrize("k", [1, 16, 32])
+def test_dense_topk_kernel_matches_plain_on_card(n_docs, n_terms, dtype, high, k):
+    dev = _card()
+    rng = np.random.default_rng(n_docs + k)
+    table, qt, floors = dense_inputs(rng, n_docs, n_terms, dtype=dtype, high=high)
+    args = [_t(a).to(dev) for a in (table, qt, floors)]
+    got, want = dense_impl(*args, k=k), dense_ref(*args, k=k)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    ids, scores = got[0].cpu().numpy(), got[1].cpu().numpy()
+    assert (ids[0] == NEVER).all() and (ids[1] == NEVER).all()
+    assert np.array_equal(ids[2], np.arange(k)) and (scores[2] == 2).all()
+    assert int(got[2]) == k  # the tied row fills every slot
+
+
+@pytest.mark.cuda
+def test_dense_topk_counters_zeroed_by_graph_replay():
+    """The launch zeroes its arrival counters and the batch's hit maximum,
+    so two CUDA-graph replays give the plain version's ids, scores and
+    rounds."""
+    dev = _card()
+    table, qt, floors = dense_inputs(np.random.default_rng(10), 20_000, density=0.0001)
+    args = [_t(a).to(dev) for a in (table, qt, floors)]
+    qt_sparse = args[1].clone()
+    qt_sparse[2] = -1  # no tied row: every row runs out before k
+    for q in (args[1], qt_sparse):
+        want = dense_ref(args[0], q, args[2], k=32)
+        for i, part in enumerate(want):
+            for out in _replays(lambda: dense_impl(args[0], q, args[2], k=32)[i]):
+                assert torch.equal(out, part)
+    assert int(dense_ref(args[0], qt_sparse, args[2], k=32)[2]) < 32
 
 
 def two_tier_inputs(rng, Q, T, E, n_terms=300, k=50, D=5000):
@@ -582,30 +644,60 @@ def two_tier_inputs(rng, Q, T, E, n_terms=300, k=50, D=5000):
     return (tier1, lens, queries, te, de, tau), logits
 
 
+def _check_two_tier(arrays, logits, got, want, D):
+    """got and want (numpy uint32 words) differ only where some valid
+    term's logit lies within the margin of its tau; bits past D are clear."""
+    Q = arrays[2].shape[0]
+    assert got.shape == want.shape == (Q, -(-D // 32))
+    differ = np.unpackbits((got ^ want).view(np.uint8), axis=-1, bitorder="little")[:, :D]
+    queries, tau = arrays[2], arrays[5]
+    for i, d in np.argwhere(differ):
+        terms = queries[i][queries[i] >= 0]
+        assert (np.abs(logits[terms, d] - tau[terms])
+                <= NUMERIC_MARGIN * (1 + np.abs(tau[terms]))).any(), (i, d)
+    if D % 32:
+        assert (got[:, -1] >> np.uint32(D % 32)).max() == 0
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,T,E", [(37, 8, 128), (128, 8, 16), (5, 3, 50), (70, 64, 33)])
-def test_two_tier_kernel_matches_plain_on_card(Q, T, E):
+@pytest.mark.parametrize("Q,T,E,D,k", [
+    (37, 8, 128, 5000, 50), (128, 8, 16, 5000, 50), (5, 3, 50, 5000, 50), (70, 64, 33, 5000, 50),
+    (40, 8, 128, 4099, 50),     # D = 3 mod 32
+    (40, 8, 132, 5000, 50),     # rows off a 512-byte stride
+    (24, 8, 128, 20_000, 2000),  # long lists: several CTAs a query
+])
+def test_two_tier_kernel_matches_plain_on_card(Q, T, E, D, k):
     """Ragged Q, an all-pad query, a one-term query, a repeated term, an
-    empty list, E off a multiple of 4 (4-byte loads) and 64 slots; the grid
-    sized from the candidate count or one CTA per query (the grid-stride
-    loop); bits past D never set."""
+    empty list, E off a multiple of 4 (4-byte loads) and 64 slots, D off a
+    multiple of 32, rows off a 512-byte stride, lists of 2,000 entries; the
+    grid sized from the candidate count or one CTA per query (the
+    grid-stride loop); bits past D never set."""
     dev = _card()
     rng = np.random.default_rng(Q * T + E)
-    arrays, logits = two_tier_inputs(rng, Q, T, E)
+    arrays, logits = two_tier_inputs(rng, Q, T, E, k=k, D=D)
     args = [_t(a).to(dev) for a in arrays]
     want = two_tier_ref(*args, 0.05).cpu().numpy().view(np.uint32)
     for hint in (None, 1):
         got = two_tier_candidates(*args, 0.05, max_candidates=hint)
         got = got.cpu().numpy().view(np.uint32)
-        assert got.shape == want.shape == (Q, -(-5000 // 32))
-        differ = np.unpackbits((got ^ want).view(np.uint8), axis=-1, bitorder="little")[:, :5000]
-        queries, tau = arrays[2], arrays[5]
-        for i, d in np.argwhere(differ):
-            terms = queries[i][queries[i] >= 0]
-            assert (np.abs(logits[terms, d] - tau[terms])
-                    <= NUMERIC_MARGIN * (1 + np.abs(tau[terms]))).any(), (i, d)
+        _check_two_tier(arrays, logits, got, want, D)
         assert not got[0].any() and got[1].any() and got.any()
-        assert (got[:, -1] >> np.uint32(5000 % 32)).max() == 0
+
+
+@pytest.mark.cuda
+def test_two_tier_large_shard_on_card():
+    """600,000 docs (a bitmap row of 18,750 words) and lists of up to 6,000
+    entries spread over the whole doc space; the grid sized from the
+    candidate count or one CTA per query."""
+    dev = _card()
+    D = 600_000
+    arrays, logits = two_tier_inputs(np.random.default_rng(12), 20, 8, 32, n_terms=60, k=6000, D=D)
+    args = [_t(a).to(dev) for a in arrays]
+    want = two_tier_ref(*args, 0.05).cpu().numpy().view(np.uint32)
+    for hint in (None, 1):
+        got = two_tier_candidates(*args, 0.05, max_candidates=hint).cpu().numpy().view(np.uint32)
+        _check_two_tier(arrays, logits, got, want, D)
+        assert got[:, : 9375].any() and got[:, 9375:].any()  # both halves of the docs
 
 
 @pytest.mark.cuda

@@ -4,7 +4,8 @@ Kernel level: the port's ``fused_topk`` (its plain version on the CPU) must
 equal the reference's ``fused_topk_ref`` and its Pallas ``fused_topk`` in
 interpret mode on the same tiles — with ties, an empty row, NEVER-padded
 candidates, garbage past each window's length and W > 1 — and the port's
-dense loop must equal the reference's ``_dense_impl``, rounds included.
+dense loop (its plain version ``dense_ref``) must equal the reference's
+``_dense_impl``, rounds included.
 
 Path level, on an index engineered so that plm wins the smooth lists (real
 ε-window lanes next to classical host-resolved lanes in one tile): the
@@ -32,6 +33,7 @@ from repro_torch.index.build import InvertedIndex
 from repro_torch.kernels.fused_query import ops as fused_ops
 from repro_torch.kernels.fused_query.dense import NEVER, dense_impl
 from repro_torch.kernels.fused_query.kernel import fused_topk
+from repro_torch.kernels.fused_query.ref import dense_ref
 from repro_torch.rank import RankedStats
 from repro_torch.rank.score import ImpactModel, brute_force_topk
 from repro_torch.serve import BooleanEngine, ServeConfig
@@ -68,25 +70,63 @@ def test_fused_topk_plain_matches_reference_and_pallas(shape):
         assert ((scores > 0).sum(1) == np.minimum(n_real, kw["k"])).all()
 
 
-@pytest.mark.parametrize("k,density", [(1, 0.1), (10, 0.1), (32, 0.1), (32, 0.004)],
-                         ids=["k1", "k10", "k32", "k32-runs-out"])
-def test_dense_loop_matches_reference(k, density):
+@pytest.mark.parametrize("k,density,ties", [
+    (0, 0.1, False), (1, 0.1, False), (10, 0.1, False), (32, 0.1, False), (32, 0.004, False),
+    (10, 0.1, True), (32, 0.1, True),
+], ids=["k0", "k1", "k10", "k32", "k32-runs-out", "k10-tied-row", "k32-tied-row"])
+def test_dense_loop_matches_reference(k, density, ties):
+    """The plain version ``dense_ref`` (what ``dense_impl`` runs on a CPU
+    table) against the reference's ``_dense_impl``: Q = 9 rows (not a
+    multiple of the row quantum), an all-pad row, a floor nothing beats,
+    impacts in 1..3 (ties everywhere) and, in the tied-row cases, a row whose
+    docs all score the same.  Then one ``dense_topk`` pass through each
+    package's arena: the same outputs and the same observed shape."""
+    from repro.kernels.arena import DeviceArena as RefDeviceArena
+    from repro.kernels.fused_query import dense as ref_dense
+    from repro_torch.kernels.arena import DeviceArena
+    from repro_torch.kernels.fused_query import dense
+
     rng = np.random.default_rng(k)
-    n_terms, n_docs = 40, 700
+    n_terms, n_docs, Q = 40, 700, 9
     table = np.zeros((n_terms + 1, n_docs), np.uint8)
     mask = rng.random((n_terms, n_docs)) < density
     table[:n_terms][mask] = rng.integers(1, 4, int(mask.sum()))  # ties everywhere
-    qt = rng.integers(-1, n_terms, (8, 4)).astype(np.int32)
+    qt = rng.integers(-1, n_terms, (Q, 4)).astype(np.int32)
     qt[5] = -1  # an all-pad row
-    floors = rng.integers(0, 5, 8).astype(np.int32)
+    floors = rng.integers(0, 5, Q).astype(np.int32)
     floors[2] = 1000  # nothing beats it
-    ids, scores, rounds = dense_impl(torch.from_numpy(table), torch.from_numpy(qt),
-                                     torch.from_numpy(floors), k=k)
+    if ties:  # every doc of row 8 scores 2
+        table[n_terms - 1] = 2
+        qt[8] = [n_terms - 1, -1, -1, -1]
+        floors[8] = 0
+    ids, scores, rounds = dense_ref(torch.from_numpy(table), torch.from_numpy(qt),
+                                    torch.from_numpy(floors), k=k)
+    if k == 0:  # the reference's loop body cannot be traced at k = 0 (its bridge never asks):
+        # the port gives what the loop defines, no slot and no round
+        with pytest.raises(IndexError):
+            ref_dense_impl(jnp.asarray(table), jnp.asarray(qt), jnp.asarray(floors), k=k)
+        assert ids.shape == scores.shape == (Q, 0) and int(rounds) == 0
+        return
     ri, rs, rr = ref_dense_impl(jnp.asarray(table), jnp.asarray(qt), jnp.asarray(floors), k=k)
     assert np.array_equal(ids.numpy(), np.asarray(ri))
     assert np.array_equal(scores.numpy(), np.asarray(rs)) and int(rounds) == int(rr)
-    assert (ids.numpy()[5] == NEVER).all()
+    assert ids.shape == (Q, k) and (ids.numpy()[5] == NEVER).all() and (ids.numpy()[2] == NEVER).all()
     assert (int(rounds) < k) == (density < 0.01)  # the sparse table stops the loop early
+    if ties:  # the first k doc ids, in order
+        assert np.array_equal(ids.numpy()[8], np.arange(k)) and (scores.numpy()[8] == 2).all()
+    di = dense_impl(torch.from_numpy(table), torch.from_numpy(qt), torch.from_numpy(floors), k=k)
+    assert all(torch.equal(a, b) for a, b in zip(di, (ids, scores, rounds)))
+
+    lens = (table[:n_terms] > 0).sum(1).astype(np.int64)
+    arena = DeviceArena(n_docs=n_docs, n_terms=n_terms, table=torch.from_numpy(table),
+                        host_lens=lens)
+    ref_arena = RefDeviceArena(n_docs=n_docs, n_terms=n_terms, table=jnp.asarray(table),
+                               host_lens=lens)
+    got = dense.dense_topk(arena, qt, floors, k=k)
+    want = ref_dense.dense_topk(ref_arena, qt, floors, k=k)
+    assert all(np.array_equal(np.asarray(g), np.asarray(w)) for g, w in zip(got, want))
+    assert (n_docs, Q, 4, k) in set(dense.observed_shapes()) & set(ref_dense.observed_shapes())
+    assert arena.counters.hits == ref_arena.counters.hits == 1
 
 
 # ------------------------------------------------------------ tiered index

@@ -268,3 +268,28 @@ def test_launcher_runs_two_tier_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "queries guaranteed on every shard and exact" in out
     assert "false-negative rate 0.0" in out
+
+
+def test_bench_batch_is_seeded_and_well_formed():
+    """The two_tier bench's synthetic batch: the same seed gives the same
+    arrays; each used term's tier-1 row holds its lowest ids, ascending and
+    under D, padded with D; the plain version's candidates are a proper,
+    nonempty subset of the tier-1 union."""
+    from repro_torch.kernels.two_tier.bench import synthetic_batch
+
+    shape = dict(D=3000, E=16, k=60, Q=12, T=8, n_terms=200)
+    (tier1, lens, queries, te, de, tau), bias = synthetic_batch(5, **shape)
+    again, bias2 = synthetic_batch(5, **shape)
+    assert bias == bias2 and all(np.array_equal(a, b) for a, b in
+                                 zip((tier1, lens, queries, te, de, tau), again))
+    used = np.unique(queries[queries >= 0])
+    assert len(used) and (lens[np.setdiff1d(np.arange(200), used)] == 0).all()
+    for t in used:
+        row = tier1[t, : lens[t]]
+        assert 0 < lens[t] <= 60 and (np.diff(row) > 0).all() and row.max() < 3000
+        assert (tier1[t, lens[t]:] == 3000).all()
+    args = [torch.from_numpy(a) for a in (tier1, lens, queries, te, de, tau)]
+    got = two_tier_ref(*args, bias).numpy().view(np.uint32)
+    bits = np.unpackbits(got.view(np.uint8), axis=-1, bitorder="little")[:, :3000].astype(bool)
+    union = tier1_union(args[0], args[1], args[2], 3000).numpy()
+    assert not (bits & ~union).any() and bits.any() and (bits.sum() < union.sum())
