@@ -74,6 +74,20 @@ card's name and power limit first, then one JSON line per phase:
          so its plain time is eager); dense_topk on phase R's largest dense
          pass and on a synthetic arena at the caps (131,072 docs, 511 terms, 64
          queries, k = 10 and 32), its plain version the PyTorch peel loop
+  Q      the continuous-batching scheduler (``serve.sched.Session``) on
+         phase A's K=4 engine with R's payloads: one spawned process
+         replica per shard (four workers on the card, each rebuilt from a
+         store saved under ``build/``, the kernels built once in this
+         process), then inline; A's 128 Boolean queries as single requests
+         from 4 client threads (a tenant each), then R's 64 ranked (a)
+         queries, all asserted equal to A's K=4 results and R's oracle, none
+         shed; wall seconds and requests/s, batches, the median autopsy,
+         per-tenant p50/p99 (``slo_report``), each worker's spawn seconds
+         (start to ready handshake; its device init and rebuild; warm replay)
+         and device MiB (``nvidia-smi``); a traced run (a pid lane per
+         worker, ``kernel.*`` spans in them, no nesting violation); a crash
+         (the next batch respawns the worker and is exact).  Its launch counts are this process's
+         (the inline pass); the workers' launches show as their spans
   A_block
          Algorithm 3's candidate step on one of A's K=1 batches, after C
          (its calls are all at that shape): its time (``block_query_ms``),
@@ -84,10 +98,10 @@ card's name and power limit first, then one JSON line per phase:
          phase C's dense_topk rows and the dense passes of phases A to S
          (one dense_topk launch a pass, asserted in phase R)
 
-then the ``kernels`` line (launch counts from phases A, B, R and S, times,
+then the ``kernels`` line (launch counts from phases A, B, R, S and Q, times,
 bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero.  ``--phases`` runs a subset (R and D
-need A; S needs A and R; C needs A, B and R; A_block runs with A), ``--src``
+need A; S and Q need A and R; C needs A, B and R; A_block runs with A), ``--src``
 drives the package of another checkout (phases A, A_block, B, R and D only
 need what every version of the port has; S and C need Algorithm 2's kernel,
 and C times dense_topk only in a package that has it),
@@ -129,6 +143,13 @@ WARMUP, ITERS = 3, 20
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def stats_of(eng) -> dict:
+    """The engine's metrics snapshot (``serving_stats()`` in a package that
+    predates the metrics registry)."""
+    metrics = getattr(eng, "metrics", None)
+    return metrics.snapshot() if metrics is not None else eng.serving_stats()
 
 
 def emit(obj: dict) -> None:
@@ -270,7 +291,7 @@ class DecodeClock:
         import torch
 
         def unread():  # lists the prefetch decoded and the batch never read
-            pre = eng.serving_stats().get("prefetch")
+            pre = stats_of(eng).get("prefetch")
             return None if pre is None else pre["unused"]
 
         calls, lists, secs, before, extra = (self.calls, self.lists, self.seconds,
@@ -427,7 +448,7 @@ def phase_a(args, dev, launches, clock: DecodeClock, keep: dict) -> dict:
             keep["state"] = eng.shards[0].state
             keep["queries"] = np.pad(q, ((0, 0), (0, pad)), constant_values=-1)
         keep.setdefault("engines", {})[k] = eng  # phase R serves ranked on them
-        stats = eng.serving_stats()
+        stats = stats_of(eng)
         shards[f"k{k}"] = {
             "launches_per_batch": per_batch,
             "codecs": eng.shards[0].tier2.codec_histogram(),
@@ -641,7 +662,7 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
         runs[name] = {
             "launches": {n: c - before[n] for n, c in launches().items()},
             "dense_passes": dense.launches - dense_before,
-            "ranked_stats": eng.serving_stats()["ranked"],
+            "ranked_stats": stats_of(eng)["ranked"],
             "decode": decode,
             "results": int(sum(len(r.ids) for r in got)),
         }
@@ -764,7 +785,7 @@ def phase_s(dev, launches, clock: DecodeClock, keep: dict) -> dict:
         before = launches()
         res, decode = clock.account(eng, launches, lambda: eng.query_batch(q))
         secs[name] = decode["batch_s"]
-        guided = eng.serving_stats()["guided"]
+        guided = stats_of(eng)["guided"]
         runs[name] = {"launches": {n: c - before[n] for n, c in launches().items()},
                       "decode": decode, "probes": guided["probes"] if guided else 0,
                       "results": int(sum(len(r) for r in res))}
@@ -799,7 +820,7 @@ def phase_s(dev, launches, clock: DecodeClock, keep: dict) -> dict:
         secs["ranked_a"] = decode["batch_s"]
         _check_topk(got, oracle, "S ranked (a) from the store")
         runs["ranked_a"] = {"launches": {n: c - before[n] for n, c in launches().items()},
-                            "decode": decode, "ranked_stats": eng_b.serving_stats()["ranked"]}
+                            "decode": decode, "ranked_stats": stats_of(eng_b)["ranked"]}
         log(f"[S] ranked_a: {runs['ranked_a']}")
         del eng_b
 
@@ -855,6 +876,197 @@ def phase_s(dev, launches, clock: DecodeClock, keep: dict) -> dict:
         "runs": runs,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
+
+
+def _smi(query: str) -> list[str]:
+    """Lines of ``nvidia-smi --query-<query> --format=csv,noheader``."""
+    return subprocess.run(["nvidia-smi", f"--query-{query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
+
+
+def _gpu_used_mib() -> float:
+    """The card's device memory in use, all processes, in MiB."""
+    return float(_smi("gpu=memory.used")[0].split()[0])
+
+
+def _median(xs):
+    import numpy as np
+
+    return float(np.median(xs)) if len(xs) else None
+
+
+def phase_q(dev, keep: dict) -> dict:
+    """The continuous-batching scheduler on the card: phase A's K=4 engine
+    with R's payloads behind ``Session``, first with one spawned process
+    replica per shard (four workers on the one card, each rebuilt from the
+    store), then inline.  A's 128 Boolean queries go in as single requests
+    from 4 client threads (a tenant each), then R's 64 ranked (a) queries;
+    every result is asserted equal to A's K=4 results and R's oracle, and
+    nothing may be shed.  One traced run (worker spans in a lane per worker,
+    kernel spans among them, nesting intact) and a crash check (a crashed
+    replica respawned by the next batch, which is bit-identical) follow."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch.obs import ProbeLog, Tracer, nesting_violations
+    from repro_torch.serve import QueryRequest, Session
+    from repro_torch.serve.sched.replica import ReplicaError
+
+    q, want = keep["batch"], keep["results"][4]
+    rq, oracle = keep["ranked"]
+    eng = keep["engines"][4]
+    rc = eng.cfg.ranked  # configuration (a), as phases R and S serve it
+    rc.score_kernel, rc.fused_kernel, rc.topk_exhaustive_cutoff = True, False, 2048
+    eng.cfg.sched.n_replicas = 1
+
+    def submit_all(s, rows, **kw):
+        """Each row one request, from 4 client threads (tenant = thread),
+        all submitted before any is awaited -> (outcomes, wall seconds)."""
+        outs = [None] * len(rows)
+        t0 = time.perf_counter()
+
+        def client(c):
+            futs = [(i, s.submit_async(QueryRequest(terms=rows[i], tenant=f"client{c}", **kw)))
+                    for i in range(c, len(rows), 4)]
+            for i, f in futs:
+                outs[i] = f.result(timeout=300)
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        shed = [o for o in outs if o is None or not o.ok]
+        if shed:
+            raise AssertionError(f"{len(shed)} requests not served: {shed[:3]}")
+        return outs, wall
+
+    def check(outs, name):
+        if len(outs) == len(want):
+            bad = [i for i, (o, w) in enumerate(zip(outs, want)) if not np.array_equal(o.ids, w)]
+        else:
+            bad = [i for i, (o, w) in enumerate(zip(outs, oracle))
+                   if not (np.array_equal(o.ids, w.ids) and np.array_equal(o.scores, w.scores))]
+        if bad:
+            raise AssertionError(f"Q {name}: {len(bad)} results differ, first {bad[:5]}")
+
+    def served(s, label):
+        eng.metrics.reset()
+        s.slo.reset()
+        outs, wall = submit_all(s, q)
+        check(outs, f"{label} boolean")
+        sched = eng.metrics.snapshot()["sched"]
+        routs, rwall = submit_all(s, rq, mode="ranked", k=R_TOPK)
+        check(routs, f"{label} ranked")
+        slo = s.slo_report()
+        auto = [o.autopsy() for o in outs]
+        run = {
+            "boolean_s": wall, "boolean_rps": len(q) / wall,
+            "ranked_s": rwall, "ranked_rps": len(rq) / rwall,
+            "batches": sched["batches"], "mean_batch": sched["batch_size"]["mean"],
+            "autopsy_median_us": {k: _median([a[k] for a in auto]) for k in
+                                  ("queue_us", "dispatch_us", "execute_us", "merge_us")},
+            "slo_ms": {t: {"p50": v["p50_ms"], "p99": v["p99_ms"], "requests": v["requests"]}
+                       for t, v in slo["tenants"].items()},
+            "shed": eng.metrics.snapshot()["sched"].get("shed", {}),
+        }
+        log(f"[Q] {label}: {run}")
+        return run
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    store = tempfile.mkdtemp(prefix="chip_smoke_sched_", dir=root)
+    out: dict = {"phase": "Q", "docs": keep["inv"].n_docs, "shards": len(eng.shards),
+                 "queries": int(len(q)), "ranked_queries": int(len(rq)), "clients": 4,
+                 "max_batch": eng.cfg.sched.max_batch}
+    try:
+        t0 = time.perf_counter()
+        s = Session(eng, store_dir=store)  # saves the store, builds the kernels
+        out["store_s"] = time.perf_counter() - t0
+        try:
+            replicas = [r for g in s._groups for r in g.replicas]
+            used0 = _gpu_used_mib()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=r.call, args=(("ping",),)) for r in replicas]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            out["spawn_all_s"] = time.perf_counter() - t0
+            if not all(r.alive for r in replicas):
+                raise AssertionError("a process replica did not come up")
+            out["spawn_s"] = [dict(r.spawn_seconds) for r in replicas]
+            t0 = time.perf_counter()
+            s.warm()
+            out["warm_s"] = time.perf_counter() - t0
+            pids = [r.pid for r in replicas]
+            # per process where the card's process list shows the workers'
+            # pids (a container may hide them); else the card's memory in use
+            # after the spawn and the warm batches, less before, per worker
+            apps = [line.split(", ") for line in _smi("compute-apps=pid,used_memory")]
+            out["worker_device_mib"] = {p: m for p, m in apps if int(p) in pids} or None
+            out["device_mib_per_worker"] = (_gpu_used_mib() - used0) / len(replicas)
+            out["r1"] = served(s, "R=1")
+
+            # traced: worker spans in one pid lane per worker, kernel spans
+            # among them, every lane's spans nested or disjoint
+            tracer, plog = Tracer(), ProbeLog()
+            eng.cfg.obs.trace, eng.cfg.obs.probe_log = tracer, plog
+            try:
+                submit_all(s, q[:32])
+                submit_all(s, rq[:16], mode="ranked", k=R_TOPK)
+            finally:
+                eng.cfg.obs.trace = eng.cfg.obs.probe_log = None
+            worker = [sp for sp in tracer.spans if sp.pid != 0]
+            lanes = {sp.pid for sp in worker}
+            if lanes != set(pids):
+                raise AssertionError(f"worker lanes {sorted(lanes)} != worker pids {sorted(pids)}")
+            bad = nesting_violations(tracer.spans, slack_us=0.5)
+            if bad:
+                raise AssertionError(f"{len(bad)} nesting violations, first {bad[:2]}")
+            kspans: dict[str, int] = {}
+            for sp in worker:
+                if sp.name.startswith("kernel."):
+                    kspans[sp.name] = kspans.get(sp.name, 0) + 1
+            for name in ("kernel.membership", "kernel.bitset", "kernel.bm25_score"):
+                if not kspans.get(name):
+                    raise AssertionError(f"no {name} span in the worker lanes: {kspans}")
+            out["trace"] = {"spans": len(tracer.spans), "worker_spans": len(worker),
+                            "lanes": len(lanes), "kernel_spans": kspans,
+                            "probe_records": plog.n_records, "nesting_violations": 0}
+
+            # crash: the worker dies on the hook; the next batch respawns it
+            # (spawn, CUDA context, rebuild, warm replay) and is exact
+            rep = s._groups[0].replicas[0]
+            pid0 = rep.pid
+            try:
+                rep.call(("crash",))
+                raise AssertionError("the crash hook did not kill the worker")
+            except ReplicaError:
+                pass
+            outs, wall = submit_all(s, q)
+            check(outs, "after the crash")
+            if rep.pid == pid0 or not rep.alive or not rep.warm_replays:
+                raise AssertionError("the crashed replica was not respawned and warmed")
+            out["crash"] = {"respawn_s": dict(rep.spawn_seconds),
+                            "warm_replays": rep.warm_replays, "boolean_s": wall}
+            log(f"[Q] crash: {out['crash']}")
+        finally:
+            s.close()
+        eng.cfg.sched.n_replicas = 0
+        with Session(eng) as s0:
+            out["r0"] = served(s0, "R=0")
+        out["r1_over_r0_boolean"] = out["r0"]["boolean_s"] / out["r1"]["boolean_s"]
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    out["exact"] = True
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def one_score_launch(topk, name: str, run: dict, eng) -> None:
@@ -1319,15 +1531,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=528_000,
                     help="documents in phase A's collection (Robust04's 528k by default)")
-    ap.add_argument("--phases", default="ABRSDC",
-                    help="phases to run (R and D need A; S needs A and R; C needs A, B and R)")
+    ap.add_argument("--phases", default="ABRSQDC",
+                    help="phases to run (R and D need A; S and Q need A and R; C needs A, B "
+                         "and R)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory that holds the repro_torch package to drive")
     args = ap.parse_args()
     phases = set(args.phases.upper())
     if ({"R", "D"} & phases and "A" not in phases) or ("C" in phases and not {"A", "B", "R"} <= phases) \
-            or ("S" in phases and not {"A", "R"} <= phases):
-        ap.error(f"--phases {args.phases}: R and D need A, S needs A and R, and C needs A, B and R")
+            or ({"S", "Q"} & phases and not {"A", "R"} <= phases):
+        ap.error(f"--phases {args.phases}: R and D need A, S and Q need A and R, and C needs "
+                 f"A, B and R")
 
     import torch
 
@@ -1402,7 +1616,8 @@ def main() -> int:
     for name, run in (("A", lambda: phase_a(args, dev, launches, clock, keep)),
                       ("B", lambda: phase_b(dev, launches)),
                       ("R", lambda: phase_r(dev, launches, clock, keep)),
-                      ("S", lambda: phase_s(dev, launches, clock, keep))):
+                      ("S", lambda: phase_s(dev, launches, clock, keep)),
+                      ("Q", lambda: phase_q(dev, keep))):
         if name not in phases:
             continue
         for k in kernels.values():
@@ -1420,7 +1635,8 @@ def main() -> int:
     for phase, names in (("A", ("membership", "bitset", "pfor")),
                          ("B", ("guided_search", "plm_decode")),
                          ("R", ("pfor", "bm25_score", "fused_topk", "dense_topk")),
-                         ("S", ("membership", "bitset", "pfor", "bm25_score", "two_tier"))):
+                         ("S", ("membership", "bitset", "pfor", "bm25_score", "two_tier")),
+                         ("Q", ("membership", "bitset", "bm25_score"))):
         for n in names:
             if phase in counts and n in counts[phase] and counts[phase][n] == 0:
                 raise AssertionError(f"{n} did not launch on its path (phase {phase})")

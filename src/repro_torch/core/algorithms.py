@@ -24,7 +24,9 @@ launch (``block_candidates``).  Algorithm 2 is one ``two_tier`` launch
 membership kernel's dot product, so its candidates are Algorithm 1's ANDed
 with the union, bit for bit.  On the CPU the same wrappers run their plain
 versions.  The (n_terms, k) tier-1 table reaches the device at the first
-two-tier call, not when the state is built.
+two-tier call, not when the state is built.  Each launch sits in a
+``kernel.*`` span (repro_torch.obs) that covers its issue only: the caller's
+copy of the candidates back is where the host waits for the card.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from repro_torch.kernels.cuda import staging
 from repro_torch.kernels.membership.kernel import membership_bitmask
 from repro_torch.kernels.membership.ref import LANE
 from repro_torch.kernels.two_tier.kernel import two_tier_candidates
+from repro_torch.obs import trace
 
 
 @dataclass
@@ -129,12 +132,13 @@ def _term_rows(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     idx = np.nonzero(flat >= 0)[0]
     if len(idx):
         terms = torch.from_numpy(flat[idx].astype(np.int64)).to(dev)
-        rows[torch.from_numpy(idx).to(dev)] = membership_bitmask(
-            state.model.term_embed.weight[terms].contiguous(),
-            state.model.doc_embed.weight.detach(),
-            state.tau[terms].contiguous(),
-            float(state.model.bias),
-        )
+        with trace.span("kernel.membership", slots=len(idx), docs=int(state.n_docs)):
+            rows[torch.from_numpy(idx).to(dev)] = membership_bitmask(
+                state.model.term_embed.weight[terms].contiguous(),
+                state.model.doc_embed.weight.detach(),
+                state.tau[terms].contiguous(),
+                float(state.model.bias),
+            )
     return rows.view(Q, T, words)
 
 
@@ -170,12 +174,14 @@ def two_tier_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     ``two_tier`` launch on the resident tier-1 table."""
     valid = queries >= 0
     lens = np.where(valid, np.minimum(state.dfs[np.maximum(queries, 0)], state.truncation_k), 0)
-    return two_tier_candidates(
-        state.tier1, state.tier1_len,
-        torch.from_numpy(np.ascontiguousarray(queries)).to(state.device),
-        state.model.term_embed.weight.detach(), state.model.doc_embed.weight.detach(),
-        state.tau, float(state.model.bias),
-        max_candidates=int(lens.sum(axis=1).max()) if len(lens) else 0)
+    with trace.span("kernel.two_tier", queries=int(queries.shape[0]),
+                    terms=int(queries.shape[1]), entries=int(lens.sum())):
+        return two_tier_candidates(
+            state.tier1, state.tier1_len,
+            torch.from_numpy(np.ascontiguousarray(queries)).to(state.device),
+            state.model.term_embed.weight.detach(), state.model.doc_embed.weight.detach(),
+            state.tau, float(state.model.bias),
+            max_candidates=int(lens.sum(axis=1).max()) if len(lens) else 0)
 
 
 def two_tier_guaranteed(dfs: np.ndarray, queries: np.ndarray, k: int, *, with_model: bool
@@ -216,17 +222,19 @@ def block_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     words = -(-state.n_docs // LANE)
     if len(valid):
         terms = up[2 * Q * T :].long()
-        rows = membership_bitmask(
-            state.model.term_embed.weight[terms],
-            state.model.doc_embed.weight.detach(),
-            state.tau[terms],
-            float(state.model.bias),
-        )
+        with trace.span("kernel.membership", slots=len(valid), docs=int(state.n_docs)):
+            rows = membership_bitmask(
+                state.model.term_embed.weight[terms],
+                state.model.doc_embed.weight.detach(),
+                state.tau[terms],
+                float(state.model.bias),
+            )
     else:
         rows = torch.zeros((0, words), dtype=torch.int32, device=dev)
-    cand, _, _ = block_candidates(
-        state.block_bitmaps, up[: Q * T].view(Q, T), up[Q * T : 2 * Q * T].view(Q, T), rows,
-        state.n_docs, state.block_size)
+    with trace.span("kernel.bitset", queries=Q, terms=T, words=words):
+        cand, _, _ = block_candidates(
+            state.block_bitmaps, up[: Q * T].view(Q, T), up[Q * T : 2 * Q * T].view(Q, T),
+            rows, state.n_docs, state.block_size)
     return cand
 
 

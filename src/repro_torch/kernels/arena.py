@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.obs import trace
 from repro_torch.postings.search import byte_chunks
 
 # the dense loop keeps a (Q, n_docs) int32 accumulator plus the impact table
@@ -85,12 +86,14 @@ class DeviceArena:
                     if len(q):
                         max_imp = max(max_imp, int(np.max(q)))
         table = table.astype(_impact_dtype(max_imp))
-        arena = cls(
-            n_docs=int(n_docs),
-            n_terms=int(n_terms),
-            table=torch.from_numpy(table).to(device),
-            host_lens=lens,
-        )
+        with trace.span("arena.upload", terms=int((lens > 0).sum()), lanes=int(lens.sum()),
+                        bytes=int(table.nbytes)):
+            arena = cls(
+                n_docs=int(n_docs),
+                n_terms=int(n_terms),
+                table=torch.from_numpy(table).to(device),
+                host_lens=lens,
+            )
         arena.counters.uploads = 1
         arena.counters.upload_bytes = int(table.nbytes)
         return arena

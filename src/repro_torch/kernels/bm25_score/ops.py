@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.bm25_score.kernel import score_batch
+from repro_torch.obs import trace
 
 
 def score_candidates(
@@ -20,5 +21,6 @@ def score_candidates(
     imp = np.ascontiguousarray(impacts, np.int32)
     if imp.shape[0] == 0:
         return np.zeros(0, np.int32), np.zeros(0, np.float32)
-    ints, floats = score_batch(torch.from_numpy(imp).to(device), scale)
-    return ints.cpu().numpy(), floats.cpu().numpy()
+    with trace.span("kernel.bm25_score", candidates=int(imp.shape[0]), terms=int(imp.shape[1])):
+        ints, floats = score_batch(torch.from_numpy(imp).to(device), scale)
+        return ints.cpu().numpy(), floats.cpu().numpy()

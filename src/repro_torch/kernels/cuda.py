@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # launch counts stay exact under threaded fan-out
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -97,7 +98,7 @@ class CudaKernel:
     """One C entry point of one library, with its launch count.
 
     ``launches`` goes up by one each time the kernel is launched, and only
-    then; the wrappers in ``kernels/<name>/ops.py`` call ``launch`` on CUDA
+    then, under a lock (shards may launch from several threads); the wrappers in ``kernels/<name>/ops.py`` call ``launch`` on CUDA
     tensors and the plain PyTorch version on CPU tensors.
     """
 
@@ -116,7 +117,8 @@ class CudaKernel:
         err = self._fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
-        self.launches += 1
+        with _count_lock:
+            self.launches += 1
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int, device: torch.device) -> None:

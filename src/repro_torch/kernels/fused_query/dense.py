@@ -18,9 +18,14 @@ Rows and term slots are padded to power-of-two multiples of the tile quanta
 (``tile_params``: 8 rows and 4 slots unless ``set_tile_params`` or the
 autotuner, kernels.autotune, changed them), the reference's defaults, so
 both packages hand the same shapes to the pass.  ``observed_shapes()`` lists
-the (n_docs, Q, T, k) shapes this process has dispatched.
+the (n_docs, Q, T, k) shapes this process has dispatched.  The port has no
+jit cache: ``cache_size()`` counts those shapes, so a respawned worker whose
+warm replay covered every shape serves without a new one, and
+``warm_shape`` runs the pass once at a shape on inert inputs.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -48,6 +53,7 @@ _TERM_QUANTUM = 4
 _SHAPES: set[tuple[int, int, int, int]] = set()
 
 launches = 0  # dense passes issued (one per dense_topk call)
+_count_lock = threading.Lock()
 
 
 def tile_params() -> dict[str, int]:
@@ -111,9 +117,10 @@ def dense_topk(arena, qt: np.ndarray, floors: np.ndarray, *, k: int):
     global launches
     dev = arena.table.device
     Q, T = qt.shape
-    _SHAPES.add((arena.n_docs, Q, T, int(k)))
-    launches += 1
-    arena.counters.hits += 1
+    with _count_lock:
+        _SHAPES.add((arena.n_docs, Q, T, int(k)))
+        launches += 1
+        arena.counters.hits += 1
     return dense_impl(
         arena.table, torch.from_numpy(np.ascontiguousarray(qt, np.int32)).to(dev),
         torch.from_numpy(np.ascontiguousarray(floors, np.int32)).to(dev), k=int(k),
@@ -123,3 +130,19 @@ def dense_topk(arena, qt: np.ndarray, floors: np.ndarray, *, k: int):
 def observed_shapes() -> list[tuple[int, int, int, int]]:
     """Static shapes dispatched by this process: (n_docs, Q, T, k)."""
     return sorted(_SHAPES)
+
+
+def cache_size() -> int:
+    """Distinct dense-pass shapes this process has dispatched (the count the
+    reference reads off its jit cache)."""
+    return len(_SHAPES)
+
+
+def warm_shape(arena, shape) -> None:
+    """Run the pass once at one observed (n_docs, Q, T, k) shape on
+    ``arena`` with inert inputs (all-pad rows) and wait for it."""
+    n_docs, Q, T, k = (int(x) for x in shape)
+    if n_docs != arena.n_docs:
+        return
+    ids, _, _ = dense_topk(arena, np.full((Q, T), -1, np.int32), np.zeros(Q, np.int32), k=k)
+    ids.cpu()  # the copy waits for the pass

@@ -51,6 +51,7 @@ import torch
 from repro_torch.kernels.fused_query import dense
 from repro_torch.kernels.fused_query.kernel import fused_topk
 from repro_torch.kernels.fused_query.ref import NEVER
+from repro_torch.obs import trace
 from repro_torch.postings.search import _touched_words, decode_window, rank_windows
 from repro_torch.rank.score import TopKResult, select_topk
 from repro_torch.rank.topk import (
@@ -381,10 +382,12 @@ def _extract_dense(fut, stats, results):
     """Copy one dense pass's outputs back and merge its rows."""
     arena, grp, kb, Qb, T, out = fut
     n_docs, isz = arena.n_docs, arena.itemsize
-    t0 = time.perf_counter_ns()
-    ids_d, sc_d, rounds = out
-    ids_o, sc_o, rounds = ids_d.cpu().numpy(), sc_d.cpu().numpy(), int(rounds)
-    stats.fused_kernel_ns += time.perf_counter_ns() - t0
+    with trace.span("kernel.fused_query", queries=int(Qb), terms=int(T), k=int(kb), dense=1,
+                    candidates=int(n_docs)):
+        t0 = time.perf_counter_ns()
+        ids_d, sc_d, rounds = out
+        ids_o, sc_o, rounds = ids_d.cpu().numpy(), sc_d.cpu().numpy(), int(rounds)
+        stats.fused_kernel_ns += time.perf_counter_ns() - t0
     # device traffic actually performed: table-row gather, accumulator,
     # one accumulator scan per peel round performed, in/out tiles
     stats.fused_device_bytes += (
@@ -471,18 +474,22 @@ def _dispatch_group(src, pend, C, pbits, stats, results):
     arrays, K = build_tiles(src, pend, C, pbits, stats)
     Qb = arrays[0].shape[0]
     n_lanes = int(arrays[3].sum())
+    device_bytes = sum(a.nbytes for a in arrays) + 2 * Qb * K * 4
     stats.fused_queries += len(pend)
     stats.fused_lanes += n_lanes
-    stats.fused_device_bytes += sum(a.nbytes for a in arrays) + 2 * Qb * K * 4
+    stats.fused_device_bytes += device_bytes
     dev = src.device
-    tiles = [
-        torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
-        for a in arrays
-    ]
-    ids_d, sc_d = fused_topk(*tiles, k=K, pbits=pbits)
-    t0 = time.perf_counter_ns()
-    ids_o, sc_o = ids_d.cpu().numpy(), sc_d.cpu().numpy()
-    stats.fused_kernel_ns += time.perf_counter_ns() - t0
+    _, T, C, W = arrays[7].shape
+    with trace.span("kernel.fused_query", queries=int(Qb), terms=int(T), candidates=int(C),
+                    window=int(W), k=int(K), lanes=n_lanes, bytes=int(device_bytes)):
+        tiles = [
+            torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+            for a in arrays
+        ]
+        ids_d, sc_d = fused_topk(*tiles, k=K, pbits=pbits)
+        t0 = time.perf_counter_ns()
+        ids_o, sc_o = ids_d.cpu().numpy(), sc_d.cpu().numpy()
+        stats.fused_kernel_ns += time.perf_counter_ns() - t0
 
     for row, (i, p) in enumerate(pend):
         hit = sc_o[row] > 0  # non-empty heap slots form a prefix

@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels.cuda import fetch, staging
 from repro_torch.kernels.guided_search.kernel import probe_batch
 from repro_torch.kernels.guided_search.ref import ROW_COLS
+from repro_torch.obs import trace
 
 # ranks one warp scans; a longer window is cut into rows of this many, and
 # counts as a wide probe (ProbeStats.wide_probes)
@@ -51,10 +52,12 @@ def probe_rows(
 def probe_table(arena, rows: np.ndarray, n_out: int, device: torch.device) -> np.ndarray:
     """One launch over probe rows whose slots lie in [0, n_out) -> (2,
     n_out) int32 [found, lt], through one pinned upload and one download."""
-    host = staging(rows.size, device)
-    host.numpy()[:] = rows.reshape(-1)
-    table = host.to(device, non_blocking=True).view(-1, ROW_COLS)
-    return fetch(probe_batch(table, arena.terms, arena.segs, arena.words, n_out))
+    with trace.span("kernel.guided_search", probes=int(n_out), rows=len(rows),
+                    window=CHUNK_RANKS):
+        host = staging(rows.size, device)
+        host.numpy()[:] = rows.reshape(-1)
+        table = host.to(device, non_blocking=True).view(-1, ROW_COLS)
+        return fetch(probe_batch(table, arena.terms, arena.segs, arena.words, n_out))
 
 
 def probe_windows(

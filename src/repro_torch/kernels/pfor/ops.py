@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels.cuda import fetch, staging
 from repro_torch.kernels.pfor.kernel import MAX_VALUES, pfor_decode
 from repro_torch.kernels.pfor.ref import META
+from repro_torch.obs import trace
 
 BLOCK = 128  # values per PFor block (index/compress.py)
 
@@ -96,9 +97,11 @@ def decode_lists(
     out: list[np.ndarray] = [np.zeros(0, np.int32)] * len(lens)
     if not any(n > 0 for n in lens):
         return out
-    words, meta, nonempty, out_base = stage_batch(streams, lens, device=device, tables=tables)
-    n_out = sum(lens[i] for i in nonempty)
-    flat = fetch(pfor_decode(words, meta, n_out))
+    n_out = sum(n for n in lens if n > 0)
+    with trace.span("kernel.pfor", lists=sum(1 for n in lens if n > 0), values=int(n_out)):
+        words, meta, nonempty, out_base = stage_batch(streams, lens, device=device,
+                                                      tables=tables)
+        flat = fetch(pfor_decode(words, meta, n_out))
     if flat[n_out]:
         raise OverflowError("doc id exceeds int32 range")
     for row, i in enumerate(nonempty):

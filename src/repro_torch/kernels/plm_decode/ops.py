@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels.cuda import fetch, staging
 from repro_torch.kernels.plm_decode.kernel import decode_batch
 from repro_torch.kernels.plm_decode.ref import LIST_COLS
+from repro_torch.obs import trace
 from repro_torch.postings.plm import parse_segments
 
 
@@ -72,8 +73,10 @@ def decode_lists(
     out: list[np.ndarray] = [np.zeros(0, np.int32)] * len(lens)
     if not any(n > 0 for n in lens):
         return out
-    args, nonempty, offsets = stage_batch(streams, lens, device=device)
-    ids = fetch(decode_batch(*args))
+    with trace.span("kernel.plm_decode", lists=sum(1 for n in lens if n > 0),
+                    ranks=int(sum(n for n in lens if n > 0))):
+        args, nonempty, offsets = stage_batch(streams, lens, device=device)
+        ids = fetch(decode_batch(*args))
     for row, i in enumerate(nonempty):
         out[i] = ids[offsets[row] : offsets[row] + lens[i]].copy()
     return out

@@ -16,11 +16,23 @@ queries through ``BooleanEngine.query_topk`` (multi-phase MaxScore, or
 ``--fused`` for the fused_topk kernel and the dense arena loop) and asserts
 the ranked results equal brute-force quantized BM25.
 
+``--replicas N`` also serves the Boolean batch through the scheduler
+(``Session.submit``: 0 = inline, N > 0 = N spawned process replicas per
+shard, each rebuilt from the shard-store and serving on ``--device``) and
+asserts its results equal the facade's; ``--deadline-ms`` sets the
+scheduler's default deadline, ``--slo`` prints its rolling SLO report, a
+latency autopsy and Prometheus text.  ``--trace-out`` writes a Chrome trace
+of every served batch (worker spans in their own lanes), ``--probe-log``
+streams one JSONL record per routed probe (``--probe-log-max-bytes``
+rotates it).
+
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 64
   PYTHONPATH=src python -m repro_torch.launch.serve --shards 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --topk 10 --fused
   PYTHONPATH=src python -m repro_torch.launch.serve --algorithm two_tier --shards 4
   PYTHONPATH=src python -m repro_torch.launch.serve --shards 4 --index-dir /tmp/idx
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --replicas 1 \
+      --index-dir /tmp/idx --trace-out /tmp/t.json --slo
 """
 from __future__ import annotations
 
@@ -38,8 +50,9 @@ from repro_torch.data.corpus import Corpus, synthesize_corpus
 from repro_torch.data.loader import membership_batches
 from repro_torch.data.queries import brute_force_answers, sample_queries, zipf_disjunctions
 from repro_torch.index.build import InvertedIndex, build_inverted_index
+from repro_torch.obs import ProbeLog, Tracer, render_prometheus
 from repro_torch.rank.score import ImpactModel, brute_force_topk
-from repro_torch.serve import BooleanEngine, RankedConfig, ServeConfig
+from repro_torch.serve import BooleanEngine, QueryRequest, RankedConfig, ServeConfig, Session
 from repro_torch.train import init_train_state, make_train_step
 
 
@@ -105,7 +118,26 @@ def main(argv: list[str] | None = None) -> None:
                          "fits one) instead of the multi-phase pipeline; "
                          "disables the small-query exhaustive shortcut so "
                          "the kernel runs on demo-sized collections")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace JSON of every served batch here")
+    ap.add_argument("--probe-log", default=None,
+                    help="stream per-(query, term, shard) probe records (JSONL)")
+    ap.add_argument("--probe-log-max-bytes", type=int, default=None,
+                    help="rotate the probe log past this size (<path>.1 keeps "
+                         "the previous window; unset = unbounded)")
+    ap.add_argument("--replicas", type=int, default=None,
+                    help="also serve through the scheduler (Session.submit): "
+                         "0 = inline, N>0 = N process replicas per shard")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="scheduler default deadline; requests queued past it "
+                         "are shed with a typed Rejected")
+    ap.add_argument("--slo", action="store_true",
+                    help="print the scheduler's rolling SLO report, a per-request "
+                         "latency autopsy and Prometheus-rendered metrics "
+                         "(implies --replicas 0 when --replicas is unset)")
     args = ap.parse_args(argv)
+    if args.slo and args.replicas is None:
+        args.replicas = 0  # the SLO report reads the scheduler's window
     dev = resolve_device(args.device)
 
     corpus = synthesize_corpus(CorpusConfig(n_docs=args.docs, n_terms=args.terms, avg_doc_len=80))
@@ -114,8 +146,13 @@ def main(argv: list[str] | None = None) -> None:
     model = train_membership(corpus, inv, li_cfg, steps=args.train_steps, device=dev)
     lb = fit_thresholds(model, inv)
     print(f"[serve] false-negative rate {false_negative_rate(lb, inv)}")
+    tracer = Tracer() if args.trace_out else None
+    probe_log = (ProbeLog(args.probe_log, max_bytes=args.probe_log_max_bytes)
+                 if args.probe_log else None)
     cfg = ServeConfig(algorithm=args.algorithm, verified=not args.no_verify,
                       n_shards=args.shards, device=str(dev),
+                      obs=dict(trace=tracer, probe_log=probe_log,
+                               probe_log_max_bytes=args.probe_log_max_bytes),
                       ranked=dict(fused_kernel=args.fused,
                                   # the exhaustive shortcut would swallow every
                                   # demo-sized query before the fused launch
@@ -149,10 +186,10 @@ def main(argv: list[str] | None = None) -> None:
             raise SystemExit("verified mode must be exact")
         else:
             print("[serve] verified mode: all results exact")
-    s = eng.serving_stats()
-    c, g = s["decode_cache"], s["guided"] or {}
-    print(f"[serve] cache {c['hits']}h/{c['misses']}m/{c['evictions']}e, "
-          f"probe bytes {g.get('guided_bytes', 0)} (ratio {g.get('bytes_ratio', 0.0):.3f})")
+    s = eng.metrics.snapshot()["summary"]
+    print(f"[serve] summary: {s['n_shards']} shards, cache "
+          f"{s['cache_hits']}h/{s['cache_misses']}m/{s['cache_evictions']}e, "
+          f"probe bytes {s['probe_bytes']} (ratio {s['bytes_ratio']:.3f})")
 
     if args.topk > 0:
         ranked_q, _ = zipf_disjunctions(inv.dfs, args.queries, seed=7)
@@ -165,7 +202,7 @@ def main(argv: list[str] | None = None) -> None:
             np.array_equal(r.ids, e.ids) and np.array_equal(r.scores, e.scores)
             for r, e in zip(ranked, oracle)
         )
-        rs = eng.serving_stats()["ranked"]
+        rs = eng.metrics.snapshot()["ranked"]
         print(f"[serve] ranked top-{args.topk}: {args.queries} OR queries, "
               f"{dt:.2f} ms/query (payload attach included), "
               f"exact-vs-BM25-brute-force={ok}, scored {rs['touched_postings']}/"
@@ -173,6 +210,75 @@ def main(argv: list[str] | None = None) -> None:
         print("[serve] ranked stats:", rs)
         if not ok:
             raise SystemExit("ranked serving must match brute-force BM25")
+
+    if args.replicas is not None:
+        serve_scheduled(eng, q, results, args, tracer)
+    lat = eng.metrics.snapshot().get("latency", {})
+    for name in ("query_us", "topk_query_us"):
+        h = lat.get(name)
+        if h:
+            print(f"[serve] latency {name}: p50 {h['p50'] / 1e3:.2f} ms, "
+                  f"p99 {h['p99'] / 1e3:.2f} ms over {h['count']} queries")
+    if probe_log is not None:
+        probe_log.close()
+        print(f"[serve] probe log written to {args.probe_log}")
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        print(f"[serve] trace written to {args.trace_out} ({len(tracer.spans)} spans)")
+
+
+def serve_scheduled(eng: BooleanEngine, q: np.ndarray, results, args, tracer) -> None:
+    """Serve ``q`` again through ``Session.submit`` (``--replicas``) and
+    raise unless every served result equals the facade's."""
+    import tempfile
+
+    eng.cfg.sched.n_replicas = args.replicas
+    eng.cfg.sched.default_deadline_ms = args.deadline_ms
+    store = args.index_dir or (
+        tempfile.mkdtemp(prefix="repro-shards-") if args.replicas > 0 else None)
+    with Session(eng, store_dir=store) as session:
+        if args.replicas > 0:
+            session.warm()  # spawn and first launches outside the timed region
+        t0 = time.time()
+        futs = [session.submit_async(QueryRequest(terms=row), block=True) for row in q]
+        outs = [f.result() for f in futs]
+        dt = (time.time() - t0) / len(q) * 1e3
+        served = [o for o in outs if o.ok]
+        shed = [o for o in outs if not o.ok]
+        n_same = sum(np.array_equal(o.ids, r) for o, r in zip(outs, results) if o.ok)
+        sm = eng.metrics.snapshot()["sched"]
+        kind = f"{args.replicas} process replica(s)/shard" if args.replicas else "inline"
+        print(f"[serve] scheduler ({kind}): {len(served)} served in {sm['batches']} batches "
+              f"(mean size {sm['batch_size']['mean']:.1f}), {dt:.2f} ms/query, "
+              f"parity-with-facade={n_same}/{len(served)}")
+        if shed:
+            print(f"[serve] scheduler shed {len(shed)} request(s): "
+                  f"{sorted({o.reason for o in shed})}")
+        if n_same != len(served):
+            raise SystemExit("Session.submit must match query_batch")
+        if served:
+            a = served[0].autopsy()
+            print(f"[serve] autopsy (first served): total {a['total_us'] / 1e3:.2f} ms = "
+                  f"queue {a['queue_us'] / 1e3:.2f} + dispatch {a['dispatch_us'] / 1e3:.2f} + "
+                  f"execute {a['execute_us'] / 1e3:.2f} + merge {a['merge_us'] / 1e3:.2f} ms "
+                  f"(execute {a['execute_frac']:.0%} of total)")
+        if tracer is not None and args.replicas > 0:
+            lanes = sorted({s.pid for s in tracer.spans if s.pid != 0})
+            wspans = sum(1 for s in tracer.spans if s.pid != 0)
+            print(f"[serve] distributed trace: {wspans} worker spans across "
+                  f"{len(lanes)} replica lane(s) collated onto the host timeline")
+        if args.slo:
+            rep = session.slo_report()
+            print(f"[serve] SLO report (window {rep['window_s']:.0f}s, "
+                  f"target {rep['target']:.0%}):")
+            for tenant, t in sorted(rep["tenants"].items()):
+                print(f"[serve]   tenant {tenant!r}: {t['requests']} req ({t['shed']} shed), "
+                      f"hit-rate {t['deadline_hit_rate']:.1%}, p99 {t['p99_ms']:.2f} ms, "
+                      f"burn {t['burn_rate']:.2f}x")
+            prom = render_prometheus({"sched": rep["sched"]})
+            print(f"[serve] prometheus ({len(prom.splitlines())} lines):")
+            for line in prom.splitlines()[:6]:
+                print(f"[serve]   {line}")
 
 
 def check_two_tier(eng: BooleanEngine, q: np.ndarray, results, exact, k: int) -> np.ndarray:

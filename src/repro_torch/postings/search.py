@@ -44,6 +44,8 @@ a whole batch of lists.
 """
 from __future__ import annotations
 
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable
 
@@ -53,6 +55,7 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.index.compress import CODECS, unpack_bits_at
 from repro_torch.index.intersect import gallop_membership
+from repro_torch.obs import trace
 from repro_torch.postings.hybrid import HybridPostings
 from repro_torch.postings.plm import parse_segments
 
@@ -370,6 +373,30 @@ class ProbeStats:
         return d
 
 
+class _Record:
+    """One routed probe's probe-log fields while its batch is answered:
+    ``own`` bytes are its ε-windows, ``meta`` the models its routing parsed,
+    ``once`` its term's first fallback decode (charged once per term)."""
+
+    __slots__ = ("term", "n_cands", "query", "shard", "route", "n_found", "n_postings",
+                 "eps_window", "own", "meta", "once", "wall_ns", "seq")
+
+    def __init__(self, term: int, n_cands: int, query: int | None):
+        self.term, self.n_cands, self.query = term, n_cands, query
+        self.own = self.meta = self.once = self.wall_ns = self.seq = 0
+
+    def finish(self, gp: "GuidedPostings", route: str, tm, n_found: int) -> None:
+        self.route, self.n_found = route, n_found
+        self.n_postings = int(gp.store.lens[self.term])
+        self.eps_window = tm.avg_window if tm is not None else 0.0
+        gp._emit(self)
+
+    def log(self, log, nbytes: int) -> None:
+        log.log(self.term, self.route, n_cands=self.n_cands, n_found=self.n_found,
+                n_postings=self.n_postings, eps_window=self.eps_window, bytes=nbytes,
+                wall_us=self.wall_ns / 1e3, query=self.query, shard=self.shard)
+
+
 class GuidedPostings:
     """contains/rank probes over a HybridPostings store, model-guided.
 
@@ -380,6 +407,15 @@ class GuidedPostings:
     don't re-decode.  The default is a per-term cache that a batch fills
     with one ``decode_terms`` call; the serving engine passes its
     decode-cost budgeted LRU accessor instead.
+
+    With a ``probe_log`` (obs.probelog.ProbeLog) every routed probe logs one
+    record — the reference's fields — and opens one ``probe.term`` span.  An
+    item may name its query (``queries=``), which a batched verify needs: it
+    answers a round of many queries at once.  Inside ``batch_log`` the
+    records are held and logged query by query, each term's once-per-term
+    bytes (its first fallback decode) on the record of the smallest query
+    that routed it there — what answering the queries one after another, as
+    the reference does, charges.
     """
 
     def __init__(
@@ -388,31 +424,41 @@ class GuidedPostings:
         *,
         fallback: Callable[[int], np.ndarray] | None = None,
         device: torch.device | str = "cuda",
+        probe_log=None,  # obs.probelog.ProbeLog: one record per routed term
     ):
         self.store = store
         self.device = resolve_device(device)
+        self.probe_log = probe_log
         # the default decode cache, which _answer fills a batch at a time
         # before it reads any list
         self._cache: dict[int, np.ndarray] | None = None if fallback else {}
         self.fallback = fallback or self._cache.__getitem__
         self.stats = ProbeStats()
         self._models: dict[int, TermModel | None] = {}
+        self._charged: set[int] = set()  # terms whose metadata bytes are charged
         self._fallback_seen: set[int] = set()
         self._arena: StreamArena | None = None
+        self._held: list[_Record] | None = None  # batch_log's records
 
     # ------------------------------------------------------------- models
-    def term_model(self, t: int) -> TermModel | None:
-        """TermModel for learned-coded term t, None for classical codecs."""
+    def _model(self, t: int) -> TermModel | None:
+        """Parsed (cached) TermModel of term t, with no accounting."""
         tm = self._models.get(t, False)
-        if tm is not False:
-            return tm
-        n = int(self.store.lens[t])
-        if n == 0 or int(self.store.tags[t]) not in _LEARNED_TAGS:
-            self._models[t] = None
-            return None
-        tm = load_term_model(self.store.streams[t][1:], n)  # strip hybrid tag
-        self._models[t] = tm
-        self.stats.metadata_bytes += tm.meta_bytes
+        if tm is False:
+            n = int(self.store.lens[t])
+            learned = n > 0 and int(self.store.tags[t]) in _LEARNED_TAGS
+            tm = load_term_model(self.store.streams[t][1:], n) if learned else None  # strip tag
+            self._models[t] = tm
+        return tm
+
+    def term_model(self, t: int) -> TermModel | None:
+        """TermModel for learned-coded term t, None for classical codecs; its
+        metadata bytes are charged at the first call in an accounting window
+        (a probe's, or the planner's route decision)."""
+        tm = self._model(t)
+        if tm is not None and t not in self._charged:
+            self._charged.add(t)
+            self.stats.metadata_bytes += tm.meta_bytes
         return tm
 
     def is_guided(self, t: int) -> bool:
@@ -430,7 +476,8 @@ class GuidedPostings:
     # ------------------------------------------------------------- probes
     def route(self, t: int, n_cands: int, hint: str | None = None) -> str:
         """The route a probe of term t over ``n_cands`` candidates takes,
-        with no accounting: 'empty' | 'fallback' (classical codec, full
+        with no accounting (the model is parsed, its bytes not charged):
+        'empty' | 'fallback' (classical codec, full
         decode) | 'decode' (learned codec sent to full decode by the cost
         model or a planner hint) | 'guided' (ε-window probes).
 
@@ -442,7 +489,7 @@ class GuidedPostings:
         """
         if int(self.store.lens[t]) == 0:
             return "empty"
-        tm = self.term_model(t)
+        tm = self._model(t)
         if tm is None:
             return "fallback"
         if hint == "decode" or (hint is None and n_cands * tm.avg_window >= tm.n):
@@ -480,37 +527,63 @@ class GuidedPostings:
             self.stats.fallback_bytes += 4 * int(self.store.streams[t].size)
         return p
 
-    def _probe_guided(self, work) -> list[tuple[np.ndarray, np.ndarray]]:
+    def _probe_guided(self, work, recs=None) -> list[tuple[np.ndarray, np.ndarray]]:
         """ε-window probes of (t, TermModel, candidates) items, all in one
-        ``guided_search`` launch -> (found, rank) per item."""
+        ``guided_search`` launch -> (found, rank) per item.  Each item's
+        windows are bracketed under its own ``probe.term`` span; with
+        ``recs`` (the items' _Records) each is charged its window bytes and
+        its share of the launch's wall time."""
         from repro_torch.kernels.guided_search.ops import CHUNK_RANKS, probe_windows
 
         arena = self.arena
         parts = []
-        for t, tm, cands in work:
-            seg, r_lo, r_hi = rank_windows(tm, cands)
-            lens = np.maximum(r_hi - r_lo + 1, 0)
-            self.stats.window_bytes += 4 * window_words(r_lo, lens, tm.width)
-            wide = lens[lens > CHUNK_RANKS]
-            self.stats.wide_probes += len(wide)
-            self.stats.wide_ranks += int(wide.sum())
-            row = arena.row[t]
-            parts.append((np.full(len(cands), row), arena.first_seg[row] + seg, r_lo, lens, cands))
+        for j, (t, tm, cands) in enumerate(work):
+            t0 = time.perf_counter_ns()
+            with trace.span("probe.term", term=int(t), route="guided", n_cands=len(cands)):
+                seg, r_lo, r_hi = rank_windows(tm, cands)
+                lens = np.maximum(r_hi - r_lo + 1, 0)
+                touched = 4 * window_words(r_lo, lens, tm.width)
+                self.stats.window_bytes += touched
+                wide = lens[lens > CHUNK_RANKS]
+                self.stats.wide_probes += len(wide)
+                self.stats.wide_ranks += int(wide.sum())
+                row = arena.row[t]
+                parts.append((np.full(len(cands), row), arena.first_seg[row] + seg, r_lo, lens,
+                              cands))
+            if recs is not None:
+                recs[j].own += touched
+                recs[j].wall_ns += time.perf_counter_ns() - t0
         term, seg, r_lo, lens, cands = (np.concatenate(c) for c in zip(*parts))
+        t0 = time.perf_counter_ns()
         found, lt = probe_windows(arena, term, seg, r_lo, lens, cands, device=self.device)
+        if recs is not None:
+            share = (time.perf_counter_ns() - t0) // len(work)
+            for r in recs:
+                r.wall_ns += share
         rank = r_lo + lt
         bounds = np.cumsum([0] + [len(c) for _, _, c in work])
         return [(found[a:b], rank[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
 
-    def _answer(self, items, ranks: bool) -> list:
+    def _answer(self, items, ranks: bool, queries=None) -> list:
         """The probes of (t, sorted candidates, route hint) items, in item
         order, with the accounting of answering them one by one: the default
         decode cache fetches the batch's full lists in one ``decode_terms``
         call, and the guided items share one ``guided_search`` launch.  Each
         answer is (found, rank) with ``ranks``, else found (fallback terms
-        gallop instead of binary-searching every candidate)."""
+        gallop instead of binary-searching every candidate).  ``queries``
+        names each item's query in its probe record (None: the log's
+        ambient context)."""
         items = [(int(t), np.asarray(c), hint) for t, c, hint in items]
-        routes = [self._route(t, len(c), hint) for t, c, hint in items]
+        log = self.probe_log
+        recs = None if log is None else [
+            _Record(t, len(c), None if queries is None else int(queries[i]))
+            for i, (t, c, _) in enumerate(items)]
+        routes = []
+        for i, (t, c, hint) in enumerate(items):
+            m0 = self.stats.metadata_bytes
+            routes.append(self._route(t, len(c), hint))
+            if recs is not None:
+                recs[i].meta = self.stats.metadata_bytes - m0
         full = [t for (t, _, _), (r, _) in zip(items, routes) if r in ("fallback", "decode")]
         if self._cache is not None:
             todo = list(dict.fromkeys(t for t in full if t not in self._cache))
@@ -521,49 +594,104 @@ class GuidedPostings:
         for i, ((t, cands, _), (route, tm)) in enumerate(zip(items, routes)):
             if route == "guided":
                 guided.append(i)
-            elif route == "empty":
-                found = np.zeros(len(cands), bool)
-                out[i] = (found, np.zeros(len(cands), np.int64)) if ranks else found
-            elif ranks:
-                p = self._fallback_list(t)
-                sel = np.searchsorted(p, cands)
-                found = (sel < len(p)) & (p[np.minimum(sel, len(p) - 1)] == cands)
-                out[i] = (found, sel.astype(np.int64))
-            else:
-                out[i] = gallop_membership(self._fallback_list(t), cands)
+                continue
+            t0 = time.perf_counter_ns()
+            f0 = self.stats.fallback_bytes
+            with trace.span("probe.term", term=t, route=route, n_cands=len(cands)):
+                if route == "empty":
+                    found = np.zeros(len(cands), bool)
+                    out[i] = (found, np.zeros(len(cands), np.int64)) if ranks else found
+                elif ranks:
+                    p = self._fallback_list(t)
+                    sel = np.searchsorted(p, cands)
+                    found = (sel < len(p)) & (p[np.minimum(sel, len(p) - 1)] == cands)
+                    out[i] = (found, sel.astype(np.int64))
+                else:
+                    out[i] = gallop_membership(self._fallback_list(t), cands)
+            if recs is not None:
+                recs[i].once = self.stats.fallback_bytes - f0
+                recs[i].wall_ns += time.perf_counter_ns() - t0
         if guided:
-            got = self._probe_guided([(items[i][0], routes[i][1], items[i][1]) for i in guided])
+            got = self._probe_guided(
+                [(items[i][0], routes[i][1], items[i][1]) for i in guided],
+                None if recs is None else [recs[i] for i in guided])
             for i, res in zip(guided, got):
                 out[i] = res if ranks else res[0]
+        if recs is not None:
+            for i, (rec, (route, tm)) in enumerate(zip(recs, routes)):
+                found = out[i][0] if ranks else out[i]
+                rec.finish(self, route, tm, int(found.sum()))
         return out
 
-    def probe_many(self, items) -> list[tuple[np.ndarray, np.ndarray]]:
+    def _emit(self, rec: "_Record") -> None:
+        """Log one finished record, or hold it for ``batch_log``."""
+        log = self.probe_log
+        query, shard = log.current()
+        rec.shard = shard
+        if rec.query is None:
+            rec.query = query
+        if self._held is not None:
+            rec.seq = len(self._held)
+            self._held.append(rec)
+        else:
+            rec.log(log, rec.own + rec.meta + rec.once)
+
+    @contextmanager
+    def batch_log(self):
+        """Hold the probe records logged inside, then log them query by
+        query (the order the reference logs them in), each term's
+        once-per-term bytes — its parsed model, its first fallback decode —
+        on the record of its smallest query that paid them there."""
+        if self.probe_log is None or self._held is not None:
+            yield
+            return
+        self._held = []
+        try:
+            yield
+        finally:
+            held, self._held = self._held, None
+            held.sort(key=lambda r: (r.query, r.seq))
+            meta: dict[int, int] = {}
+            once: dict[int, int] = {}
+            for r in held:
+                meta[r.term] = meta.get(r.term, 0) + r.meta
+                once[r.term] = once.get(r.term, 0) + r.once
+            for r in held:
+                b = r.own
+                if r.route != "empty" and r.term in meta:
+                    b += meta.pop(r.term)
+                if r.route in ("fallback", "decode") and r.term in once:
+                    b += once.pop(r.term)
+                r.log(self.probe_log, b)
+
+    def probe_many(self, items, *, queries=None) -> list[tuple[np.ndarray, np.ndarray]]:
         """(t, candidates, route hint) items -> (contains bool mask, rank
         int64) per item, each what ``probe`` gives it alone."""
-        return self._answer(items, ranks=True)
+        return self._answer(items, ranks=True, queries=queries)
 
-    def contains_many(self, items) -> list[np.ndarray]:
+    def contains_many(self, items, *, queries=None) -> list[np.ndarray]:
         """(t, sorted ascending candidates, route hint) items -> membership
         mask per item, each what ``contains`` gives it alone."""
-        return self._answer(items, ranks=False)
+        return self._answer(items, ranks=False, queries=queries)
 
     def probe(
-        self, t: int, cands: np.ndarray, *, route: str | None = None
+        self, t: int, cands: np.ndarray, *, route: str | None = None, query: int | None = None
     ) -> tuple[np.ndarray, np.ndarray]:
         """-> (contains bool mask, rank int64) for every candidate.
 
         rank(d) = #postings of t strictly below d (searchsorted-left), exact
         whether or not d is present.
         """
-        return self.probe_many([(t, cands, route)])[0]
+        return self.probe_many([(t, cands, route)], queries=None if query is None else [query])[0]
 
     def contains(
-        self, t: int, cands: np.ndarray, *, route: str | None = None
+        self, t: int, cands: np.ndarray, *, route: str | None = None, query: int | None = None
     ) -> np.ndarray:
         """Membership mask for *sorted ascending* candidates (the shape the
         verification loop produces).  Fallback terms skip rank computation
         and gallop instead of binary-searching every candidate."""
-        return self.contains_many([(t, cands, route)])[0]
+        return self.contains_many([(t, cands, route)],
+                                  queries=None if query is None else [query])[0]
 
     def reset_stats(self) -> None:
         """Zero the accounting window: models and fallback decodes will both
@@ -571,4 +699,5 @@ class GuidedPostings:
         the two paths stay symmetric across a reset).  The arena stays."""
         self.stats = ProbeStats()
         self._fallback_seen.clear()
+        self._charged.clear()
         self._models.clear()

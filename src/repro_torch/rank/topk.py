@@ -35,11 +35,13 @@ bm25_score launch over their stacked impact windows.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable, ContextManager, Protocol, Sequence
 
 import numpy as np
 
+from repro_torch.obs import trace
 from repro_torch.rank.score import TopKResult, select_topk
 
 
@@ -179,9 +181,11 @@ def topk_batch(
     exhaustive_cutoff: int = 2048,
     stats: RankedStats | None = None,
     batch_scorer: Callable[[np.ndarray], np.ndarray] | None = None,
+    item_context: Callable[[int], ContextManager] | None = None,
 ) -> list[TopKResult]:
     """Exact top-k of each (terms, k, required, floor) item, each equal to
-    ``topk_query``'s.
+    ``topk_query``'s.  ``item_context(i)``, when given, is entered around
+    item i's reads and probes (a probe log's per-query attribution).
 
     The exhaustive items' lists are fetched in one ``src.prefetch``; with a
     ``batch_scorer`` their (candidate, term) windows are stacked, zero-padded
@@ -203,11 +207,14 @@ def topk_batch(
                 continue
             live, req, optional, exhaustive = order
             stats.exhaustive_postings += sum(src.n(t) for t in live)
-            if not exhaustive:
-                out[i] = _maxscore(src, req, optional, k, floor, stats)
-                continue
-            stats.exhaustive_queries += 1
-            uids, decoded = _read_all(src, live, stats)
+            with item_context(i) if item_context is not None else nullcontext():
+                if not exhaustive:
+                    out[i] = _maxscore(src, req, optional, k, floor, stats)
+                    continue
+                stats.exhaustive_queries += 1
+                with trace.span("score.exhaustive", terms=len(live), k=int(k)) as sp:
+                    uids, decoded = _read_all(src, live, stats)
+                    sp.set(candidates=int(len(uids)))
             if len(uids) == 0:
                 continue
             if batch_scorer is None:
@@ -252,6 +259,17 @@ def _maxscore(src, req, optional, k: int, floor: int, stats: RankedStats) -> Top
     ubs = np.array([src.ub(t) for t in optional], np.int64)
     suffix = np.concatenate([np.cumsum(ubs[::-1])[::-1], [0]])
     theta = _kth_partial(partial, k)
+    with trace.span("score.maxscore", terms=len(optional), k=int(k)) as sp:
+        cands, partial = _peel_optional(src, optional, suffix, cands, partial, accepting_new, theta,
+                               k, floor, stats)
+        sp.set(candidates=int(len(cands)))
+    return select_topk(cands, partial, k, floor)
+
+
+def _peel_optional(src, optional, suffix, cands, partial, accepting_new: bool, theta: int, k: int,
+          floor: int, stats: RankedStats):
+    """MaxScore's peel of the optional terms -> the surviving (candidates,
+    partial scores)."""
     for j, t in enumerate(optional):
         alive_min = max(floor + 1, theta)
         if accepting_new and suffix[j] >= alive_min:
@@ -275,7 +293,7 @@ def _maxscore(src, req, optional, k: int, floor: int, stats: RankedStats) -> Top
                 stats.probed_postings += len(sel)
                 partial[sel[found]] += q[found]
         theta = max(theta, _kth_partial(partial, k))
-    return select_topk(cands, partial, k, floor)
+    return cands, partial
 
 
 def _read_all(src, terms, stats: RankedStats) -> tuple[np.ndarray, list]:

@@ -30,10 +30,24 @@ the facade folds shard heaps in ascending doc-range order, forwarding the
 running k-th best score as the next shard's pruning floor.  Scores are
 integer quantized-impact sums with ties broken by ascending doc id, so the
 merged top-k is bit-identical for K=1 and any K>1 — and to the brute-force
-BM25 oracle (rank.score.brute_force_topk).  The reference's metrics
-registry belongs to a later slice of the port.
+BM25 oracle (rank.score.brute_force_topk).
+
+Observability is the reference's (repro_torch.obs): one ``metrics``
+registry per facade — query counters, per-phase latency histograms
+(``latency.plan_us``, ``mask_us``, ``probe_us``, ``merge_us``,
+``query_us``, ``topk_query_us``) and collectors aggregating the shards
+(``decode_cache``, ``shards``, ``guided``, ``ranked``, ``summary``, and the
+port's ``prefetch``) — and ``serve.*`` spans on the engine's tracer.
+``serving_stats()`` is the reference's deprecated alias of
+``metrics.snapshot()``.  The ranked section keeps the port's count:
+``queries`` tallies (query, shard) pairs, as each shard counts the items
+it served.  Parallel shard execution lives one level up, in the
+continuous-batching scheduler (serve/sched).
 """
 from __future__ import annotations
+
+import time
+import warnings
 
 import numpy as np
 
@@ -41,14 +55,16 @@ from repro_torch.common.config import LearnedIndexConfig
 from repro_torch.core.learned_bloom import LearnedBloom
 from repro_torch.index import store
 from repro_torch.index.build import InvertedIndex
+from repro_torch.obs import trace
+from repro_torch.obs.metrics import Registry
 from repro_torch.postings.search import ProbeStats
 from repro_torch.rank.score import BM25Params, ImpactModel, TopKResult, select_topk
 from repro_torch.rank.topk import RankedStats
-from repro_torch.serve.config import RankedConfig, ServeConfig
+from repro_torch.serve.config import ObsConfig, RankedConfig, SchedConfig, ServeConfig
 from repro_torch.serve.planner import plan_batch, plan_ranked, ranked_run_mask
 from repro_torch.serve.shard import WORD_BITS, ShardEngine, shard_ranges, slice_bloom, unpack_row
 
-__all__ = ["BooleanEngine", "RankedConfig", "ServeConfig"]
+__all__ = ["BooleanEngine", "ObsConfig", "RankedConfig", "SchedConfig", "ServeConfig"]
 
 
 class BooleanEngine:
@@ -97,6 +113,13 @@ class BooleanEngine:
             self._global_dfs = inv.dfs
         else:
             self._global_dfs = sum((s.local_dfs for s in active), start=0)
+        # one registry per facade: primitives (query counters, per-phase
+        # latency histograms) plus collectors aggregating the shards
+        obs = self.cfg.obs
+        self.metrics = obs.metrics if obs.metrics is not None else Registry()
+        self._ranked_queries = self.metrics.counter("queries.ranked")
+        self._boolean_queries = self.metrics.counter("queries.boolean")
+        self._register_collectors()
 
     def _build_impact_model(self) -> ImpactModel:
         """Fit (once) the collection-global quantizer: every shard's payload
@@ -181,6 +204,11 @@ class BooleanEngine:
         bitmap = self._execute(q)
         return [unpack_row(bitmap[i], self.n_docs) for i in range(q.shape[0])]
 
+    def _observe_us(self, name: str, t0_ns: int) -> None:
+        self.metrics.histogram("latency." + name).observe(
+            (time.perf_counter_ns() - t0_ns) / 1e3
+        )
+
     def query_batch_bitmap(self, queries: np.ndarray) -> np.ndarray:
         """(Q, T) padded term ids -> (Q, ceil(n_docs/32)) packed uint32 bitmap."""
         q = self._padded(queries)
@@ -211,26 +239,40 @@ class BooleanEngine:
         empty = TopKResult(ids=np.zeros(0, np.int32), scores=np.zeros(0, np.int64))
         if k <= 0:
             return [empty for _ in range(q.shape[0])]
+        self._ranked_queries.inc(int(q.shape[0]))
         active = self.shards
-        qplans = plan_ranked(q, self._global_dfs, mode=mode, required=required)
-        runs = [ranked_run_mask(qplans, sh.local_dfs) for sh in active]
-        # a shard whose run mask is all-empty contributes nothing to any heap
-        live = [(sh, run) for sh, run in zip(active, runs) if run.any()]
-        # shards outer, one batch per shard, heap floors forwarded between
-        # shards exactly as a per-query loop does: shard doc ranges ascend,
-        # so each shard sees the floors the previous shards established
-        heaps = [empty] * len(qplans)
-        for sh, run in live:
-            idx = [i for i, qp in enumerate(qplans) if not qp.dead and run[i]]
-            if not idx:
-                continue
-            items = []
-            for i in idx:
-                floor = int(heaps[i].scores[k - 1]) if len(heaps[i].scores) == k else 0
-                items.append((qplans[i].terms, k, qplans[i].required, floor))
-            for i, part in zip(idx, sh.query_topk_batch(items)):
-                if len(part.ids):
-                    heaps[i] = _merge_heap(heaps[i], part, k)
+        t_batch = time.perf_counter_ns()
+        with trace.activate(self.cfg.obs.trace), \
+                trace.span("serve.topk_batch", queries=int(q.shape[0]), k=int(k)):
+            with trace.span("serve.plan"):
+                qplans = plan_ranked(q, self._global_dfs, mode=mode, required=required)
+                runs = [ranked_run_mask(qplans, sh.local_dfs) for sh in active]
+            # a shard whose run mask is all-empty contributes nothing to any heap
+            live = [(sh, run) for sh, run in zip(active, runs) if run.any()]
+            # shards outer, one batch per shard, heap floors forwarded between
+            # shards exactly as a per-query loop does: shard doc ranges ascend,
+            # so each shard sees the floors the previous shards established
+            heaps = [empty] * len(qplans)
+            for sh, run in live:
+                idx = [i for i, qp in enumerate(qplans) if not qp.dead and run[i]]
+                if not idx:
+                    continue
+                items = []
+                for i in idx:
+                    floor = int(heaps[i].scores[k - 1]) if len(heaps[i].scores) == k else 0
+                    items.append((qplans[i].terms, k, qplans[i].required, floor))
+                for i, part in zip(idx, sh.query_topk_batch(items, queries=idx)):
+                    if len(part.ids):
+                        with trace.span("serve.heap_merge", query=i, shard=sh.shard_id):
+                            heaps[i] = _merge_heap(heaps[i], part, k)
+        # per-query latency at batch granularity: each live query is charged
+        # the batch mean (the shards serve a batch, not one query at a time)
+        n_live = sum(1 for qp in qplans if not qp.dead)
+        if n_live:
+            us = (time.perf_counter_ns() - t_batch) / 1e3 / n_live
+            hist = self.metrics.histogram("latency.topk_query_us")
+            for _ in range(n_live):
+                hist.observe(us)
         return heaps
 
     def _padded(self, queries: np.ndarray) -> np.ndarray:
@@ -244,13 +286,46 @@ class BooleanEngine:
 
     def _execute(self, q: np.ndarray) -> np.ndarray:
         """Plan, run every shard (candidate masks on the device, then exact
-        verification), merge packed bitmaps by doc offset."""
+        verification), merge packed bitmaps by doc offset.  Each phase is a
+        ``serve.*`` span and a ``latency.*_us`` histogram; the candidate
+        masks of all shards are computed first, then verified shard by
+        shard on the calling thread."""
         active = self.shards
-        plan = plan_batch(q, self._global_dfs, active, verified=self.cfg.verified)
-        parts = []
-        for sh, sp in zip(active, plan.shard_plans):
-            parts.append(sh.execute(q, sp, plan.qplans))
-        return self._merge(parts, active)
+        t_batch = time.perf_counter_ns()
+        self._boolean_queries.inc(int(q.shape[0]))
+        with trace.activate(self.cfg.obs.trace), \
+                trace.span("serve.batch", queries=int(q.shape[0]), shards=len(active)):
+            t0 = time.perf_counter_ns()
+            with trace.span("serve.plan"):
+                plan = plan_batch(q, self._global_dfs, active, verified=self.cfg.verified)
+            self._observe_us("plan_us", t0)
+            t0 = time.perf_counter_ns()
+            masks = []
+            for sh, sp in zip(active, plan.shard_plans):
+                if sh.n_docs > 0 and sp.run.any():
+                    with trace.span("serve.candidate_mask", shard=sh.shard_id):
+                        masks.append(sh.candidate_mask(q))
+                else:
+                    masks.append(None)
+            self._observe_us("mask_us", t0)
+            t0 = time.perf_counter_ns()
+            parts = []
+            for sh, sp, m in zip(active, plan.shard_plans, masks):
+                with trace.span("serve.probe_phase", shard=sh.shard_id):
+                    parts.append(sh.execute(q, sp, plan.qplans, mask=m))
+            self._observe_us("probe_us", t0)
+            t0 = time.perf_counter_ns()
+            with trace.span("serve.merge"):
+                out = self._merge(parts, active)
+            self._observe_us("merge_us", t0)
+        # per-query latency at batch granularity: each query is charged the
+        # batch mean, so histogram counts tally queries
+        n_q = max(int(q.shape[0]), 1)
+        us = (time.perf_counter_ns() - t_batch) / 1e3 / n_q
+        hist = self.metrics.histogram("latency.query_us")
+        for _ in range(n_q):
+            hist.observe(us)
+        return out
 
     def _merge(self, parts: list[np.ndarray], active: list[ShardEngine]) -> np.ndarray:
         """Word-copy each shard's packed bitmap at its doc-id offset (shard
@@ -287,24 +362,39 @@ class BooleanEngine:
             report["payload_bits"] = payload_bits
         return report
 
-    def serving_stats(self) -> dict:
-        """Per-shard stats plus the cache, guided-probe and ranked counters
-        summed across shards."""
-        per = [sh.serving_stats() for sh in self.shards]
+    def _register_collectors(self) -> None:
+        """Aggregating collectors over the shards, all read through one
+        ``Registry.snapshot()``."""
+        reg = self.metrics
+        reg.register("decode_cache", self._collect_cache)
+        reg.register("prefetch", self._collect_prefetch)
+        reg.register(
+            "shards",
+            lambda: [sh.serving_stats() for sh in self.shards],
+            reset=lambda: [sh.reset_stats() for sh in self.shards],
+        )
+        reg.register("guided", self._collect_guided)
+        reg.register("ranked", self._collect_ranked)
+        reg.register("summary", self._collect_summary)
+
+    def _collect_cache(self) -> dict[str, int]:
         keys = ("entries", "cost_bytes", "budget_bytes", "hits", "misses", "evictions")
-        cache = {k: sum(s["decode_cache"][k] for s in per) for k in keys}
-        guided = [sh._guided.stats for sh in self.shards if sh._guided is not None]
-        fields = ("probes", "guided_terms", "fallback_terms", "routed_terms",
-                  "window_bytes", "metadata_bytes", "fallback_bytes", "full_equiv_bytes")
-        return {
-            "decode_cache": cache,
-            "prefetch": {k: sum(s["prefetch"][k] for s in per) for k in per[0]["prefetch"]}
-            if per else None,
-            "guided": ProbeStats(**{f: sum(int(getattr(g, f)) for g in guided) for f in fields}).as_dict()
-            if guided else None,
-            "ranked": self._collect_ranked(),
-            "shards": per,
-        }
+        per = [sh._decode_cache.stats() for sh in self.shards]
+        return {k: sum(s[k] for s in per) for k in keys}
+
+    def _collect_prefetch(self) -> dict[str, int] | None:
+        """The shards' batched full decodes (the port's section)."""
+        per = [sh.prefetch_stats.as_dict() for sh in self.shards]
+        return {k: sum(s[k] for s in per) for k in per[0]} if per else None
+
+    def _collect_guided(self) -> dict | None:
+        """'guided' keeps the single-engine shape: counters summed across
+        shards, ratios recomputed by ProbeStats.as_dict."""
+        per = [sh._guided.stats for sh in self.shards if sh._guided is not None]
+        if not per:
+            return None
+        fields = ProbeStats.__dataclass_fields__
+        return ProbeStats(**{f: sum(int(getattr(g, f)) for g in per) for f in fields}).as_dict()
 
     def _collect_ranked(self) -> dict | None:
         """RankedStats summed over shards; ``queries`` counts (query, shard)
@@ -315,9 +405,37 @@ class BooleanEngine:
         fields = RankedStats.__dataclass_fields__
         return RankedStats(**{f: sum(int(getattr(r, f)) for r in per) for f in fields}).as_dict()
 
+    def _collect_summary(self) -> dict:
+        """The one-number view benchmarks report (the reference's keys)."""
+        cache = self._collect_cache()
+        guided = self._collect_guided()
+        ranked = self._collect_ranked()
+        return {
+            "n_shards": len(self.shards),
+            "cache_hits": cache["hits"],
+            "cache_misses": cache["misses"],
+            "cache_evictions": cache["evictions"],
+            "probe_bytes": guided["guided_bytes"] if guided else 0,
+            "bytes_ratio": guided["bytes_ratio"] if guided else 0.0,
+            "scored_fraction": ranked["scored_fraction"] if ranked else 0.0,
+        }
+
+    def serving_stats(self) -> dict[str, dict]:
+        """Deprecated: one snapshot of the facade metrics registry; read
+        ``engine.metrics.snapshot()`` instead."""
+        warnings.warn(
+            "serving_stats() is deprecated; read engine.metrics.snapshot()",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return self.metrics.snapshot()
+
     def reset_stats(self) -> None:
-        for sh in self.shards:
-            sh.reset_stats()
+        """Zero every accounting window through the metrics registry: facade
+        counters/histograms reset, and each shard's ``reset_stats`` zeroes
+        its own guided/ranked/cache/prefetch state (cached decodes stay
+        resident, so the next pass measures warm serving)."""
+        self.metrics.reset()
 
 
 def _merge_heap(heap: TopKResult, part: TopKResult, k: int) -> TopKResult:

@@ -23,6 +23,15 @@ per kernel (``batch_decodes``), and no list goes unread — and returns a
 *packed bitmap* over local doc ids, word-copyable into the global bitmap
 because shard boundaries are aligned to 32-doc words (``shard_ranges``).
 
+Observability follows the reference's names (repro_torch.obs): a
+per-shard ``metrics`` registry (``serving_stats`` is its snapshot, plus the
+port's ``prefetch`` section), ``shard.*`` and ``decode.*`` spans, and one
+probe record per routed (query, term) probe with the query and the shard
+attributed.  The batch verifies term-major, so ``shard.verify`` is one span
+per verification round (``queries``, ``candidates``, ``results`` summed over
+the round) and each probe record names its query itself; the records are
+logged query by query when the batch is done (``GuidedPostings.batch_log``).
+
 ``query_topk_local`` is the ranked path: the shard runs MaxScore dynamic
 pruning (repro_torch.rank.topk) against its tier-2 payload streams — full
 decodes through the CostLRU, candidate probes through the guided ε-window
@@ -37,7 +46,7 @@ arena where the shard fits one.
 """
 from __future__ import annotations
 
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from itertools import chain
 
@@ -49,6 +58,8 @@ from repro_torch.core import algorithms as alg
 from repro_torch.core.learned_bloom import LearnedBloom
 from repro_torch.index.build import InvertedIndex, slice_index
 from repro_torch.index.intersect import gallop_membership
+from repro_torch.obs import trace
+from repro_torch.obs.metrics import Registry
 from repro_torch.postings.search import decode_kernel, decode_terms, full_decode
 from repro_torch.rank.score import TopKResult
 from repro_torch.rank.topk import RankedStats, topk_batch
@@ -224,7 +235,10 @@ class ShardEngine:
             if store is not None and self.cfg.use_guided:
                 from repro_torch.postings import GuidedPostings
 
-                self._guided = GuidedPostings(store, fallback=self._postings, device=self.device)
+                self._guided = GuidedPostings(
+                    store, fallback=self._postings, device=self.device,
+                    probe_log=getattr(self.cfg, "probe_log", None),
+                )
         return self._guided
 
     def _postings(self, t: int) -> np.ndarray:
@@ -243,7 +257,9 @@ class ShardEngine:
             if hit is None:
                 hit = self._decode_cache.peek(t)
                 if hit is None:  # a host codec, or a list no round fetched
-                    hit = full_decode(store, t, self.device)
+                    with trace.span("decode.postings", term=int(t)) as sp:
+                        hit = full_decode(store, t, self.device)
+                        sp.set(bytes=int(hit.nbytes))
                     self._solo.add(t)
                 self._batch_lists[t] = hit
             self._unread.discard(t)
@@ -252,7 +268,9 @@ class ShardEngine:
         if hit is None:
             hit = self._batch_lists.get(t)
             if hit is None:
-                hit = full_decode(store, t, self.device)
+                with trace.span("decode.postings", term=int(t)) as sp:
+                    hit = full_decode(store, t, self.device)
+                    sp.set(bytes=int(hit.nbytes))
             else:
                 self.prefetch_stats.taken += 1
                 self._unread.discard(t)
@@ -309,7 +327,10 @@ class ShardEngine:
         if todo:
             self.prefetch_stats.calls += 1
             self.prefetch_stats.decoded += len(todo)
-            self._batch_lists.update(zip(todo, decode_terms(store, todo, self.device)))
+            with trace.span("decode.batch", terms=len(todo)) as sp:
+                got = decode_terms(store, todo, self.device)
+                sp.set(bytes=int(sum(ids.nbytes for ids in got)))
+            self._batch_lists.update(zip(todo, got))
             self._unread.update(todo)
 
     # ------------------------------------------------------------- ranked
@@ -341,7 +362,7 @@ class ShardEngine:
         larger ids, so floor ties lose).  The one-item ``query_topk_batch``."""
         return self.query_topk_batch([(tuple(terms), k, tuple(required), floor)])[0]
 
-    def query_topk_batch(self, items) -> list[TopKResult]:
+    def query_topk_batch(self, items, queries=None) -> list[TopKResult]:
         """Batched ranked entry point: [(terms, k, required, floor), ...] ->
         one TopKResult per item, global doc ids.
 
@@ -350,18 +371,29 @@ class ShardEngine:
         otherwise multi-phase MaxScore (``rank.topk.topk_batch``), whose
         exhaustive items are decoded together and, with
         ``ranked.score_kernel``, scored in one ``bm25_score`` launch.  Both
-        paths are bit-identical.
+        paths are bit-identical.  ``queries`` names each item's query in its
+        probe records on the multi-phase path, where items are served one
+        after another (the fused path's records keep the ambient query).
         """
         cutoff = self.cfg.ranked.topk_exhaustive_cutoff
+        log = getattr(self.cfg, "probe_log", None)
+        ctx = log.context(query=None, shard=self.shard_id) if log is not None else nullcontext()
         if self.cfg.ranked.fused_kernel:
             from repro_torch.kernels.fused_query.ops import fused_topk_batch
 
-            answers = fused_topk_batch(
-                self.ranked, items, exhaustive_cutoff=cutoff, stats=self.ranked_stats)
+            with ctx, trace.span("shard.topk_batch", shard=self.shard_id, items=len(items)):
+                answers = fused_topk_batch(
+                    self.ranked, items, exhaustive_cutoff=cutoff, stats=self.ranked_stats)
         else:
-            answers = topk_batch(
-                self.ranked, items, exhaustive_cutoff=cutoff, stats=self.ranked_stats,
-                batch_scorer=self._batch_scorer() if self.cfg.ranked.score_kernel else None)
+            per_item = None
+            if log is not None and queries is not None:
+                def per_item(i):
+                    return log.context(query=int(queries[i]), shard=None)
+            with ctx, trace.span("shard.topk", shard=self.shard_id, items=len(items)):
+                answers = topk_batch(
+                    self.ranked, items, exhaustive_cutoff=cutoff, stats=self.ranked_stats,
+                    batch_scorer=self._batch_scorer() if self.cfg.ranked.score_kernel else None,
+                    item_context=per_item)
         return [self._globalize(a) for a in answers]
 
     def _globalize(self, ans: TopKResult) -> TopKResult:
@@ -381,8 +413,9 @@ class ShardEngine:
         'guided' | 'decode' for learned-codec terms, None when no model
         applies (classical codec, raw store, or guided probing disabled)."""
         g = self.guided
-        route = g.route(t, est_cands) if g is not None else None
-        return route if route in ("guided", "decode") else None
+        if g is None or g.term_model(t) is None:  # charges the model's bytes, as a probe would
+            return None
+        return g.route(t, est_cands)
 
     # ------------------------------------------------------------- execute
     def candidate_mask(self, q: np.ndarray) -> np.ndarray:
@@ -409,7 +442,10 @@ class ShardEngine:
         if self.n_docs == 0 or (run is not None and not run.any()):
             return out
         if mask is None:
-            mask = self.candidate_mask(q)
+            # worker path (no facade precompute): span the candidate step so
+            # a replica's shipped trace shows it apart from verification
+            with trace.span("shard.candidate_mask", shard=self.shard_id, queries=n_queries):
+                mask = self.candidate_mask(q)
         if not self.cfg.verified:
             for i in range(n_queries):
                 if run is None or run[i]:
@@ -426,7 +462,7 @@ class ShardEngine:
                 terms, routes = self._local_order(q[i]), None
             rows.append(i)
             jobs.append((terms, unpack_row(mask[i], self.n_docs), routes))
-        for i, ids in zip(rows, self._verify_batch(jobs)):
+        for i, ids in zip(rows, self._verify_batch(jobs, queries=rows)):
             out[i] = pack_ids(ids, self.n_docs)
         return out
 
@@ -442,10 +478,11 @@ class ShardEngine:
         """Exact candidate re-check of one query in local term order."""
         return self._verify_batch([(self._local_order(query), ids, None)])[0]
 
-    def _verify_batch(self, jobs) -> list[np.ndarray]:
+    def _verify_batch(self, jobs, queries=None) -> list[np.ndarray]:
         """Exact re-check of a batch's candidates against tier-2; ``jobs``
         holds one (terms in order, sorted candidate ids, planner routes or
-        None) per query.
+        None) per query, ``queries`` each job's query index in the batch
+        (its probe records' ``query``; by default the job's position).
 
         Each term filters a query's survivors either by guided ε-window
         probes (learned-codec terms, honoring the planner's route hint) or
@@ -460,6 +497,7 @@ class ShardEngine:
         query, so its gets, puts and counters are those of verifying one
         query after another.
         """
+        qids = list(range(len(jobs))) if queries is None else [int(i) for i in queries]
         out = [ids for _, ids, _ in jobs]
         live = []
         for j, (terms, ids, _) in enumerate(jobs):
@@ -470,40 +508,59 @@ class ShardEngine:
                 continue
             live.append(j)
         guided = self.guided
+        log = getattr(self.cfg, "probe_log", None)
+        traced = trace.current() is not None
         reads: list[list[int]] = [[] for _ in jobs]
-        with self.batch_decodes():
+        with self.batch_decodes(), \
+                (log.context(query=None, shard=self.shard_id) if log is not None
+                 else nullcontext()), \
+                (guided.batch_log() if guided is not None else nullcontext()):
             try:
                 r = 0
                 while live:
-                    items = {}
-                    for j in live:
-                        terms, _, routes = jobs[j]
-                        hint = routes.get(terms[r]) if routes else None
-                        route = None if guided is None else guided.route(terms[r], len(out[j]), hint)
-                        items[j] = (terms[r], hint, route)
-                    self._postings_many(t for t, _, route in items.values() if route != "guided")
-                    probed = [j for j in live if items[j][2] == "guided"]
-                    if probed:
-                        masks = guided.contains_many(
-                            [(items[j][0], out[j], items[j][1]) for j in probed])
-                        for j, mask in zip(probed, masks):
-                            out[j] = out[j][mask]
-                    for j in live:
-                        t, hint, route = items[j]
-                        if route == "guided":
-                            continue
-                        self._reads = reads[j]
-                        ids = out[j]
-                        if guided is not None:
-                            out[j] = ids[guided.contains(t, ids, route=hint)]
-                        else:
-                            out[j] = ids[gallop_membership(self._postings(t), ids)]
+                    with trace.span("shard.verify", shard=self.shard_id, round=r,
+                                    queries=len(live)) as sp:
+                        if traced:
+                            sp.set(candidates=int(sum(len(out[j]) for j in live)))
+                        self._verify_round(jobs, out, live, r, qids, reads)
+                        if traced:
+                            sp.set(results=int(sum(len(out[j]) for j in live)))
                     r += 1
                     live = [j for j in live if r < len(jobs[j][0]) and len(out[j])]
             finally:
                 self._reads = None
             self._replay(reads)
         return out
+
+    def _verify_round(self, jobs, out, live, r: int, qids, reads) -> None:
+        """Round r of ``_verify_batch``: the r-th term of every live job,
+        the guided items in one ``contains_many`` call, the rest one by
+        one over the lists one ``_postings_many`` call fetched."""
+        guided = self.guided
+        items = {}
+        for j in live:
+            terms, _, routes = jobs[j]
+            hint = routes.get(terms[r]) if routes else None
+            route = None if guided is None else guided.route(terms[r], len(out[j]), hint)
+            items[j] = (terms[r], hint, route)
+        self._postings_many(t for t, _, route in items.values() if route != "guided")
+        probed = [j for j in live if items[j][2] == "guided"]
+        if probed:
+            masks = guided.contains_many(
+                [(items[j][0], out[j], items[j][1]) for j in probed],
+                queries=[qids[j] for j in probed])
+            for j, mask in zip(probed, masks):
+                out[j] = out[j][mask]
+        for j in live:
+            t, hint, route = items[j]
+            if route == "guided":
+                continue
+            self._reads = reads[j]
+            ids = out[j]
+            if guided is not None:
+                out[j] = ids[guided.contains(t, ids, route=hint, query=qids[j])]
+            else:
+                out[j] = ids[gallop_membership(self._postings(t), ids)]
 
     # ------------------------------------------------------------- stats
     def memory_bits(self) -> dict[str, int]:
@@ -519,28 +576,48 @@ class ShardEngine:
                 bits["payload_bits"] = int(self._tier2.payload_size_bits())
         return bits
 
-    def serving_stats(self) -> dict[str, dict | None]:
-        """Decode-cache behaviour, batched full decodes, guided-probe byte
-        accounting, ranked pruning counters and the arena's residence
-        counters."""
+    @property
+    def metrics(self) -> Registry:
+        """This shard's metrics registry (built lazily; collectors close over
+        self, so the registry tracks later cache/guided/ranked replacements):
+        range, decode-cache behaviour, batched full decodes (the port's
+        ``prefetch``), guided-probe byte accounting, ranked pruning counters
+        and the arena's residence counters."""
+        reg = getattr(self, "_metrics", None)
+        if reg is None:
+            reg = Registry()
+            reg.register("range", lambda: {"lo": int(self.lo), "hi": int(self.hi)})
+            reg.register("decode_cache", self._decode_cache.stats,
+                         reset=self._decode_cache.reset_counters)
+            reg.register("prefetch", lambda: self.prefetch_stats.as_dict(),
+                         reset=lambda: setattr(self, "prefetch_stats", PrefetchStats()))
+            reg.register(
+                "guided",
+                lambda: self._guided.stats.as_dict() if self._guided is not None else None,
+                reset=lambda: self._guided.reset_stats() if self._guided is not None else None,
+            )
+            reg.register(
+                "ranked",
+                lambda: self.ranked_stats.as_dict() if self.ranked_stats.queries else None,
+                reset=lambda: setattr(self, "ranked_stats", RankedStats()),
+            )
+            reg.register("arena", self._arena_counters)
+            self._metrics = reg
+        return reg
+
+    def _arena_counters(self) -> dict | None:
         arena = self._ranked._arena if self._ranked is not None else None
-        return {
-            "range": {"lo": int(self.lo), "hi": int(self.hi)},
-            "decode_cache": self._decode_cache.stats(),
-            "prefetch": self.prefetch_stats.as_dict(),
-            "guided": self._guided.stats.as_dict() if self._guided is not None else None,
-            "ranked": self.ranked_stats.as_dict() if self.ranked_stats.queries else None,
-            "arena": arena.counters.as_dict() if arena else None,
-        }
+        return arena.counters.as_dict() if arena else None
+
+    def serving_stats(self) -> dict[str, dict | None]:
+        """One snapshot of this shard's metrics registry."""
+        return self.metrics.snapshot()
 
     def reset_stats(self) -> None:
-        """Zero the probe/cache/ranked accounting window; cached decodes stay
-        resident so the next pass measures warm serving."""
-        self._decode_cache.reset_counters()
-        self.prefetch_stats = PrefetchStats()
-        self.ranked_stats = RankedStats()
-        if self._guided is not None:
-            self._guided.reset_stats()
+        """Zero the probe/cache/ranked accounting window through the
+        registry; cached decodes stay resident so the next pass measures
+        warm serving."""
+        self.metrics.reset()
 
 
 class _RankedSource:
@@ -569,7 +646,9 @@ class _RankedSource:
         key = ("pay", t)
         hit = self._sh._decode_cache.get(key)
         if hit is None:
-            hit = self._store.payloads(t).astype(np.int64)
+            with trace.span("decode.payloads", term=int(t)) as sp:
+                hit = self._store.payloads(t).astype(np.int64)
+                sp.set(bytes=int(hit.nbytes))
             self._sh._decode_cache.put(key, hit, hit.nbytes)
         return hit
 

@@ -258,6 +258,12 @@ assert two_tier <= set(mods), two_tier - set(mods)
 tuned = {"repro_torch.kernels.autotune", "repro_torch.kernels.fused_query.dense",
          "repro_torch.kernels.fused_query.ref"}
 assert tuned <= set(mods), tuned - set(mods)
+obs = {"repro_torch.obs." + m for m in ("metrics", "trace", "probelog", "slo", "export",
+                                        "collate")}
+sched = {"repro_torch.serve.sched." + m for m in ("api", "admission", "replica", "worker",
+                                                  "session")}
+assert obs | sched | {"repro_torch.obs", "repro_torch.serve.sched"} <= set(mods), \
+    (obs | sched) - set(mods)
 print(len(mods))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

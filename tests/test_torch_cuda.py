@@ -743,3 +743,81 @@ def test_two_tier_bitmap_zeroed_by_graph_replay():
     want = two_tier_candidates(*args, 0.05)
     for out in _replays(lambda: two_tier_candidates(*args, 0.05)):
         assert torch.equal(out, want)
+
+
+# ------------------------------------------------- the scheduler on the card
+def _small_engine(dev, **cfg):
+    """A 2-shard engine on ``dev`` over a 600-doc collection, parameters made
+    with numpy from a seed."""
+    from repro_torch.common.config import CorpusConfig, LearnedIndexConfig
+    from repro_torch.core.learned_bloom import fit_thresholds
+    from repro_torch.core.membership import params_from_jax
+    from repro_torch.data.corpus import synthesize_corpus
+    from repro_torch.index.build import build_inverted_index
+    from repro_torch.serve import BooleanEngine, ServeConfig
+
+    corpus = synthesize_corpus(CorpusConfig(n_docs=600, n_terms=2400, avg_doc_len=50, seed=31))
+    inv = build_inverted_index(corpus)
+    rng = np.random.default_rng(2)
+    params = {"term_embed": {"table": (rng.standard_normal((2400, 16)) * 0.3).astype(np.float32)},
+              "doc_embed": {"table": (rng.standard_normal((600, 16)) * 0.3).astype(np.float32)},
+              "bias": np.float32(0.0)}
+    lb = fit_thresholds(params_from_jax(params, device=dev), inv)
+    li = LearnedIndexConfig(embed_dim=16, truncation_k=16, block_size=64)
+    eng = BooleanEngine(lb, inv, li, ServeConfig(n_shards=2, device=str(dev), **cfg))
+    return corpus, inv, eng
+
+
+@pytest.mark.cuda
+def test_session_process_replicas_on_card_equal_inline(tmp_path):
+    """Two shards, one spawned worker each, serving on the card: Boolean
+    results and top-10 lists equal inline serving and brute force, and the
+    workers' kernel spans land in their own trace lanes."""
+    dev = _card()
+    from repro_torch.data.queries import brute_force_answers, sample_queries, zipf_disjunctions
+    from repro_torch.obs import Tracer, nesting_violations
+    from repro_torch.rank.score import brute_force_topk
+    from repro_torch.serve import QueryRequest, Session
+
+    corpus, inv, eng = _small_engine(dev, ranked=dict(score_kernel=True))
+    q = sample_queries(corpus, 32, seed=3)
+    rq, _ = zipf_disjunctions(inv.dfs, 16, seed=7)
+    answers = {}
+    for replicas in (0, 1):
+        eng.cfg.sched.n_replicas = replicas
+        eng.cfg.obs.trace = tracer = Tracer()
+        with Session(eng, store_dir=str(tmp_path) if replicas else None) as s:
+            futs = [s.submit_async(QueryRequest(terms=row)) for row in q]
+            rfuts = [s.submit_async(QueryRequest(terms=row, mode="ranked", k=10)) for row in rq]
+            answers[replicas] = ([f.result(timeout=120) for f in futs],
+                                 [f.result(timeout=120) for f in rfuts])
+            pids = {r.pid for g in s._groups for r in g.replicas} if replicas else set()
+    exact = brute_force_answers(corpus, q)
+    oracle = brute_force_topk(inv, eng.impact_model, rq, 10)
+    for replicas, (bools, ranked) in answers.items():
+        for r, e in zip(bools, exact, strict=True):
+            assert r.ok and np.array_equal(r.ids, e), replicas
+        for r, o in zip(ranked, oracle, strict=True):
+            assert r.ok and np.array_equal(r.ids, o.ids) and np.array_equal(r.scores, o.scores)
+    worker = [sp for sp in tracer.spans if sp.pid != 0]
+    assert {sp.pid for sp in worker} == pids and len(pids) == 2
+    assert {"kernel.membership", "kernel.bitset"} <= {sp.name for sp in worker}
+    assert nesting_violations(tracer.spans, slack_us=0.5) == []
+
+
+@pytest.mark.cuda
+def test_workers_find_the_kernels_already_built(tmp_path):
+    """A session on a CUDA engine builds the kernels before it spawns any
+    worker: the workers load the libraries and rebuild none."""
+    dev = _card()
+    from repro_torch.kernels import cuda
+    from repro_torch.serve import Session
+
+    corpus, inv, eng = _small_engine(dev, sched=dict(n_replicas=1))
+    with Session(eng, store_dir=str(tmp_path)) as s:
+        built = {p: p.stat().st_mtime_ns for p in cuda.BUILD_DIR.glob("lib*.so")}
+        assert len(built) == len(list(cuda.CSRC.glob("*.cu")))
+        s.warm()
+        assert all(r.alive for g in s._groups for r in g.replicas)
+    assert {p: p.stat().st_mtime_ns for p in cuda.BUILD_DIR.glob("lib*.so")} == built
+    assert not list(cuda.BUILD_DIR.glob("*.tmp")) and cuda.build_all() == {}

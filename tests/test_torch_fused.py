@@ -203,7 +203,7 @@ def test_fused_paths_exact_across_codec_tiers(path, k):
         _same(got, engs["multiphase"].query_topk(q, k, **kw), (path, "multiphase"))
         _same(got, ref.query_topk(q, k, **kw), (path, "reference"))
         _same(got, brute_force_topk(inv, im, q, k, **kw), (path, "brute force"))
-    s = eng.serving_stats()["ranked"]
+    s = eng.metrics.snapshot()["ranked"]
     assert s["fused_queries"] > 0 and s["fused_lanes"] > 0
 
 
@@ -241,4 +241,4 @@ def test_wide_brackets_resolve_on_host_and_are_counted(monkeypatch):
     im = ImpactModel.build(inv)
     for kw in (dict(), dict(required=req)):
         _same(eng.query_topk(q, K, **kw), brute_force_topk(inv, im, q, K, **kw), "W_CAP=0")
-    assert eng.serving_stats()["ranked"]["fused_wide_lanes"] > 0
+    assert eng.metrics.snapshot()["ranked"]["fused_wide_lanes"] > 0

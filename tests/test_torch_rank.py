@@ -213,7 +213,7 @@ def test_configurations_take_their_paths(system, monkeypatch):
         eng.query_topk(q, 10, required=req)
         eng.query_topk(q, 10)
         ran = {n: calls[n] - before[n] for n in calls}
-        ranked = eng.serving_stats()["ranked"]
+        ranked = eng.metrics.snapshot()["ranked"]
         if config == "a":
             assert ran["bm25"] > 0 and ran["fused"] == 0 and ranked["exhaustive_queries"] > 0
         elif config == "b":
@@ -221,7 +221,7 @@ def test_configurations_take_their_paths(system, monkeypatch):
             assert ranked["fused_queries"] > 0 and ranked["fused_lanes"] > 0
         else:
             assert dense.launches > dense_before and ran["fused"] > 0  # required items
-            arena = eng.serving_stats()["shards"][0]["arena"]
+            arena = eng.metrics.snapshot()["shards"][0]["arena"]
             assert arena["uploads"] == 1 and arena["hits"] > 0
 
 
@@ -284,7 +284,7 @@ def test_batched_multiphase_matches_per_item_loop_and_reference(system, score_ke
         _assert_same(got, _per_item_topk(loop, q, 10, **kw), ("loop", kw))
         _assert_same(got, ref.query_topk(q, 10, **kw), ("reference", kw))
         _assert_same(got, brute_force_topk(inv, batched.impact_model, q, 10, **kw), kw)
-    stats, stats0 = batched.serving_stats(), loop.serving_stats()
+    stats, stats0 = batched.metrics.snapshot(), loop.metrics.snapshot()
     assert stats["ranked"] == stats0["ranked"]
     assert 0 < stats["ranked"]["exhaustive_queries"] < stats["ranked"]["queries"]
     assert stats["ranked"]["probed_postings"] > 0
@@ -350,7 +350,7 @@ def test_ranked_stats_keys_and_counts(system):
     eng.reset_stats()
     *_, q, _ = system
     eng.query_topk(q, 10)
-    d = eng.serving_stats()["ranked"]
+    d = eng.metrics.snapshot()["ranked"]
     assert set(RankedStats().as_dict()) == set(d)
     assert d["fused_wide_lanes"] == 0 and d["queries"] == int((q >= 0).any(axis=1).sum())
     assert 0 < d["touched_postings"] <= d["exhaustive_postings"]

@@ -67,7 +67,7 @@ def test_query_batch_bit_identical_to_reference_and_brute_force(system, k):
     for g, w, e in zip(got, want, exact):
         assert g.dtype == w.dtype and np.array_equal(g, w) and np.array_equal(g, e)
     assert np.array_equal(eng.query_batch_bitmap(q), ref.query_batch_bitmap(q))
-    stats = eng.serving_stats()
+    stats = eng.metrics.snapshot()
     assert stats["guided"]["probes"] > 0 and len(stats["shards"]) == k
     assert eng.memory_report() == ref.memory_report()
 
@@ -157,7 +157,7 @@ def test_prefetch_keeps_results_and_decode_cache(system, monkeypatch, k, budget)
             eng = BooleanEngine(lb, inv, li_cfg, ServeConfig(
                 n_shards=k, device="cpu", cache_budget_bytes=budget))
             res = [eng.query_batch(q), eng.query_batch(q)]
-        runs[prefetch] = (res, _decode_entries(eng), eng.serving_stats(), launches, counts)
+        runs[prefetch] = (res, _decode_entries(eng), eng.metrics.snapshot(), launches, counts)
     (got, entries, stats, fewer, counts), (want, entries0, stats0, per_term, counts0) = (
         runs[True], runs[False])
     for batch, batch0 in zip(got, want):
@@ -208,7 +208,7 @@ def test_ranked_prefetch_keeps_results_and_decode_cache(system, monkeypatch, con
             eng = BooleanEngine(lb, inv, li_cfg, ServeConfig(
                 n_shards=2, device="cpu", cache_budget_bytes=6000, ranked=config))
             res = [eng.query_topk(q, 10), eng.query_topk(q, 10, required=req)]
-        runs[prefetch] = (res, _decode_entries(eng), eng.serving_stats(), counts)
+        runs[prefetch] = (res, _decode_entries(eng), eng.metrics.snapshot(), counts)
     (got, entries, stats, counts), (want, entries0, stats0, _) = runs[True], runs[False]
     oracle = [brute_force_topk(inv, eng.impact_model, q, 10),
               brute_force_topk(inv, eng.impact_model, q, 10, required=req)]
@@ -296,11 +296,11 @@ def test_learned_shard_verifies_each_round_in_one_guided_call(system, monkeypatc
                 calls["plain"] += 1
                 return plain(*a)
 
-            def counted_many(self, items):  # the calls that hold guided items
+            def counted_many(self, items, queries=None):  # the calls that hold guided items
                 calls["guided"] += any(self.route(t, len(c), h) == "guided" for t, c, h in items)
                 if mode == "items":
                     return [many(self, [item])[0] for item in items]
-                return many(self, items)
+                return many(self, items, queries=queries)
 
             m.setattr(guided_kernel, "probe_ref", counted_plain)
             m.setattr(GuidedPostings, "contains_many", counted_many)
