@@ -9,7 +9,7 @@ It needs a CUDA card, ``nvcc`` and the repository checkout it lives in; it
 exits non-zero without a result when either is missing.  It prints the
 card's name and power limit first, then one JSON line per phase:
 
-  build  the nine kernels compiled from ``src/repro_torch/kernels/csrc``
+  build  the ten kernels compiled from ``src/repro_torch/kernels/csrc``
   A      the main path at Robust scale: corpus, inverted index, 300 training
          steps of the membership model, zero-false-negative thresholds, then
          128 conjunctive queries through ``BooleanEngine.query_batch`` at one
@@ -73,7 +73,9 @@ card's name and power limit first, then one JSON line per phase:
          within the margin of tau; its plain version reads a count back,
          so its plain time is eager); dense_topk on phase R's largest dense
          pass and on a synthetic arena at the caps (131,072 docs, 511 terms, 64
-         queries, k = 10 and 32), its plain version the PyTorch peel loop
+         queries, k = 10 and 32), its plain version the PyTorch peel loop;
+         mlp_membership at phase M's K=4 shard shape (every logit and every
+         bit against its plain version, within the margin)
   Q      the continuous-batching scheduler (``serve.sched.Session``) on
          phase A's K=4 engine with R's payloads: one spawned process
          replica per shard (four workers on the card, each rebuilt from a
@@ -88,6 +90,17 @@ card's name and power limit first, then one JSON line per phase:
          worker, ``kernel.*`` spans in them, no nesting violation); a crash
          (the next batch respawns the worker and is exact).  Its launch counts are this process's
          (the inline pass); the workers' launches show as their spans
+  M      the MLP head at phase A's width: a ``mlp_hidden=(128,)`` model on
+         A's collection, trained as A's (300 steps of 2,048), zero-FN
+         thresholds (false-negative rate exactly 0.0, asserted), then A's 128
+         queries served from S's saved K=4 store as block and as two-tier
+         engines, cold and warm: every candidate step on mlp_membership (one
+         launch a running shard and batch, no membership launch, asserted),
+         block results equal brute force, two-tier held to the guarantee;
+         seconds of training, thresholds, loading and serving, launches and
+         probes per run
+  K      the port's quickstart (``repro_torch.launch.quickstart``) on the card
+         at the reference's size, its 13 steps and their checks
   A_block
          Algorithm 3's candidate step on one of A's K=1 batches, after C
          (its calls are all at that shape): its time (``block_query_ms``),
@@ -98,10 +111,11 @@ card's name and power limit first, then one JSON line per phase:
          phase C's dense_topk rows and the dense passes of phases A to S
          (one dense_topk launch a pass, asserted in phase R)
 
-then the ``kernels`` line (launch counts from phases A, B, R, S and Q, times,
-bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed check
-raises, and the script exits non-zero.  ``--phases`` runs a subset (R and D
-need A; S and Q need A and R; C needs A, B and R; A_block runs with A), ``--src``
+then the ``kernels`` line (launch counts from phases A, B, R, S, Q, M and K,
+times, bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed
+check raises, and the script exits non-zero.  ``--phases`` runs a subset (R
+and D need A; S and Q need A and R; M needs A, R and S; C needs A, B and R;
+A_block runs with A), ``--src``
 drives the package of another checkout (phases A, A_block, B, R and D only
 need what every version of the port has; S and C need Algorithm 2's kernel,
 and C times dense_topk only in a package that has it),
@@ -112,6 +126,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -152,7 +167,13 @@ def stats_of(eng) -> dict:
     return metrics.snapshot() if metrics is not None else eng.serving_stats()
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; phase lines also carry ``t``, the run's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -389,6 +410,7 @@ def phase_a(args, dev, launches, clock: DecodeClock, keep: dict) -> dict:
     import torch
 
     from repro_torch.common.config import CorpusConfig, LearnedIndexConfig
+    from repro_torch.core import learned_bloom
     from repro_torch.core.learned_bloom import false_negative_rate, fit_thresholds
     from repro_torch.data.corpus import synthesize_corpus
     from repro_torch.data.queries import brute_force_answers, sample_queries, zipf_conjunctions
@@ -416,6 +438,8 @@ def phase_a(args, dev, launches, clock: DecodeClock, keep: dict) -> dict:
     fnr = false_negative_rate(lb, inv)
     if fnr != 0.0:
         raise AssertionError(f"false-negative rate {fnr} != 0")
+    fpr = learned_bloom.false_positive_rate(lb, inv) \
+        if hasattr(learned_bloom, "false_positive_rate") else None  # an older package has none
 
     q = np.concatenate([
         sample_queries(corpus, 64, seed=3),
@@ -456,7 +480,7 @@ def phase_a(args, dev, launches, clock: DecodeClock, keep: dict) -> dict:
             "guided": stats["guided"],
             "results": int(sum(len(r) for r in res)),
         }
-    keep.update(inv=inv, lb=lb, li_cfg=li_cfg, batch=q, exact=exact)
+    keep.update(corpus=corpus, inv=inv, lb=lb, li_cfg=li_cfg, batch=q, exact=exact)
     return {
         "phase": "A",
         "docs": corpus.n_docs,
@@ -466,6 +490,7 @@ def phase_a(args, dev, launches, clock: DecodeClock, keep: dict) -> dict:
         "embed_dim": li_cfg.embed_dim,
         "block_size": li_cfg.block_size,
         "false_negative_rate": fnr,
+        "false_positive_rate": fpr,
         "exact": True,
         "seconds": secs,
         "decode": decode,
@@ -749,8 +774,8 @@ def phase_r(dev, launches, clock: DecodeClock, keep: dict) -> dict:
 def phase_s(dev, launches, clock: DecodeClock, keep: dict) -> dict:
     """The persistent shard-store and Algorithm 2 at phase A's scale: phase
     A's K=4 engine (with R's payloads) saved, reloaded and served as block
-    and as two-tier engines; the store directory is removed at the end."""
-    import shutil
+    and as two-tier engines; the store directory stays for phase M and is
+    removed at the end of the run."""
     import tempfile
 
     import numpy as np
@@ -794,73 +819,70 @@ def phase_s(dev, launches, clock: DecodeClock, keep: dict) -> dict:
 
     root = ROOT / "build"
     root.mkdir(parents=True, exist_ok=True)
-    path = tempfile.mkdtemp(prefix="chip_smoke_store_", dir=root)
-    try:
-        timed("save", lambda: eng4.save(path))
-        disk: dict[str, int] = {}
-        for d, _, files in os.walk(path):
-            for f in files:
-                kind = f[:-4] if f.endswith(".bin") else f
-                disk[kind] = disk.get(kind, 0) + os.path.getsize(os.path.join(d, f))
+    path = keep["store"] = tempfile.mkdtemp(prefix="chip_smoke_store_", dir=root)  # main removes it
+    timed("save", lambda: eng4.save(path))
+    disk: dict[str, int] = {}
+    for d, _, files in os.walk(path):
+        for f in files:
+            kind = f[:-4] if f.endswith(".bin") else f
+            disk[kind] = disk.get(kind, 0) + os.path.getsize(os.path.join(d, f))
 
-        # block serving from the store: phase A's K=4 results, phase R's (a)
-        eng_b = timed("from_store_block", lambda: BooleanEngine.from_store(
-            lb, li_cfg, ServeConfig(n_shards=4, device=str(dev), ranked=dict(score_kernel=True)),
-            path))
-        for name in ("block_cold", "block_warm"):
-            res = served(name, eng_b)
-            bad = [i for i, (r, e) in enumerate(zip(res, keep["results"][4]))
-                   if not np.array_equal(r, e)]
-            if bad:
-                raise AssertionError(f"{name}: {len(bad)} queries differ from phase A's K=4 "
-                                     f"results, first {bad[:5]}")
-        rq, oracle = keep["ranked"]
-        before = launches()
-        got, decode = clock.account(eng_b, launches, lambda: eng_b.query_topk(rq, R_TOPK))
-        secs["ranked_a"] = decode["batch_s"]
-        _check_topk(got, oracle, "S ranked (a) from the store")
-        runs["ranked_a"] = {"launches": {n: c - before[n] for n, c in launches().items()},
-                            "decode": decode, "ranked_stats": stats_of(eng_b)["ranked"]}
-        log(f"[S] ranked_a: {runs['ranked_a']}")
-        del eng_b
+    # block serving from the store: phase A's K=4 results, phase R's (a)
+    eng_b = timed("from_store_block", lambda: BooleanEngine.from_store(
+        lb, li_cfg, ServeConfig(n_shards=4, device=str(dev), ranked=dict(score_kernel=True)),
+        path))
+    for name in ("block_cold", "block_warm"):
+        res = served(name, eng_b)
+        bad = [i for i, (r, e) in enumerate(zip(res, keep["results"][4]))
+               if not np.array_equal(r, e)]
+        if bad:
+            raise AssertionError(f"{name}: {len(bad)} queries differ from phase A's K=4 "
+                                 f"results, first {bad[:5]}")
+    rq, oracle = keep["ranked"]
+    before = launches()
+    got, decode = clock.account(eng_b, launches, lambda: eng_b.query_topk(rq, R_TOPK))
+    secs["ranked_a"] = decode["batch_s"]
+    _check_topk(got, oracle, "S ranked (a) from the store")
+    runs["ranked_a"] = {"launches": {n: c - before[n] for n, c in launches().items()},
+                        "decode": decode, "ranked_stats": stats_of(eng_b)["ranked"]}
+    log(f"[S] ranked_a: {runs['ranked_a']}")
+    del eng_b
 
-        # two-tier serving from the store, verified
-        eng_t = timed("from_store_two_tier", lambda: BooleanEngine.from_store(
-            lb, li_cfg, ServeConfig(algorithm="two_tier", n_shards=4, device=str(dev)), path))
-        tier1_bytes = sum(sh.state.tier1_bits // 8 for sh in eng_t.shards)
-        timed("tier1_upload", lambda: [sh.state.tier1 for sh in eng_t.shards])
-        qpad = eng_t._padded(q)
-        plan = plan_batch(qpad, eng_t._global_dfs, eng_t.shards, verified=True)
-        running = sum(bool(sp.run.any()) for sp in plan.shard_plans)
-        for name in ("two_tier_cold", "two_tier_warm"):
-            res = served(name, eng_t)
-            guar = check_two_tier(eng_t, q, res, exact, li_cfg.truncation_k)
-            n = runs[name]["launches"]["two_tier"]
-            if n != running:
-                raise AssertionError(f"{name}: {n} two_tier launches for one batch on "
-                                     f"{running} shards")
-        if not guar.any():
-            raise AssertionError("no query is guaranteed on every shard")
-        n_exact = sum(np.array_equal(r, e) for r, e in zip(res, exact))
+    # two-tier serving from the store, verified
+    eng_t = timed("from_store_two_tier", lambda: BooleanEngine.from_store(
+        lb, li_cfg, ServeConfig(algorithm="two_tier", n_shards=4, device=str(dev)), path))
+    tier1_bytes = sum(sh.state.tier1_bits // 8 for sh in eng_t.shards)
+    timed("tier1_upload", lambda: [sh.state.tier1 for sh in eng_t.shards])
+    qpad = eng_t._padded(q)
+    plan = plan_batch(qpad, eng_t._global_dfs, eng_t.shards, verified=True)
+    running = sum(bool(sp.run.any()) for sp in plan.shard_plans)
+    for name in ("two_tier_cold", "two_tier_warm"):
+        res = served(name, eng_t)
+        guar = check_two_tier(eng_t, q, res, exact, li_cfg.truncation_k)
+        n = runs[name]["launches"]["two_tier"]
+        if n != running:
+            raise AssertionError(f"{name}: {n} two_tier launches for one batch on "
+                                 f"{running} shards")
+    if not guar.any():
+        raise AssertionError("no query is guaranteed on every shard")
+    n_exact = sum(np.array_equal(r, e) for r, e in zip(res, exact))
 
-        # the f_hat identity on the card: two_tier == exhaustive AND the
-        # tier-1 union, word for word, on every shard (launches taken back)
-        saved = launches()
-        for sh in eng_t.shards:
-            st = sh.state
-            got = alg.run_queries(st, qpad, "two_tier")
-            union = pack_bool_words(tier1_union(
-                st.tier1, st.tier1_len, torch.from_numpy(qpad).to(dev), st.n_docs))
-            want = alg.run_queries(st, qpad, "exhaustive") & union
-            if not torch.equal(got, want):
-                bad = int((got != want).sum())
-                raise AssertionError(f"shard {sh.shard_id}: {bad} two_tier words differ from "
-                                     f"exhaustive AND the tier-1 union")
-        for n, k in keep["kernels"].items():
-            k.launches = saved[n]
-        del eng_t
-    finally:
-        shutil.rmtree(path, ignore_errors=True)
+    # the f_hat identity on the card: two_tier == exhaustive AND the
+    # tier-1 union, word for word, on every shard (launches taken back)
+    saved = launches()
+    for sh in eng_t.shards:
+        st = sh.state
+        got = alg.run_queries(st, qpad, "two_tier")
+        union = pack_bool_words(tier1_union(
+            st.tier1, st.tier1_len, torch.from_numpy(qpad).to(dev), st.n_docs))
+        want = alg.run_queries(st, qpad, "exhaustive") & union
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"shard {sh.shard_id}: {bad} two_tier words differ from "
+                                 f"exhaustive AND the tier-1 union")
+    for n, k in keep["kernels"].items():
+        k.launches = saved[n]
+    del eng_t
     return {
         "phase": "S",
         "docs": keep["inv"].n_docs,
@@ -876,6 +898,104 @@ def phase_s(dev, launches, clock: DecodeClock, keep: dict) -> dict:
         "runs": runs,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
+
+
+def phase_m(dev, launches, keep: dict) -> dict:
+    """The MLP head at phase A's width: a ``mlp_hidden=(128,)`` model
+    trained as A's (300 steps of 2,048), zero-FN thresholds, then A's 128
+    Boolean queries served from S's saved K=4 store (``from_store``, no
+    tier-2 rebuild) as block and as two-tier engines, cold and warm.  Every
+    candidate step scores on mlp_membership (one launch a running shard and
+    batch, no membership launch); block results equal brute force,
+    two-tier results are held to the paper's guarantee."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.learned_bloom import (false_negative_rate, false_positive_rate,
+                                                fit_thresholds)
+    from repro_torch.launch.serve import check_two_tier, train_membership
+    from repro_torch.serve import BooleanEngine, ServeConfig
+    from repro_torch.serve.planner import plan_batch
+
+    secs: dict[str, float] = {}
+    runs: dict[str, dict] = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"[M] {name}: {secs[name]:.2f}s")
+        return out
+
+    corpus, inv, q, exact = keep["corpus"], keep["inv"], keep["batch"], keep["exact"]
+    li_cfg = dataclasses.replace(keep["li_cfg"], mlp_hidden=(128,))
+    model = timed("train", lambda: train_membership(
+        corpus, inv, li_cfg, steps=300, batch_size=2048, device=dev, log=log))
+    lb = timed("thresholds", lambda: fit_thresholds(model, inv))
+    fnr = false_negative_rate(lb, inv)
+    if fnr != 0.0:
+        raise AssertionError(f"MLP head: false-negative rate {fnr} != 0")
+    fpr = false_positive_rate(lb, inv)
+    guaranteed = None
+    for algorithm in ("block", "two_tier"):
+        cfg = ServeConfig(algorithm=algorithm, n_shards=4, device=str(dev))
+        eng = timed(f"from_store_{algorithm}",
+                    lambda: BooleanEngine.from_store(lb, li_cfg, cfg, keep["store"]))
+        if algorithm == "two_tier":
+            timed("tier1_upload", lambda: [sh.state.tier1 for sh in eng.shards])
+        plan = plan_batch(eng._padded(q), eng._global_dfs, eng.shards, verified=True)
+        running = sum(bool(sp.run.any()) for sp in plan.shard_plans)
+        for temp in ("cold", "warm"):
+            name = f"{algorithm}_{temp}"
+            eng.reset_stats()
+            before = launches()
+            res = timed(name, lambda: eng.query_batch(q))
+            n = {k: c - before[k] for k, c in launches().items() if c != before[k]}
+            guided = stats_of(eng)["guided"]
+            runs[name] = {"launches": n, "probes": guided["probes"] if guided else 0,
+                          "results": int(sum(len(r) for r in res))}
+            log(f"[M] {name}: {runs[name]}")
+            if n.get("mlp_membership", 0) != running or n.get("membership") \
+                    or n.get("two_tier"):
+                raise AssertionError(f"M {name}: launches {n}, expected one mlp_membership "
+                                     f"launch on each of {running} running shards")
+            if algorithm == "block":
+                bad = [i for i, (r, e) in enumerate(zip(res, exact)) if not np.array_equal(r, e)]
+                if bad:
+                    raise AssertionError(f"M {name}: {len(bad)} queries differ from brute "
+                                         f"force, first {bad[:5]}")
+            else:
+                guaranteed = int(check_two_tier(eng, q, res, exact, li_cfg.truncation_k).sum())
+        del eng
+    return {
+        "phase": "M",
+        "docs": inv.n_docs,
+        "terms": inv.n_terms,
+        "shards": 4,
+        "queries": int(q.shape[0]),
+        "embed_dim": li_cfg.embed_dim,
+        "mlp_hidden": list(li_cfg.mlp_hidden),
+        "false_negative_rate": fnr,
+        "false_positive_rate": fpr,
+        "two_tier_guaranteed": guaranteed,
+        "exact": True,
+        "seconds": secs,
+        "runs": runs,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def phase_k(dev) -> dict:
+    """The port's quickstart (``repro_torch.launch.quickstart``) on the card
+    at the reference's size: all 13 steps, each check live."""
+    from repro_torch.launch import quickstart
+
+    t0 = time.perf_counter()
+    summary = quickstart.run(str(dev), small=False, log=lambda m: log(f"[K] {m}"))
+    return {"phase": "K", "steps": 13, "seconds": time.perf_counter() - t0, **summary}
 
 
 def _smi(query: str) -> list[str]:
@@ -1308,7 +1428,79 @@ def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
     if "two_tier" in rec.inputs:  # phase S ran
         two_tier_row(rec.inputs["two_tier"], rec.kwargs["two_tier"], row, "largest")
         two_tier_row(*rec.second["two_tier"], row, "most_candidates")
+    if "mlp_membership" in rec.second:  # phase M ran: its K=4 shard shape
+        mlp_row(rec.second["mlp_membership"][0], row, "most_launched_shape")
     return rows
+
+
+GELU_OPS = 9  # x*x, *x, the fma (2), *sqrt(2/pi), tanh (as one), 1+, 0.5*x, the product
+
+
+def mlp_pair_ops(dims) -> int:
+    """fp32 operations per (slot, doc) pair of the MLP head: the halves'
+    add and GELU per first-layer unit, each later layer's products (an FMA
+    is two), bias adds and GELUs, and the final + bias."""
+    ops = dims[0] * (1 + GELU_OPS)
+    for i, (h_in, h_out) in enumerate(zip(dims[:-1], dims[1:])):
+        ops += 2 * h_in * h_out + h_out + (GELU_OPS * h_out if i < len(dims) - 2 else 0)
+    return ops + 1
+
+
+def mlp_row(inputs, row, case: str) -> None:
+    """mlp_membership against its plain version: every logit the kernel
+    computes within NUMERIC_MARGIN (1 + |logit|) of the plain version's,
+    and the bits equal except for pairs whose logit lies within the margin
+    of tau (counted).  The bound is operations (``mlp_pair_ops`` a pair
+    over the card's fp32 rate, bytes far below); the library time is the
+    same logits through PyTorch calls (``F.gelu`` of the broadcast halves,
+    ``torch.matmul`` by the last layer) over the plain version's doc tiles."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.learned_bloom import NUMERIC_MARGIN
+    from repro_torch.kernels.mlp_membership.kernel import mlp_membership
+    from repro_torch.kernels.mlp_membership.ref import (doc_tile, mlp_logits_ref,
+                                                        mlp_membership_ref)
+
+    a, bd, later, dims, tau, bias = inputs
+    (S, H1), D = a.shape, bd.shape[0]
+    tile = doc_tile(S, H1)
+    got = mlp_membership(*inputs)
+    want = mlp_membership_ref(*inputs)
+    kernel_logits = torch.empty((S, D), dtype=torch.float32, device=a.device)
+    if not torch.equal(mlp_membership(*inputs, logits=kernel_logits), got):
+        raise AssertionError(f"mlp_membership ({case}): two launches differ")
+    logits = torch.cat([mlp_logits_ref(a, bd[d0: d0 + tile], later, dims, bias)
+                        for d0 in range(0, D, tile)], dim=1)
+    lerr = (kernel_logits - logits).abs()
+    far = int((lerr > NUMERIC_MARGIN * (1 + logits.abs())).sum())
+    if far:
+        raise AssertionError(f"mlp_membership ({case}): {far} logits differ by more than the "
+                             f"margin")
+    near = (logits - tau[:, None]).abs() <= NUMERIC_MARGIN * (1 + tau.abs()[:, None])
+    differ = bits_of(got ^ want, D)
+    outside = int((differ & ~near).sum())
+    if outside:
+        raise AssertionError(f"mlp_membership ({case}): {outside} bits differ outside the margin")
+    n_differ, n_near, err = int(differ.sum()), int(near.sum()), float(lerr.max())
+    hits = int(bits_of(got, D).sum())
+    del kernel_logits, logits, lerr, near, differ
+    library = None
+    if len(dims) == 2:  # one hidden layer: its last layer is one product
+        w2 = later[:H1].view(H1, 1)
+
+        def library():
+            for d0 in range(0, D, tile):
+                torch.matmul(F.gelu(a[:, None, :] + bd[None, d0: d0 + tile], approximate="tanh"),
+                             w2)
+    row("mlp_membership", "src/repro/core/membership.py:66",
+        lambda: mlp_membership(*inputs), lambda: mlp_membership_ref(*inputs),
+        err, 4 * (S * H1 + D * H1 + later.numel() + S + S * got.shape[1]),
+        mlp_pair_ops(dims) * S * D, library=library,
+        extra={"case": case, "shape": {"S": S, "D": D, "dims": list(dims)},
+               "ops_per_pair": mlp_pair_ops(dims), "logit_tolerance": "margin (1 + |logit|)",
+               "differing_bits": n_differ, "bits_within_margin": n_near, "hits": hits,
+               "margin": NUMERIC_MARGIN})
 
 
 def candidate_total(args) -> int:
@@ -1531,17 +1723,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=528_000,
                     help="documents in phase A's collection (Robust04's 528k by default)")
-    ap.add_argument("--phases", default="ABRSQDC",
-                    help="phases to run (R and D need A; S and Q need A and R; C needs A, B "
-                         "and R)")
+    ap.add_argument("--phases", default="ABRSQMKDC",
+                    help="phases to run (R and D need A; S and Q need A and R; M needs A, R "
+                         "and S; C needs A, B and R)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory that holds the repro_torch package to drive")
     args = ap.parse_args()
     phases = set(args.phases.upper())
     if ({"R", "D"} & phases and "A" not in phases) or ("C" in phases and not {"A", "B", "R"} <= phases) \
-            or ({"S", "Q"} & phases and not {"A", "R"} <= phases):
-        ap.error(f"--phases {args.phases}: R and D need A, S and Q need A and R, and C needs "
-                 f"A, B and R")
+            or ({"S", "Q"} & phases and not {"A", "R"} <= phases) \
+            or ("M" in phases and not {"A", "R", "S"} <= phases):
+        ap.error(f"--phases {args.phases}: R and D need A, S and Q need A and R, M needs A, R "
+                 f"and S, and C needs A, B and R")
 
     import torch
 
@@ -1587,6 +1780,10 @@ def main() -> int:
         from repro_torch.kernels.two_tier.kernel import KERNEL as TWO_TIER
 
         kernels["two_tier"] = TWO_TIER
+    if "M" in phases:  # a package with the MLP head's kernel
+        from repro_torch.kernels.mlp_membership.kernel import KERNEL as MLP_MEMBERSHIP
+
+        kernels["mlp_membership"] = MLP_MEMBERSHIP
 
     t0 = time.perf_counter()
     reports = cuda.build_all()
@@ -1606,6 +1803,8 @@ def main() -> int:
         rec.wrap(dense, "dense_impl", "dense_topk")
         if "S" in phases:
             rec.wrap(algorithms, "two_tier_candidates", "two_tier", candidate_total)
+        if "M" in phases:
+            rec.wrap(algorithms, "mlp_membership", "mlp_membership", shape_frequency())
     clock = DecodeClock()
     clock.install()
 
@@ -1613,21 +1812,27 @@ def main() -> int:
         return {n: k.launches for n, k in kernels.items()}
 
     counts, passes, keep = {}, {}, {"kernels": kernels}
-    for name, run in (("A", lambda: phase_a(args, dev, launches, clock, keep)),
-                      ("B", lambda: phase_b(dev, launches)),
-                      ("R", lambda: phase_r(dev, launches, clock, keep)),
-                      ("S", lambda: phase_s(dev, launches, clock, keep)),
-                      ("Q", lambda: phase_q(dev, keep))):
-        if name not in phases:
-            continue
-        for k in kernels.values():
-            k.launches = 0
-        dense.launches = 0
-        result = run()
-        counts[name] = launches()
-        result["launches"] = counts[name]
-        result["dense_passes"] = passes[name] = dense.launches
-        emit(result)
+    try:
+        for name, run in (("A", lambda: phase_a(args, dev, launches, clock, keep)),
+                          ("B", lambda: phase_b(dev, launches)),
+                          ("R", lambda: phase_r(dev, launches, clock, keep)),
+                          ("S", lambda: phase_s(dev, launches, clock, keep)),
+                          ("Q", lambda: phase_q(dev, keep)),
+                          ("M", lambda: phase_m(dev, launches, keep)),
+                          ("K", lambda: phase_k(dev))):
+            if name not in phases:
+                continue
+            for k in kernels.values():
+                k.launches = 0
+            dense.launches = 0
+            result = run()
+            counts[name] = launches()
+            result["launches"] = counts[name]
+            result["dense_passes"] = passes[name] = dense.launches
+            emit(result)
+    finally:
+        if "store" in keep:  # phase S's store, which phase M serves from
+            shutil.rmtree(keep["store"], ignore_errors=True)
     total = {n: sum(c[n] for c in counts.values()) for n in kernels}
     missing = [n for n, c in total.items() if c == 0]
     if missing and {"A", "B", "R"} <= phases:
@@ -1636,7 +1841,9 @@ def main() -> int:
                          ("B", ("guided_search", "plm_decode")),
                          ("R", ("pfor", "bm25_score", "fused_topk", "dense_topk")),
                          ("S", ("membership", "bitset", "pfor", "bm25_score", "two_tier")),
-                         ("Q", ("membership", "bitset", "bm25_score"))):
+                         ("Q", ("membership", "bitset", "bm25_score")),
+                         ("M", ("mlp_membership", "bitset", "pfor")),
+                         ("K", ("membership", "bitset"))):
         for n in names:
             if phase in counts and n in counts[phase] and counts[phase][n] == 0:
                 raise AssertionError(f"{n} did not launch on its path (phase {phase})")

@@ -1,8 +1,11 @@
-"""Typed, frozen configs for the port (the reference's config system, cut to
-the classes the Boolean serving slice reads).  Plain data, no torch."""
+"""Typed, frozen configs for the port (the reference's config system, less
+the LM-side ``ArchConfig``, ``MeshConfig`` and ``ShapeSpec``).  Plain data,
+no torch."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Mapping
 
 
 @dataclass(frozen=True)
@@ -15,8 +18,27 @@ class OptimizerConfig:
     grad_clip: float = 1.0
     warmup_steps: int = 100
     total_steps: int = 10_000
-    moment_dtype: str = "fp32"  # the port keeps fp32 moments only
+    # 'fp32' | 'int8' — int8 moments with per-256-element fp32 absmax scales
+    moment_dtype: str = "fp32"
     compress_grads: bool = False  # accepted for parity; single-device here
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    microbatch: int | None = None  # grad accumulation if < global_batch/dp
+    remat: str = "none"  # 'none' | 'full' | 'dots' (checkpoint policy)
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    steps: int = 100
+    log_every: int = 10
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    seed: int = 0
+    # straggler mitigation: abort+log if a step exceeds this multiple of the
+    # trailing median step time
+    straggler_factor: float = 3.0
 
 
 @dataclass(frozen=True)
@@ -46,3 +68,19 @@ class CorpusConfig:
     zipf_a: float = 1.2
     zipf_b: float = 2.7
     seed: int = 7
+
+
+PAPER_COLLECTIONS: Mapping[str, CorpusConfig] = {
+    # scaled 1/100 from published sizes; scale=1.0 reproduces full scale
+    "robust": CorpusConfig(name="robust-like", n_docs=5280, n_terms=60_000, avg_doc_len=230),
+    "gov2": CorpusConfig(name="gov2-like", n_docs=252_000, n_terms=390_000, avg_doc_len=410),
+    "clueweb": CorpusConfig(name="clueweb-like", n_docs=502_000, n_terms=960_000, avg_doc_len=380),
+}
+
+
+def scaled_collection(base: CorpusConfig, scale: float) -> CorpusConfig:
+    return dataclasses.replace(
+        base,
+        n_docs=max(64, int(base.n_docs * scale)),
+        n_terms=max(256, int(base.n_terms * scale)),
+    )

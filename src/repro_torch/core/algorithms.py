@@ -22,9 +22,13 @@ the AND over each query's terms and the block mask on one ``bitset``
 launch (``block_candidates``).  Algorithm 2 is one ``two_tier`` launch
 (``two_tier_candidates``): the tier-1 union and its f_hat test, with the
 membership kernel's dot product, so its candidates are Algorithm 1's ANDed
-with the union, bit for bit.  On the CPU the same wrappers run their plain
-versions.  The (n_terms, k) tier-1 table reaches the device at the first
-two-tier call, not when the state is built.  Each launch sits in a
+with the union, bit for bit.  A model with an MLP head scores its slots on
+one ``mlp_membership`` launch instead of ``membership`` (``score_slots``),
+in Algorithms 1 and 3 alike; its Algorithm 2 is that function computed the
+same way: the Algorithm-1 rows of the query's terms, ANDed, and ANDed with
+the bitmap of the union of its tier-1 lists.  On the CPU the same wrappers
+run their plain versions.  The (n_terms, k) tier-1 table reaches the device
+at the first two-tier call, not when the state is built.  Each launch sits in a
 ``kernel.*`` span (repro_torch.obs) that covers its issue only: the caller's
 copy of the candidates back is where the host waits for the card.
 """
@@ -35,13 +39,15 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.core.membership import MembershipModel
+from repro_torch.core.membership import MembershipModel, term_doc_logits
 from repro_torch.index.build import InvertedIndex, block_lists, truncate_index
 from repro_torch.kernels.bitset.kernel import block_candidates
 from repro_torch.kernels.cuda import staging
 from repro_torch.kernels.membership.kernel import membership_bitmask
-from repro_torch.kernels.membership.ref import LANE
+from repro_torch.kernels.membership.ref import LANE, pack_bool_words
+from repro_torch.kernels.mlp_membership.kernel import mlp_membership
 from repro_torch.kernels.two_tier.kernel import two_tier_candidates
+from repro_torch.kernels.two_tier.ref import tier1_union
 from repro_torch.obs import trace
 
 
@@ -120,9 +126,27 @@ def build_engine(
 
 
 @torch.no_grad()
+def score_slots(model: MembershipModel, terms: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """(S,) int64 term ids and their (S,) thresholds -> (S, words) packed
+    f_hat rows over every doc: one ``membership`` launch for a dot-product
+    model, one ``mlp_membership`` launch (its doc side computed once per
+    model, ``MembershipModel.doc_side``) for a model with a head."""
+    n_docs = model.doc_embed.weight.shape[0]
+    if model.mlp is None:
+        with trace.span("kernel.membership", slots=len(terms), docs=n_docs):
+            return membership_bitmask(model.term_embed.weight[terms].contiguous(),
+                                      model.doc_embed.weight.detach(), tau.contiguous(),
+                                      float(model.bias))
+    bd, later, dims = model.doc_side()
+    a = model.term_side(terms).contiguous()
+    with trace.span("kernel.mlp_membership", slots=len(terms), docs=n_docs):
+        return mlp_membership(a, bd, later, dims, tau.contiguous(), float(model.bias))
+
+
+@torch.no_grad()
 def _term_rows(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     """(Q, T) queries -> (Q, T, words) packed f_hat rows of every (query,
-    term); invalid slots are all-ones.  One membership launch covers the
+    term); invalid slots are all-ones.  One scoring launch covers the
     valid rows."""
     Q, T = queries.shape
     dev = state.device
@@ -132,13 +156,7 @@ def _term_rows(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     idx = np.nonzero(flat >= 0)[0]
     if len(idx):
         terms = torch.from_numpy(flat[idx].astype(np.int64)).to(dev)
-        with trace.span("kernel.membership", slots=len(idx), docs=int(state.n_docs)):
-            rows[torch.from_numpy(idx).to(dev)] = membership_bitmask(
-                state.model.term_embed.weight[terms].contiguous(),
-                state.model.doc_embed.weight.detach(),
-                state.tau[terms].contiguous(),
-                float(state.model.bias),
-            )
+        rows[torch.from_numpy(idx).to(dev)] = score_slots(state.model, terms, state.tau[terms])
     return rows.view(Q, T, words)
 
 
@@ -162,16 +180,21 @@ def exhaustive_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
 @torch.no_grad()
 def _f_hat_docs(state: EngineState, terms: torch.Tensor, doc_ids: torch.Tensor) -> torch.Tensor:
     """(T,) terms x (D',) docs -> (T, D') thresholded membership."""
-    te = state.model.term_embed.weight[terms]
-    de = state.model.doc_embed.weight[doc_ids]
-    return te @ de.T + state.model.bias >= state.tau[terms][:, None]
+    return term_doc_logits(state.model, terms, doc_ids) >= state.tau[terms][:, None]
 
 
 @torch.no_grad()
 def two_tier_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     """(Q, T) -> (Q, words) packed candidates: the union of the query's
     valid tier-1 lists, kept where f_hat holds for every valid term.  One
-    ``two_tier`` launch on the resident tier-1 table."""
+    ``two_tier`` launch on the resident tier-1 table; with an MLP head,
+    Algorithm 1's candidates (one ``mlp_membership`` launch) ANDed with the
+    union's bitmap."""
+    if state.model.mlp is not None:
+        union = tier1_union(state.tier1, state.tier1_len,
+                            torch.from_numpy(np.ascontiguousarray(queries)).to(state.device),
+                            state.n_docs)
+        return exhaustive_query(state, queries) & pack_bool_words(union)
     valid = queries >= 0
     lens = np.where(valid, np.minimum(state.dfs[np.maximum(queries, 0)], state.truncation_k), 0)
     with trace.span("kernel.two_tier", queries=int(queries.shape[0]),
@@ -206,8 +229,9 @@ def block_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     terms, kept only in blocks that survive the block-bitmap AND.
 
     One upload of the (Q, T) term ids, their slots in the compact row
-    table and the valid slots' term ids; one ``membership`` launch over the
-    valid slots; one ``block_candidates`` launch for the rest."""
+    table and the valid slots' term ids; one ``membership`` (or
+    ``mlp_membership``) launch over the valid slots; one
+    ``block_candidates`` launch for the rest."""
     Q, T = queries.shape
     dev = state.device
     flat = queries.reshape(-1)
@@ -222,13 +246,7 @@ def block_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     words = -(-state.n_docs // LANE)
     if len(valid):
         terms = up[2 * Q * T :].long()
-        with trace.span("kernel.membership", slots=len(valid), docs=int(state.n_docs)):
-            rows = membership_bitmask(
-                state.model.term_embed.weight[terms],
-                state.model.doc_embed.weight.detach(),
-                state.tau[terms],
-                float(state.model.bias),
-            )
+        rows = score_slots(state.model, terms, state.tau[terms])
     else:
         rows = torch.zeros((0, words), dtype=torch.int32, device=dev)
     with trace.span("kernel.bitset", queries=Q, terms=T, words=words):

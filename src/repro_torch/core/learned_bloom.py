@@ -5,10 +5,10 @@ Kraska et al. §5's construction as the paper uses it: a per-term threshold
 false negatives on the collection; f_hat(t,d) = logit(t,d) ≥ τ_t.
 
 τ carries a small numerical margin (NUMERIC_MARGIN): the serving path scores
-logits in another summation order than the fitting pass (the membership
-kernel's sequential FMAs against a reduction here), so the same logit can
-differ by a few ulp.  The margin makes the zero-FN guarantee robust to that
-drift at negligible false-positive cost.
+logits in another summation order than the fitting pass (the membership and
+mlp_membership kernels' sequential FMAs against a reduction or a product
+here), so the same logit can differ by a few ulp.  The margin makes the
+zero-FN guarantee robust to that drift at negligible false-positive cost.
 
 The fit is one batched pass over all postings — pair logits in chunks, then
 a per-term ``scatter_reduce(amin)`` — where the reference loops over terms.
@@ -41,6 +41,8 @@ class LearnedBloom:
         return self.tau.device
 
     def size_bits(self, embed_bits: int = 32) -> int:
+        """The reference's count: the two tables, τ and the backup keys (an
+        MLP head's weights are not counted)."""
         te = self.model.term_embed.weight
         de = self.model.doc_embed.weight
         return int(
@@ -52,11 +54,16 @@ class LearnedBloom:
 
 @torch.no_grad()
 def fit_thresholds(
-    model: MembershipModel, inv: InvertedIndex, *, chunk: int = 1 << 22
+    model: MembershipModel, inv: InvertedIndex, *, chunk: int | None = None
 ) -> LearnedBloom:
     """τ_t = min logit over t's indexed positives, minus the margin; terms
-    with no postings get +inf (never fire)."""
+    with no postings get +inf (never fire).  Pairs are scored ``chunk`` at
+    a time: 4M for a dot product, and with a head as many as keep one
+    (chunk, widest layer) float32 activation near 1 GB."""
     dev = model.bias.device
+    if chunk is None:
+        widest = max((p["w"].shape[1] for p in model.mlp or ()), default=0)
+        chunk = (1 << 28) // widest if widest else 1 << 22
     n_terms = inv.n_terms
     term_of = np.repeat(np.arange(n_terms, dtype=np.int64), inv.dfs)
     tau = torch.full((n_terms,), float("inf"), dtype=torch.float32, device=dev)
@@ -84,3 +91,21 @@ def false_negative_rate(lb: LearnedBloom, inv: InvertedIndex, sample: int = 2000
     d = torch.from_numpy(inv.doc_ids[idx].astype(np.int64)).to(lb.device)
     pred = bloom_predict(lb, t, d)
     return float(1.0 - pred.float().mean().item())
+
+
+def false_positive_rate(lb: LearnedBloom, inv: InvertedIndex, sample: int = 20000, seed: int = 0) -> float:
+    """f_hat's rate on uniformly drawn (term, doc) pairs that are not
+    postings: the reference's draws, in its order; the true positives are
+    found with one binary search of the index's sorted (term, doc) keys
+    where the reference searches term by term."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, inv.n_terms, size=sample).astype(np.int32)
+    d = rng.integers(0, inv.n_docs, size=sample).astype(np.int32)
+    pred = bloom_predict(lb, torch.from_numpy(t.astype(np.int64)).to(lb.device),
+                         torch.from_numpy(d.astype(np.int64)).to(lb.device)).cpu().numpy()
+    term_of = np.repeat(np.arange(inv.n_terms, dtype=np.int64), inv.dfs)
+    keys = term_of * inv.n_docs + inv.doc_ids.astype(np.int64)  # sorted: term-major, ids ascending
+    want = t.astype(np.int64) * inv.n_docs + d.astype(np.int64)
+    j = np.minimum(np.searchsorted(keys, want), max(len(keys) - 1, 0))
+    neg = ~(keys[j] == want) if len(keys) else np.ones(sample, bool)
+    return float(pred[neg].mean()) if neg.any() else 0.0

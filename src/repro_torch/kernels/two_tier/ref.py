@@ -25,12 +25,17 @@ def query_union(tier1: torch.Tensor, tier1_len: torch.Tensor, terms: torch.Tenso
 
 def tier1_union(tier1: torch.Tensor, tier1_len: torch.Tensor, queries: torch.Tensor,
                 n_docs: int) -> torch.Tensor:
-    """(Q, n_docs) bool: doc d is in some valid slot's truncated list."""
-    out = torch.zeros((queries.shape[0], n_docs), dtype=torch.bool, device=tier1.device)
-    for i, row in enumerate(queries):
-        terms = row[row >= 0].long()
-        if terms.numel():
-            out[i, query_union(tier1, tier1_len, terms)] = True
+    """(Q, n_docs) bool: doc d is in some valid slot's truncated list (an
+    all-pad query's row is empty).  One scatter of the batch's list
+    entries, no per-query loop."""
+    q = queries.long()
+    t = q.clamp(min=0)
+    lens = torch.where(q >= 0, tier1_len[t], 0)  # (Q, T)
+    ids = tier1[t]  # (Q, T, k)
+    keep = torch.arange(ids.shape[2], device=ids.device) < lens[..., None]
+    rows = torch.arange(q.shape[0], device=ids.device)[:, None, None].expand_as(ids)
+    out = torch.zeros((q.shape[0], n_docs), dtype=torch.bool, device=tier1.device)
+    out[rows[keep], ids[keep].long()] = True
     return out
 
 

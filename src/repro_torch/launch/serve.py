@@ -102,6 +102,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--block-size", type=int, default=128)
     ap.add_argument("--train-steps", type=int, default=300)
     ap.add_argument("--no-verify", action="store_true")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="accepted for parity with the reference launcher: on cuda "
+                         "the kernels always run, on cpu their plain versions")
     ap.add_argument("--shards", type=int, default=1,
                     help="document partitions served by the planner/executor")
     ap.add_argument("--index-dir", default=None,
@@ -150,7 +153,7 @@ def main(argv: list[str] | None = None) -> None:
     probe_log = (ProbeLog(args.probe_log, max_bytes=args.probe_log_max_bytes)
                  if args.probe_log else None)
     cfg = ServeConfig(algorithm=args.algorithm, verified=not args.no_verify,
-                      n_shards=args.shards, device=str(dev),
+                      use_kernel=args.use_kernel, n_shards=args.shards, device=str(dev),
                       obs=dict(trace=tracer, probe_log=probe_log,
                                probe_log_max_bytes=args.probe_log_max_bytes),
                       ranked=dict(fused_kernel=args.fused,

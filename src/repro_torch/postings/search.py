@@ -693,6 +693,10 @@ class GuidedPostings:
         return self.contains_many([(t, cands, route)],
                                   queries=None if query is None else [query])[0]
 
+    def rank(self, t: int, cands: np.ndarray) -> np.ndarray:
+        """rank(d) = #postings of t strictly below d, for every candidate."""
+        return self.probe(t, cands)[1]
+
     def reset_stats(self) -> None:
         """Zero the accounting window: models and fallback decodes will both
         recharge their bytes on next use (parsed metadata is re-read too, so

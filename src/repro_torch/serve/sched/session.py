@@ -164,6 +164,7 @@ class Session:
         model = eng.lb.model
         term_table, doc_table = _numpy(model.term_embed.weight), _numpy(model.doc_embed.weight)
         bias, tau = _numpy(model.bias), _numpy(eng.lb.tau)
+        mlp = [{k: _numpy(v) for k, v in layer.items()} for layer in model.head_layers()]
         global_dfs = np.asarray(eng._global_dfs)
         if eng.lb.device.type == "cuda":
             from repro_torch.kernels import cuda
@@ -182,6 +183,7 @@ class Session:
                 "term_table": term_table,
                 "doc_table": doc_table[lo:hi],
                 "bias": bias,
+                "mlp": mlp,
                 "tau": tau,
                 "li_cfg": eng.li_cfg,
                 "cfg_kwargs": eng.cfg.worker_spec(),

@@ -55,7 +55,8 @@ what keeps the process-parallel path bit-identical to in-process serving.
 The spec carries numpy arrays and the device string, never a CUDA tensor
 (a CUDA IPC handle would tie the worker to its parent's allocations): the
 shard's slice of the membership model (term table, its rows of the doc
-table, bias), the thresholds and the global dfs.
+table, bias, and the MLP head's layers where the model has one), the
+thresholds and the global dfs.
 
 ``execute_bool`` / ``execute_topk`` are shared with ``InlineReplica`` so
 the inline (0-replica) scheduler path runs the very same code.
@@ -157,7 +158,8 @@ def _build_shard(spec: dict, seconds: dict):
     lo, hi = int(spec["lo"]), int(spec["hi"])
     lb = LearnedBloom(
         model=MembershipModel(tensor(spec["term_table"]), tensor(spec["doc_table"]),
-                              tensor(spec["bias"])),
+                              tensor(spec["bias"]),
+                              [{k: tensor(v) for k, v in layer.items()} for layer in spec["mlp"]]),
         tau=tensor(spec["tau"]),
         n_docs=hi - lo,
     )

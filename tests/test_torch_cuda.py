@@ -10,9 +10,9 @@ Each decides inside the test whether a card exists and skips without one
 Bitset words and counts, probe verdicts, decoded ids and overflow flags,
 integer and float BM25 scores and fused top-k ids and scores must be exactly
 equal;
-membership and two_tier bits may differ from their plain versions only
-where the logit lies within NUMERIC_MARGIN * (1 + |tau|) of tau, since the
-float32 products sum in different orders; two_tier equals membership's
+membership, mlp_membership and two_tier bits may differ from their plain
+versions only where the logit lies within NUMERIC_MARGIN * (1 + |tau|) of
+tau, since the float32 products sum in different orders; two_tier equals membership's
 candidates ANDed with the tier-1 union exactly (the same sequential FMAs).
 
 ``pfor_blocks``, ``pfor_lists``, ``plm_batch``, ``fused_tiles`` and
@@ -39,6 +39,8 @@ from repro_torch.kernels.guided_search.kernel import probe_batch
 from repro_torch.kernels.guided_search.ref import probe_ref
 from repro_torch.kernels.membership.kernel import membership_bitmask
 from repro_torch.kernels.membership.ref import membership_bitmask_ref
+from repro_torch.kernels.mlp_membership.kernel import KERNEL as MLP, mlp_membership
+from repro_torch.kernels.mlp_membership.ref import mlp_logits_ref, mlp_membership_ref
 from repro_torch.kernels.plm_decode.kernel import decode_batch
 from repro_torch.kernels.plm_decode.ops import decode_lists as plm_decode_lists
 from repro_torch.kernels.plm_decode.ref import decode_ref
@@ -746,9 +748,9 @@ def test_two_tier_bitmap_zeroed_by_graph_replay():
 
 
 # ------------------------------------------------- the scheduler on the card
-def _small_engine(dev, **cfg):
+def _small_engine(dev, head=(), **cfg):
     """A 2-shard engine on ``dev`` over a 600-doc collection, parameters made
-    with numpy from a seed."""
+    with numpy from a seed (with an MLP head of hidden widths ``head``)."""
     from repro_torch.common.config import CorpusConfig, LearnedIndexConfig
     from repro_torch.core.learned_bloom import fit_thresholds
     from repro_torch.core.membership import params_from_jax
@@ -762,8 +764,13 @@ def _small_engine(dev, **cfg):
     params = {"term_embed": {"table": (rng.standard_normal((2400, 16)) * 0.3).astype(np.float32)},
               "doc_embed": {"table": (rng.standard_normal((600, 16)) * 0.3).astype(np.float32)},
               "bias": np.float32(0.0)}
+    if head:
+        dims = [32, *head, 1]
+        params["mlp"] = [{"w": (rng.standard_normal((i, o)) / np.sqrt(i)).astype(np.float32),
+                          "b": (rng.standard_normal(o) * 0.1).astype(np.float32)}
+                         for i, o in zip(dims[:-1], dims[1:])]
     lb = fit_thresholds(params_from_jax(params, device=dev), inv)
-    li = LearnedIndexConfig(embed_dim=16, truncation_k=16, block_size=64)
+    li = LearnedIndexConfig(embed_dim=16, truncation_k=16, block_size=64, mlp_hidden=tuple(head))
     eng = BooleanEngine(lb, inv, li, ServeConfig(n_shards=2, device=str(dev), **cfg))
     return corpus, inv, eng
 
@@ -821,3 +828,89 @@ def test_workers_find_the_kernels_already_built(tmp_path):
         assert all(r.alive for g in s._groups for r in g.replicas)
     assert {p: p.stat().st_mtime_ns for p in cuda.BUILD_DIR.glob("lib*.so")} == built
     assert not list(cuda.BUILD_DIR.glob("*.tmp")) and cuda.build_all() == {}
+
+
+# ------------------------------------------------- the MLP head on the card
+# (S, D, dims): the main path's shard shape (398 slots, 132,000 docs, one
+# hidden layer of 128); ragged slot and doc tiles (16 x 128 in the kernel),
+# D off a word edge, H1 off the 32-unit stage; heads of depth 2 and 3 on
+# the deep path
+MLP_SHAPES = [(398, 132000, (128, 1)), (1, 31, (16, 1)), (17, 4097, (50, 1)),
+              (65, 1000, (64, 1)), (17, 1000, (48, 32, 1)), (33, 70, (20, 24, 16, 1))]
+
+
+def _mlp_inputs(rng, S, D, dims):
+    """A, Bd, the later layers packed flat, and per-slot tau from the
+    logits' quantiles (a quarter of them exactly on a logit)."""
+    a = (rng.standard_normal((S, dims[0])) * 0.7).astype(np.float32)
+    bd = (rng.standard_normal((D, dims[0])) * 0.7).astype(np.float32)
+    later = np.concatenate([np.concatenate([
+        (rng.standard_normal(i * o) / np.sqrt(i)).astype(np.float32),
+        (rng.standard_normal(o) * 0.1).astype(np.float32)]) for i, o in zip(dims[:-1], dims[1:])])
+    return a, bd, later
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,dims", MLP_SHAPES)
+def test_mlp_membership_kernel_matches_plain_on_card(S, D, dims):
+    dev = _card()
+    rng = np.random.default_rng(11)
+    a, bd, later = (_t(x).to(dev) for x in _mlp_inputs(rng, S, D, dims))
+    logits = torch.cat([mlp_logits_ref(a, bd[i: i + 4096], later, dims, 0.05)
+                        for i in range(0, D, 4096)], dim=1)
+    tau = torch.quantile(logits[:, : min(D, 4096)], 0.6, dim=1).contiguous()
+    n_on = max(1, S // 4)  # thresholds exactly on a logit: the comparison's boundary
+    tau[:n_on] = logits[torch.arange(n_on), torch.from_numpy(rng.integers(0, D, n_on)).to(dev)]
+    before = MLP.launches
+    got = mlp_membership(a, bd, later, dims, tau, 0.05)
+    assert MLP.launches == before + 1
+    # every logit the kernel computes lies within the margin of the plain one
+    kernel_logits = torch.empty_like(logits)
+    assert torch.equal(mlp_membership(a, bd, later, dims, tau, 0.05, logits=kernel_logits), got)
+    assert bool(((kernel_logits - logits).abs() <= NUMERIC_MARGIN * (1 + logits.abs())).all())
+    want = mlp_membership_ref(a, bd, later, dims, tau, 0.05)
+    assert got.shape == want.shape == (S, -(-D // 32))
+    shifts = torch.arange(32, device=dev, dtype=torch.int32)
+    differ = (((got ^ want).unsqueeze(-1) >> shifts) & 1).reshape(S, -1)[:, :D].bool()
+    near = (logits - tau[:, None]).abs() <= NUMERIC_MARGIN * (1 + tau.abs()[:, None])
+    assert not bool((differ & ~near).any())
+    g = got.cpu().numpy().view(np.uint32)
+    if D % 32:
+        assert (g[:, -1] >> np.uint32(D % 32)).max() == 0  # tail bits zero
+    assert 0 < np.unpackbits(g.view(np.uint8)).sum() < S * D  # both verdicts occur
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", [(24,), (24, 12)])
+@pytest.mark.parametrize("algorithm", ["block", "exhaustive", "two_tier"])
+def test_mlp_head_serves_exactly_on_card(head, algorithm):
+    """An engine whose model has an MLP head, on the card: its candidates
+    come from mlp_membership launches (one a shard and batch), hold every
+    exact result (zero false negatives), and its verified results are
+    exact (two-tier: to the paper's guarantee)."""
+    dev = _card()
+    from repro_torch.core import algorithms as alg
+    from repro_torch.data.queries import brute_force_answers, sample_queries
+    from repro_torch.launch.serve import check_two_tier
+    from repro_torch.serve.planner import plan_batch
+    from repro_torch.serve.shard import unpack_row
+
+    corpus, inv, eng = _small_engine(dev, head=head, algorithm=algorithm)
+    q = sample_queries(corpus, 32, seed=3)
+    exact = brute_force_answers(corpus, q)
+    for sh in eng.shards:
+        cand = alg.run_queries(sh.state, eng._padded(q), algorithm).cpu().numpy().view(np.uint32)
+        if algorithm == "two_tier":
+            continue  # candidates cover only guaranteed queries; checked below
+        for row, e in zip(cand, exact):
+            local = e[(e >= sh.lo) & (e < sh.hi)] - sh.lo
+            assert np.isin(local, unpack_row(row, sh.n_docs)).all()
+    plan = plan_batch(eng._padded(q), eng._global_dfs, eng.shards, verified=True)
+    before = MLP.launches
+    res = eng.query_batch(q)
+    assert MLP.launches - before == sum(bool(sp.run.any()) for sp in plan.shard_plans) > 0
+    if algorithm == "two_tier":
+        check_two_tier(eng, q, res, exact, eng.li_cfg.truncation_k)
+    else:
+        for r, e in zip(res, exact):
+            assert np.array_equal(r, e)
