@@ -74,8 +74,12 @@ card's name and power limit first, then one JSON line per phase:
          so its plain time is eager); dense_topk on phase R's largest dense
          pass and on a synthetic arena at the caps (131,072 docs, 511 terms, 64
          queries, k = 10 and 32), its plain version the PyTorch peel loop;
-         mlp_membership at phase M's K=4 shard shape (every logit and every
-         bit against its plain version, within the margin)
+         mlp_membership at phase M's K=4 shard shape, dense (every logit
+         and every bit against its plain version, within the margin), masked
+         on M's live-block masks (every live pair scored, the bound counting
+         live pairs only) and the two-tier launch on M's batch with the most
+         candidates (equal to the dense rows ANDed with the tier-1 union,
+         word for word; the bound counting the union's products only)
   Q      the continuous-batching scheduler (``serve.sched.Session``) on
          phase A's K=4 engine with R's payloads: one spawned process
          replica per shard (four workers on the card, each rebuilt from a
@@ -94,9 +98,14 @@ card's name and power limit first, then one JSON line per phase:
          A's collection, trained as A's (300 steps of 2,048), zero-FN
          thresholds (false-negative rate exactly 0.0, asserted), then A's 128
          queries served from S's saved K=4 store as block and as two-tier
-         engines, cold and warm: every candidate step on mlp_membership (one
-         launch a running shard and batch, no membership launch, asserted),
-         block results equal brute force, two-tier held to the guarantee;
+         engines, cold and warm, and once as unverified exhaustive
+         candidates: one launch a running shard and batch of the
+         algorithm's entry (masked mlp_membership, mlp_two_tier, dense
+         mlp_membership) and no other scoring launch, asserted; block
+         results equal brute force, two-tier held to the guarantee,
+         exhaustive candidates hold every exact result; the head's device
+         ms per batch (torch.profiler); two-tier
+         == exhaustive AND the tier-1 union on every shard, word for word;
          seconds of training, thresholds, loading and serving, launches and
          probes per run
   K      the port's quickstart (``repro_torch.launch.quickstart``) on the card
@@ -154,6 +163,10 @@ B_FP_RATE = 2e-4
 B_SEED = 23
 
 WARMUP, ITERS = 3, 20
+
+# the MLP head's entry points beside the dense ``mlp_membership``: kernels-line
+# name -> launch counter in kernels/mlp_membership/kernel.py
+MLP_ENTRIES = {"mlp_membership_masked": "MASKED", "mlp_two_tier": "TWO_TIER"}
 
 
 def log(msg: str) -> None:
@@ -259,12 +272,16 @@ class Recorder:
         self._size: dict[str, int] = {}
         self._best: dict[str, int] = {}
 
-    def wrap(self, module, attr: str, kernel: str, measure=None) -> None:
+    def wrap(self, module, attr: str, kernel, measure=None) -> None:
+        """``kernel``: the name the calls are kept under, or a function of
+        the call's keywords giving it (one wrapper, two entry points)."""
         import torch
 
         fn = getattr(module, attr)
+        name_of = kernel if callable(kernel) else lambda kwargs: kernel
 
         def recorded(*args, **kwargs):
+            kernel = name_of(kwargs)
             size = sum(a.numel() for a in args if isinstance(a, torch.Tensor))
             if size > self._size.get(kernel, -1):
                 self._size[kernel], self.inputs[kernel] = size, args
@@ -900,21 +917,57 @@ def phase_s(dev, launches, clock: DecodeClock, keep: dict) -> dict:
     }
 
 
+def mlp_device_ms(fn):
+    """Run ``fn`` under torch.profiler -> (its result, the device ms of the
+    MLP head's kernels it issued, by kernel; None when the profiler saw no
+    device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    seen, ms = False, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            seen = True
+            for part in ("mlp_rows_kernel", "mlp_two_tier_kernel", "mlp_deep_kernel",
+                         "live_items_kernel", "block_and_kernel"):
+                if part in e.name:
+                    ms[part] = ms.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out, (ms if seen else None)
+
+
+# phase M: the head's entry point each algorithm launches
+M_ENTRY = {"block": "mlp_membership_masked", "two_tier": "mlp_two_tier",
+           "exhaustive": "mlp_membership"}
+
+
 def phase_m(dev, launches, keep: dict) -> dict:
     """The MLP head at phase A's width: a ``mlp_hidden=(128,)`` model
     trained as A's (300 steps of 2,048), zero-FN thresholds, then A's 128
     Boolean queries served from S's saved K=4 store (``from_store``, no
-    tier-2 rebuild) as block and as two-tier engines, cold and warm.  Every
-    candidate step scores on mlp_membership (one launch a running shard and
-    batch, no membership launch); block results equal brute force,
-    two-tier results are held to the paper's guarantee."""
+    tier-2 rebuild) as block and as two-tier engines, cold and warm, and
+    once as exhaustive candidates (Algorithm 1, unverified).  Each batch
+    makes one launch a running shard of its algorithm's entry (masked
+    ``mlp_membership``, ``mlp_two_tier``, dense ``mlp_membership``) and no
+    other MLP or ``membership``/``two_tier`` launch; block results equal
+    brute force, two-tier results are held to the paper's guarantee,
+    exhaustive candidates hold every exact result.  Every batch runs under
+    torch.profiler for the head's device ms;
+    last, on every shard, two-tier == exhaustive AND the tier-1 union, word
+    for word (launches taken back)."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from repro_torch.core import algorithms as alg
     from repro_torch.core.learned_bloom import (false_negative_rate, false_positive_rate,
                                                 fit_thresholds)
+    from repro_torch.kernels.membership.ref import pack_bool_words
+    from repro_torch.kernels.two_tier.ref import tier1_union
     from repro_torch.launch.serve import check_two_tier, train_membership
     from repro_torch.serve import BooleanEngine, ServeConfig
     from repro_torch.serve.planner import plan_batch
@@ -940,35 +993,61 @@ def phase_m(dev, launches, keep: dict) -> dict:
         raise AssertionError(f"MLP head: false-negative rate {fnr} != 0")
     fpr = false_positive_rate(lb, inv)
     guaranteed = None
-    for algorithm in ("block", "two_tier"):
-        cfg = ServeConfig(algorithm=algorithm, n_shards=4, device=str(dev))
+    for algorithm in ("block", "two_tier", "exhaustive"):
+        cfg = ServeConfig(algorithm=algorithm, n_shards=4, device=str(dev),
+                          verified=algorithm != "exhaustive")
         eng = timed(f"from_store_{algorithm}",
                     lambda: BooleanEngine.from_store(lb, li_cfg, cfg, keep["store"]))
         if algorithm == "two_tier":
             timed("tier1_upload", lambda: [sh.state.tier1 for sh in eng.shards])
-        plan = plan_batch(eng._padded(q), eng._global_dfs, eng.shards, verified=True)
+        qpad = eng._padded(q)
+        plan = plan_batch(qpad, eng._global_dfs, eng.shards, verified=cfg.verified)
         running = sum(bool(sp.run.any()) for sp in plan.shard_plans)
-        for temp in ("cold", "warm"):
+        for temp in ("cold", "warm") if algorithm != "exhaustive" else ("cold",):
             name = f"{algorithm}_{temp}"
             eng.reset_stats()
             before = launches()
-            res = timed(name, lambda: eng.query_batch(q))
+            # under the profiler: the head's device ms in this batch
+            res, device = timed(name, lambda: mlp_device_ms(lambda: eng.query_batch(q)))
             n = {k: c - before[k] for k, c in launches().items() if c != before[k]}
-            guided = stats_of(eng)["guided"]
+            guided = stats_of(eng).get("guided")  # none without verification
             runs[name] = {"launches": n, "probes": guided["probes"] if guided else 0,
-                          "results": int(sum(len(r) for r in res))}
+                          "results": int(sum(len(r) for r in res)),
+                          "mlp_device_ms": device}
             log(f"[M] {name}: {runs[name]}")
-            if n.get("mlp_membership", 0) != running or n.get("membership") \
+            want = {e: running if e == M_ENTRY[algorithm] else 0
+                    for e in ("mlp_membership", *MLP_ENTRIES)}
+            if {e: n.get(e, 0) for e in want} != want or n.get("membership") \
                     or n.get("two_tier"):
-                raise AssertionError(f"M {name}: launches {n}, expected one mlp_membership "
-                                     f"launch on each of {running} running shards")
+                raise AssertionError(f"M {name}: launches {n}, expected one "
+                                     f"{M_ENTRY[algorithm]} launch on each of {running} running "
+                                     f"shards and no other scoring launch")
             if algorithm == "block":
                 bad = [i for i, (r, e) in enumerate(zip(res, exact)) if not np.array_equal(r, e)]
                 if bad:
                     raise AssertionError(f"M {name}: {len(bad)} queries differ from brute "
                                          f"force, first {bad[:5]}")
-            else:
+            elif algorithm == "two_tier":
                 guaranteed = int(check_two_tier(eng, q, res, exact, li_cfg.truncation_k).sum())
+            else:  # candidates: no false negative
+                bad = [i for i, (r, e) in enumerate(zip(res, exact)) if not np.isin(e, r).all()]
+                if bad:
+                    raise AssertionError(f"M {name}: {len(bad)} candidate sets miss an exact "
+                                         f"result, first {bad[:5]}")
+        if algorithm == "two_tier":
+            # the head's two-tier launch == its dense rows ANDed over each
+            # query's slots and with the tier-1 union, word for word
+            saved = launches()
+            for sh in eng.shards:
+                st = sh.state
+                got = alg.run_queries(st, qpad, "two_tier")
+                union = pack_bool_words(tier1_union(
+                    st.tier1, st.tier1_len, torch.from_numpy(qpad).to(dev), st.n_docs))
+                if not torch.equal(got, alg.run_queries(st, qpad, "exhaustive") & union):
+                    raise AssertionError(f"M shard {sh.shard_id}: two-tier words differ from "
+                                         f"exhaustive AND the tier-1 union")
+            for k, kern in keep["kernels"].items():
+                kern.launches = saved[k]
         del eng
     return {
         "phase": "M",
@@ -982,6 +1061,7 @@ def phase_m(dev, launches, keep: dict) -> dict:
         "false_positive_rate": fpr,
         "two_tier_guaranteed": guaranteed,
         "exact": True,
+        "identity_shards": 4,
         "seconds": secs,
         "runs": runs,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
@@ -1318,7 +1398,7 @@ def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
     rows = []
 
     def row(name, replaces, fn, ref, err, bytes_, flops, library=None, extra=None,
-            plain_in_graph=True):
+            plain_in_graph=True, source=None):
         # ms, plain_ms, library_ms: device time (graph replay); the eager_*
         # keys time the same calls issued one by one from Python.  A plain
         # version whose shapes depend on the data (it reads a count back to
@@ -1326,7 +1406,8 @@ def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
         b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
         plain_eager = cuda_ms(ref)
         rows.append({
-            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
             "replaces": replaces, "launches": launch_counts[name], "max_abs_err": err,
             "ms": graph_ms(fn), "plain_ms": graph_ms(ref) if plain_in_graph else plain_eager,
             "bound_ms": max(b_bytes, b_ops),
@@ -1428,8 +1509,12 @@ def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
     if "two_tier" in rec.inputs:  # phase S ran
         two_tier_row(rec.inputs["two_tier"], rec.kwargs["two_tier"], row, "largest")
         two_tier_row(*rec.second["two_tier"], row, "most_candidates")
-    if "mlp_membership" in rec.second:  # phase M ran: its K=4 shard shape
+    if "mlp_membership" in rec.second:  # phase M ran: its K=4 shard shapes
         mlp_row(rec.second["mlp_membership"][0], row, "most_launched_shape")
+    if "mlp_membership_masked" in rec.second:
+        mlp_masked_row(*rec.second["mlp_membership_masked"], row, "most_launched_shape")
+    if "mlp_two_tier" in rec.second:
+        mlp_two_tier_row(*rec.second["mlp_two_tier"], row, "most_candidates")
     return rows
 
 
@@ -1501,6 +1586,139 @@ def mlp_row(inputs, row, case: str) -> None:
                "ops_per_pair": mlp_pair_ops(dims), "logit_tolerance": "margin (1 + |logit|)",
                "differing_bits": n_differ, "bits_within_margin": n_near, "hits": hits,
                "margin": NUMERIC_MARGIN})
+
+
+def mlp_plain_logits(a, bd, later, dims, bias):
+    """(S, D) plain logits of every pair, over the plain version's doc tiles."""
+    import torch
+
+    from repro_torch.kernels.mlp_membership.ref import doc_tile, mlp_logits_ref
+
+    tile = doc_tile(*a.shape)
+    return torch.cat([mlp_logits_ref(a, bd[d0: d0 + tile], later, dims, bias)
+                      for d0 in range(0, bd.shape[0], tile)], dim=1)
+
+
+def mlp_masked_row(args, kw, row, case: str) -> None:
+    """The masked mlp_membership (Algorithm 3's rows) on the live-block
+    masks phase M gave it, against its plain version: every live pair
+    scored, every scored logit within NUMERIC_MARGIN (1 + |logit|) of the
+    plain one, the bits equal outside the margin of tau (dead words zero in
+    both).  The bound counts the live pairs only (``mlp_pair_ops`` each) and
+    the bytes of the live docs' rows; no one PyTorch call computes it."""
+    import torch
+
+    from repro_torch.core.learned_bloom import NUMERIC_MARGIN
+    from repro_torch.kernels.mlp_membership.kernel import mlp_membership
+    from repro_torch.kernels.mlp_membership.ref import live_words, mlp_membership_ref
+
+    a, bd, later, dims, tau, bias = args
+    live = kw["live"]
+    (S, H1), D = a.shape, bd.shape[0]
+    got = mlp_membership(*args, live=live)
+    want = mlp_membership_ref(*args, live)
+    kernel_logits = torch.full((S, D), float("nan"), device=a.device)
+    if not torch.equal(mlp_membership(*args, live=live, logits=kernel_logits), got):
+        raise AssertionError(f"mlp_membership_masked ({case}): two launches differ")
+    alive = live_words(live, got.shape[1]).repeat_interleave(32, dim=1)[:, :D]
+    scored = ~torch.isnan(kernel_logits)
+    if bool((alive & ~scored).any()):
+        raise AssertionError(f"mlp_membership_masked ({case}): a live pair was not scored")
+    logits = mlp_plain_logits(a, bd, later, dims, bias)
+    lerr = torch.where(scored, (kernel_logits - logits).abs(), 0.0)
+    if bool((lerr > NUMERIC_MARGIN * (1 + logits.abs())).any()):
+        raise AssertionError(f"mlp_membership_masked ({case}): logits differ by more than the "
+                             f"margin")
+    near = (logits - tau[:, None]).abs() <= NUMERIC_MARGIN * (1 + tau.abs()[:, None])
+    differ = bits_of(got ^ want, D)
+    outside = int((differ & ~near).sum())
+    if outside:
+        raise AssertionError(f"mlp_membership_masked ({case}): {outside} bits differ outside "
+                             f"the margin")
+    live_pairs, n_scored = int(alive.sum()), int(scored.sum())
+    live_docs = int(alive.any(dim=0).sum())
+    n_differ, err = int(differ.sum()), float(lerr.max())
+    table, terms = live.table, live.terms
+    del kernel_logits, logits, lerr, near, differ, alive, scored
+    row("mlp_membership_masked", "src/repro/core/algorithms.py:155",
+        lambda: mlp_membership(*args, live=live), lambda: mlp_membership_ref(*args, live),
+        err, 4 * (S * H1 + live_docs * H1 + later.numel() + 2 * S + S * got.shape[1]
+                  + int((terms >= 0).sum()) * table.shape[1] + terms.numel()),
+        mlp_pair_ops(dims) * live_pairs, source="mlp_membership",
+        extra={"case": case, "shape": {"S": S, "D": D, "dims": list(dims),
+                                       "Q": int(terms.shape[0]), "T": int(terms.shape[1]),
+                                       "block_size": live.block_size},
+               "live_pairs": live_pairs, "all_pairs": S * D, "live_share": live_pairs / (S * D),
+               "scored_pairs": n_scored, "live_docs": live_docs,
+               "ops_per_pair": mlp_pair_ops(dims), "logit_tolerance": "margin (1 + |logit|)",
+               "differing_bits": n_differ, "margin": NUMERIC_MARGIN})
+
+
+def mlp_two_tier_row(args, kw, row, case: str) -> None:
+    """mlp_two_tier (Algorithm 2 with a head) on the batch of phase M with
+    the most candidates, against its plain version (bits equal outside the
+    margin of tau for some valid slot of the query) and against the dense
+    launch's rows ANDed over each query's slots and with the tier-1 union
+    (the same arithmetic: equal words).  The bound counts the union's
+    (doc, slot) products (``mlp_pair_ops`` each) and the bytes of the
+    union's doc rows, the list entries, the slots' rows and the bitmap."""
+    import torch
+
+    from repro_torch.core.learned_bloom import NUMERIC_MARGIN
+    from repro_torch.kernels.membership.ref import pack_bool_words
+    from repro_torch.kernels.mlp_membership.kernel import mlp_membership, mlp_two_tier
+    from repro_torch.kernels.mlp_membership.ref import mlp_two_tier_ref
+    from repro_torch.kernels.two_tier.ref import tier1_union
+
+    tier1, tier1_len, queries, slots, a, bd, later, dims, tau, bias = args
+    got = mlp_two_tier(*args, **kw)
+    want = mlp_two_tier_ref(*args)
+    (S, H1), D = a.shape, bd.shape[0]
+    Q, T = queries.shape
+    union = tier1_union(tier1, tier1_len, queries, D)
+    rows = torch.cat([mlp_membership(a, bd, later, dims, tau, bias),
+                      torch.full((1, got.shape[1]), -1, dtype=torch.int32, device=a.device)])
+    picked = rows[torch.where(slots >= 0, slots, S).long()]  # (Q, T, words)
+    dense = picked[:, 0].clone()
+    for t in range(1, T):
+        dense &= picked[:, t]
+    valid = queries >= 0
+    dense = torch.where(valid.any(dim=1, keepdim=True), dense & pack_bool_words(union), 0)
+    if not torch.equal(got, dense):
+        raise AssertionError(f"mlp_two_tier ({case}): {int((got != dense).sum())} words differ "
+                             f"from the dense rows ANDed with the union")
+    del rows, picked, dense
+    logits = mlp_plain_logits(a, bd, later, dims, bias)
+    qi, di = bits_of(got ^ want, D).nonzero(as_tuple=True)
+    err = 0.0
+    if len(qi):  # each differing bit: its nearest valid slot's |logit - tau|
+        gap = torch.full((len(qi),), float("inf"), device=a.device)
+        rel = torch.full((len(qi),), float("inf"), device=a.device)
+        for t in range(T):
+            r = slots[qi, t].long()
+            g = (logits[r.clamp(min=0), di] - tau[r.clamp(min=0)]).abs()
+            g = torch.where(r >= 0, g, float("inf"))
+            rel = torch.minimum(rel, g / (1 + tau[r.clamp(min=0)].abs()))
+            gap = torch.minimum(gap, g)
+        if bool((rel > NUMERIC_MARGIN).any()):
+            raise AssertionError(f"mlp_two_tier ({case}): {int((rel > NUMERIC_MARGIN).sum())} "
+                                 f"bits differ outside the margin")
+        err = float(gap.max())
+    del logits
+    n_valid = valid.sum(dim=1)
+    pairs = int((union.sum(dim=1) * n_valid).sum())
+    entries = int(tier1_len[queries[valid].long()].sum())
+    docs = int(union.any(dim=0).sum())
+    need = 4 * (2 * Q * T + S * H1 + 2 * S + entries + docs * H1 + later.numel() + got.numel())
+    row("mlp_two_tier", "src/repro/core/algorithms.py:112",
+        lambda: mlp_two_tier(*args, **kw), lambda: mlp_two_tier_ref(*args),
+        err, need, mlp_pair_ops(dims) * pairs, plain_in_graph=False, source="mlp_membership",
+        extra={"case": case, "differing_bits": len(qi), "margin": NUMERIC_MARGIN,
+               "ops_per_pair": mlp_pair_ops(dims),
+               "shape": {"Q": Q, "T": T, "valid_slots": int(n_valid.sum()),
+                         "k": int(tier1.shape[1]), "D": D, "dims": list(dims),
+                         "list_entries": entries, "union_docs": int(union.sum()),
+                         "distinct_docs": docs, "pairs": pairs}})
 
 
 def candidate_total(args) -> int:
@@ -1780,10 +1998,11 @@ def main() -> int:
         from repro_torch.kernels.two_tier.kernel import KERNEL as TWO_TIER
 
         kernels["two_tier"] = TWO_TIER
-    if "M" in phases:  # a package with the MLP head's kernel
-        from repro_torch.kernels.mlp_membership.kernel import KERNEL as MLP_MEMBERSHIP
+    if "M" in phases:  # a package with the MLP head's kernels
+        from repro_torch.kernels.mlp_membership import kernel as mlp
 
-        kernels["mlp_membership"] = MLP_MEMBERSHIP
+        kernels["mlp_membership"] = mlp.KERNEL
+        kernels.update({n: getattr(mlp, a) for n, a in MLP_ENTRIES.items() if hasattr(mlp, a)})
 
     t0 = time.perf_counter()
     reports = cuda.build_all()
@@ -1804,7 +2023,11 @@ def main() -> int:
         if "S" in phases:
             rec.wrap(algorithms, "two_tier_candidates", "two_tier", candidate_total)
         if "M" in phases:
-            rec.wrap(algorithms, "mlp_membership", "mlp_membership", shape_frequency())
+            rec.wrap(algorithms, "mlp_membership",
+                     lambda kw: "mlp_membership" if kw.get("live") is None
+                     else "mlp_membership_masked", shape_frequency())
+            if hasattr(algorithms, "mlp_two_tier"):
+                rec.wrap(algorithms, "mlp_two_tier", "mlp_two_tier", candidate_total)
     clock = DecodeClock()
     clock.install()
 
@@ -1842,7 +2065,8 @@ def main() -> int:
                          ("R", ("pfor", "bm25_score", "fused_topk", "dense_topk")),
                          ("S", ("membership", "bitset", "pfor", "bm25_score", "two_tier")),
                          ("Q", ("membership", "bitset", "bm25_score")),
-                         ("M", ("mlp_membership", "bitset", "pfor")),
+                         ("M", ("mlp_membership", "mlp_membership_masked", "mlp_two_tier",
+                                "bitset", "pfor")),
                          ("K", ("membership", "bitset"))):
         for n in names:
             if phase in counts and n in counts[phase] and counts[phase][n] == 0:

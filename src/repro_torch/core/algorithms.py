@@ -22,15 +22,18 @@ the AND over each query's terms and the block mask on one ``bitset``
 launch (``block_candidates``).  Algorithm 2 is one ``two_tier`` launch
 (``two_tier_candidates``): the tier-1 union and its f_hat test, with the
 membership kernel's dot product, so its candidates are Algorithm 1's ANDed
-with the union, bit for bit.  A model with an MLP head scores its slots on
-one ``mlp_membership`` launch instead of ``membership`` (``score_slots``),
-in Algorithms 1 and 3 alike; its Algorithm 2 is that function computed the
-same way: the Algorithm-1 rows of the query's terms, ANDed, and ANDed with
-the bitmap of the union of its tier-1 lists.  On the CPU the same wrappers
-run their plain versions.  The (n_terms, k) tier-1 table reaches the device
-at the first two-tier call, not when the state is built.  Each launch sits in a
-``kernel.*`` span (repro_torch.obs) that covers its issue only: the caller's
-copy of the candidates back is where the host waits for the card.
+with the union, bit for bit.  A model with an MLP head scores on the
+``mlp_membership`` kernels instead (``score_slots``): Algorithm 1's rows
+on one dense launch; Algorithm 3's on one masked launch that scores only
+the blocks surviving each slot's query's block AND (``LiveBlocks``), then
+the same ``bitset`` launch; Algorithm 2 on one ``mlp_two_tier`` launch that
+scores only the union of each query's tier-1 lists, in the dense launch's
+arithmetic, so its candidates too are Algorithm 1's ANDed with the union.
+On the CPU the same wrappers run their plain versions.  The (n_terms, k)
+tier-1 table reaches the device at the first two-tier call, not when the
+state is built.  Each launch sits in a ``kernel.*`` span (repro_torch.obs)
+that covers its issue only: the caller's copy of the candidates back is
+where the host waits for the card.
 """
 from __future__ import annotations
 
@@ -44,10 +47,10 @@ from repro_torch.index.build import InvertedIndex, block_lists, truncate_index
 from repro_torch.kernels.bitset.kernel import block_candidates
 from repro_torch.kernels.cuda import staging
 from repro_torch.kernels.membership.kernel import membership_bitmask
-from repro_torch.kernels.membership.ref import LANE, pack_bool_words
-from repro_torch.kernels.mlp_membership.kernel import mlp_membership
+from repro_torch.kernels.membership.ref import LANE
+from repro_torch.kernels.mlp_membership.kernel import mlp_membership, mlp_two_tier
+from repro_torch.kernels.mlp_membership.ref import LiveBlocks
 from repro_torch.kernels.two_tier.kernel import two_tier_candidates
-from repro_torch.kernels.two_tier.ref import tier1_union
 from repro_torch.obs import trace
 
 
@@ -126,11 +129,14 @@ def build_engine(
 
 
 @torch.no_grad()
-def score_slots(model: MembershipModel, terms: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+def score_slots(model: MembershipModel, terms: torch.Tensor, tau: torch.Tensor,
+                live: LiveBlocks | None = None) -> torch.Tensor:
     """(S,) int64 term ids and their (S,) thresholds -> (S, words) packed
-    f_hat rows over every doc: one ``membership`` launch for a dot-product
-    model, one ``mlp_membership`` launch (its doc side computed once per
-    model, ``MembershipModel.doc_side``) for a model with a head."""
+    f_hat rows: one ``membership`` launch for a dot-product model (every
+    doc), one ``mlp_membership`` launch (its doc side computed once per
+    model, ``MembershipModel.doc_side``) for a model with a head, which,
+    given ``live``, scores only the blocks that survive each slot's query's
+    block AND and leaves the other words zero."""
     n_docs = model.doc_embed.weight.shape[0]
     if model.mlp is None:
         with trace.span("kernel.membership", slots=len(terms), docs=n_docs):
@@ -139,8 +145,28 @@ def score_slots(model: MembershipModel, terms: torch.Tensor, tau: torch.Tensor) 
                                       float(model.bias))
     bd, later, dims = model.doc_side()
     a = model.term_side(terms).contiguous()
-    with trace.span("kernel.mlp_membership", slots=len(terms), docs=n_docs):
-        return mlp_membership(a, bd, later, dims, tau.contiguous(), float(model.bias))
+    with trace.span("kernel.mlp_membership", slots=len(terms), docs=n_docs,
+                    masked=live is not None):
+        return mlp_membership(a, bd, later, dims, tau.contiguous(), float(model.bias), live=live)
+
+
+def _slot_upload(queries: np.ndarray, device: torch.device):
+    """(Q, T) padded queries -> on ``device``, in one upload: the (Q, T)
+    term ids, the (Q, T) row of each valid (query, term) in the compact
+    slot order (-1 = pad), and, per slot, its term id and its query."""
+    Q, T = queries.shape
+    flat = queries.reshape(-1)
+    valid = np.nonzero(flat >= 0)[0]
+    n, S = Q * T, len(valid)
+    host = staging(2 * n + 2 * S, device)
+    buf = host.numpy()
+    buf[:n] = flat
+    buf[n: 2 * n] = -1
+    buf[n + valid] = np.arange(S, dtype=np.int32)
+    buf[2 * n: 2 * n + S] = flat[valid]
+    buf[2 * n + S:] = valid // T
+    up = host.to(device, non_blocking=True)
+    return up[:n].view(Q, T), up[n: 2 * n].view(Q, T), up[2 * n: 2 * n + S], up[2 * n + S:]
 
 
 @torch.no_grad()
@@ -187,24 +213,29 @@ def _f_hat_docs(state: EngineState, terms: torch.Tensor, doc_ids: torch.Tensor) 
 def two_tier_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     """(Q, T) -> (Q, words) packed candidates: the union of the query's
     valid tier-1 lists, kept where f_hat holds for every valid term.  One
-    ``two_tier`` launch on the resident tier-1 table; with an MLP head,
-    Algorithm 1's candidates (one ``mlp_membership`` launch) ANDed with the
-    union's bitmap."""
-    if state.model.mlp is not None:
-        union = tier1_union(state.tier1, state.tier1_len,
-                            torch.from_numpy(np.ascontiguousarray(queries)).to(state.device),
-                            state.n_docs)
-        return exhaustive_query(state, queries) & pack_bool_words(union)
+    ``two_tier`` launch on the resident tier-1 table; with an MLP head, one
+    ``mlp_two_tier`` launch, which scores the union's docs only."""
     valid = queries >= 0
     lens = np.where(valid, np.minimum(state.dfs[np.maximum(queries, 0)], state.truncation_k), 0)
-    with trace.span("kernel.two_tier", queries=int(queries.shape[0]),
-                    terms=int(queries.shape[1]), entries=int(lens.sum())):
+    most = int(lens.sum(axis=1).max()) if len(lens) else 0
+    span = dict(queries=int(queries.shape[0]), terms=int(queries.shape[1]),
+                entries=int(lens.sum()))
+    model = state.model
+    if model.mlp is not None:
+        terms2d, slots2d, slot_terms, _ = _slot_upload(queries, state.device)
+        terms = slot_terms.long()
+        bd, later, dims = model.doc_side()
+        a = model.term_side(terms).contiguous()
+        with trace.span("kernel.mlp_two_tier", **span):
+            return mlp_two_tier(state.tier1, state.tier1_len, terms2d, slots2d, a, bd, later, dims,
+                                state.tau[terms].contiguous(), float(model.bias),
+                                max_candidates=most)
+    with trace.span("kernel.two_tier", **span):
         return two_tier_candidates(
             state.tier1, state.tier1_len,
             torch.from_numpy(np.ascontiguousarray(queries)).to(state.device),
-            state.model.term_embed.weight.detach(), state.model.doc_embed.weight.detach(),
-            state.tau, float(state.model.bias),
-            max_candidates=int(lens.sum(axis=1).max()) if len(lens) else 0)
+            model.term_embed.weight.detach(), model.doc_embed.weight.detach(),
+            state.tau, float(model.bias), max_candidates=most)
 
 
 def two_tier_guaranteed(dfs: np.ndarray, queries: np.ndarray, k: int, *, with_model: bool
@@ -229,30 +260,24 @@ def block_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     terms, kept only in blocks that survive the block-bitmap AND.
 
     One upload of the (Q, T) term ids, their slots in the compact row
-    table and the valid slots' term ids; one ``membership`` (or
-    ``mlp_membership``) launch over the valid slots; one
+    table and the valid slots' term ids and queries; one ``membership``
+    launch over the valid slots (or, with a head, one masked
+    ``mlp_membership`` launch that scores only their live blocks); one
     ``block_candidates`` launch for the rest."""
     Q, T = queries.shape
     dev = state.device
-    flat = queries.reshape(-1)
-    valid = np.nonzero(flat >= 0)[0]
-    host = staging(2 * Q * T + len(valid), dev)
-    buf = host.numpy()
-    buf[: Q * T] = flat
-    buf[Q * T : 2 * Q * T] = -1
-    buf[Q * T + valid] = np.arange(len(valid), dtype=np.int32)
-    buf[2 * Q * T :] = flat[valid]
-    up = host.to(dev, non_blocking=True)
+    terms2d, slots2d, slot_terms, slot_query = _slot_upload(queries, dev)
     words = -(-state.n_docs // LANE)
-    if len(valid):
-        terms = up[2 * Q * T :].long()
-        rows = score_slots(state.model, terms, state.tau[terms])
+    if len(slot_terms):
+        terms = slot_terms.long()
+        live = (LiveBlocks(state.block_bitmaps, terms2d, slot_query, state.block_size)
+                if state.model.mlp is not None else None)
+        rows = score_slots(state.model, terms, state.tau[terms], live=live)
     else:
         rows = torch.zeros((0, words), dtype=torch.int32, device=dev)
     with trace.span("kernel.bitset", queries=Q, terms=T, words=words):
-        cand, _, _ = block_candidates(
-            state.block_bitmaps, up[: Q * T].view(Q, T), up[Q * T : 2 * Q * T].view(Q, T),
-            rows, state.n_docs, state.block_size)
+        cand, _, _ = block_candidates(state.block_bitmaps, terms2d, slots2d, rows, state.n_docs,
+                                      state.block_size)
     return cand
 
 

@@ -1,8 +1,12 @@
-"""Plain PyTorch version of the MLP-head membership kernel.
+"""Plain PyTorch versions of the MLP-head membership kernels.
 
 Per (slot, doc): h = gelu_tanh(A[slot] + Bd[doc]), the head's later
 layers, + bias, >= tau[slot], packed 32 docs a word (bit i of word w = doc
-32 w + i, tail bits zero).  A = te[terms] @ W1[:E] and Bd = doc_embed @
+32 w + i, tail bits zero).  Three forms, one a launch of
+csrc/mlp_membership.cu: every pair (``mlp_membership_ref``); the same rows
+with the words of dead blocks zeroed (``live``, Algorithm 3); and the
+candidates of Algorithm 2 (``mlp_two_tier_ref``), which score only the
+union of each query's tier-1 lists, as the reference's ``per_query`` does.  A = te[terms] @ W1[:E] and Bd = doc_embed @
 W1[E:] + b1 are the first layer's halves (core/membership.py); the later
 layers travel packed flat (each w row-major (h_in, h_out), then its b) with
 their dims (H1, ..., 1).  It runs over doc tiles, each a broadcast (S,
@@ -13,14 +17,40 @@ NUMERIC_MARGIN of tau.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.membership.ref import LANE, pack_bool_words
+from repro_torch.kernels.two_tier.ref import query_union
 
 TILE_FLOATS = 1 << 26  # (S, tile, H1) floats of one tile's pairing: 256 MB
+
+
+class LiveBlocks(NamedTuple):
+    """Algorithm 3's live-block mask of a batch's slots: a slot's row is
+    needed only in the blocks that survive its query's block AND."""
+
+    table: torch.Tensor  # (n_terms, Wb) int32 block bitmaps, bit b = block b
+    terms: torch.Tensor  # (Q, T) int32 term ids, -1 = pad
+    slot_query: torch.Tensor  # (S,) int32 query of each slot
+    block_size: int  # docs a block, a multiple of 32
+
+
+def live_words(live: LiveBlocks, words: int) -> torch.Tensor:
+    """-> (S, words) bool: the word lies in a block that survives the block
+    AND of the slot's query (valid terms only; a query with none keeps no
+    block)."""
+    valid = live.terms >= 0
+    rows = torch.where(valid[..., None], live.table[live.terms.clamp(min=0).long()], -1)
+    anded = rows[:, 0].clone()
+    for t in range(1, rows.shape[1]):
+        anded &= rows[:, t]
+    anded = torch.where(valid.any(dim=1, keepdim=True), anded, torch.zeros_like(anded))
+    blk = torch.arange(words, device=anded.device) * LANE // live.block_size
+    alive = ((anded[:, blk // 32] >> (blk % 32).to(torch.int32)) & 1).bool()  # (Q, words)
+    return alive[live.slot_query.long()]
 
 
 def unpack_layers(later: torch.Tensor, dims: Sequence[int]) -> list[tuple[torch.Tensor, torch.Tensor]]:
@@ -60,8 +90,10 @@ def mlp_membership_ref(
     dims: Sequence[int],  # (H1, ..., 1)
     tau: torch.Tensor,  # (S,) float32 per-slot thresholds
     bias: float,
+    live: LiveBlocks | None = None,
 ) -> torch.Tensor:
-    """-> (S, ceil(D/32)) int32 packed hit mask: bit set iff logit >= tau."""
+    """-> (S, ceil(D/32)) int32 packed hit mask: bit set iff logit >= tau;
+    with ``live``, the words of a slot's dead blocks zero."""
     S, D = a.shape[0], bd.shape[0]
     out = torch.zeros((S, -(-D // LANE)), dtype=torch.int32, device=a.device)
     tile = doc_tile(S, a.shape[1])
@@ -69,4 +101,38 @@ def mlp_membership_ref(
         hits = mlp_logits_ref(a, bd[d0: d0 + tile], later, dims, bias) >= tau[:, None]
         w0 = d0 // LANE
         out[:, w0: w0 + -(-hits.shape[1] // LANE)] = pack_bool_words(hits)
+    if live is not None:
+        out = torch.where(live_words(live, out.shape[1]), out, torch.zeros_like(out))
     return out
+
+
+def mlp_two_tier_ref(
+    tier1: torch.Tensor,  # (n_terms, k) int32 truncated lists, padded with n_docs
+    tier1_len: torch.Tensor,  # (n_terms,) int32 entries of each row
+    queries: torch.Tensor,  # (Q, T) int32 term ids, -1 = pad
+    slots: torch.Tensor,  # (Q, T) int32 row of ``a`` and ``tau`` per valid term, -1 = pad
+    a: torch.Tensor,  # (S, H1) float32 term halves of the slots
+    bd: torch.Tensor,  # (D, H1) float32 doc halves
+    later: torch.Tensor,  # flat float32 layers after the first
+    dims: Sequence[int],  # (H1, ..., 1)
+    tau: torch.Tensor,  # (S,) float32 per-slot thresholds
+    bias: float,
+) -> torch.Tensor:
+    """-> (Q, ceil(D/32)) int32 packed candidates: the docs of the union of
+    the query's valid tier-1 lists whose logit passes tau for every valid
+    slot; query by query, the union's docs only."""
+    D = bd.shape[0]
+    out = torch.zeros((queries.shape[0], D), dtype=torch.bool, device=bd.device)
+    for i, (row, srow) in enumerate(zip(queries, slots)):
+        ok = row >= 0
+        if not bool(ok.any()):
+            continue  # an all-pad query matches nothing
+        ids = query_union(tier1, tier1_len, row[ok].long())
+        rows = srow[ok].long()
+        keep = torch.zeros(len(ids), dtype=torch.bool, device=bd.device)
+        tile = doc_tile(len(rows), a.shape[1])
+        for d0 in range(0, len(ids), tile):
+            logits = mlp_logits_ref(a[rows], bd[ids[d0: d0 + tile]], later, dims, bias)
+            keep[d0: d0 + tile] = (logits >= tau[rows][:, None]).all(dim=0)
+        out[i, ids[keep]] = True
+    return pack_bool_words(out)

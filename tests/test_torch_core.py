@@ -266,8 +266,8 @@ assert obs | sched | {"repro_torch.obs", "repro_torch.serve.sched"} <= set(mods)
     (obs | sched) - set(mods)
 slice10 = {"repro_torch.core.gain", "repro_torch.common.nn", "repro_torch.kernels.bitset.ops",
            "repro_torch.kernels.membership.ops", "repro_torch.kernels.mlp_membership.kernel",
-           "repro_torch.kernels.mlp_membership.ref", "repro_torch.launch.quickstart",
-           "repro_torch.launch.product_search"}
+           "repro_torch.kernels.mlp_membership.ref", "repro_torch.kernels.mlp_membership.bench",
+           "repro_torch.launch.quickstart", "repro_torch.launch.product_search"}
 assert slice10 <= set(mods), slice10 - set(mods)
 print(len(mods))
 """

@@ -39,8 +39,11 @@ from repro_torch.kernels.guided_search.kernel import probe_batch
 from repro_torch.kernels.guided_search.ref import probe_ref
 from repro_torch.kernels.membership.kernel import membership_bitmask
 from repro_torch.kernels.membership.ref import membership_bitmask_ref
-from repro_torch.kernels.mlp_membership.kernel import KERNEL as MLP, mlp_membership
-from repro_torch.kernels.mlp_membership.ref import mlp_logits_ref, mlp_membership_ref
+from repro_torch.kernels.mlp_membership.kernel import KERNEL as MLP, MASKED as MLP_MASKED
+from repro_torch.kernels.mlp_membership.kernel import TWO_TIER as MLP_TWO_TIER
+from repro_torch.kernels.mlp_membership.kernel import mlp_membership, mlp_two_tier
+from repro_torch.kernels.mlp_membership.ref import (LiveBlocks, mlp_logits_ref,
+                                                    mlp_membership_ref, mlp_two_tier_ref)
 from repro_torch.kernels.plm_decode.kernel import decode_batch
 from repro_torch.kernels.plm_decode.ops import decode_lists as plm_decode_lists
 from repro_torch.kernels.plm_decode.ref import decode_ref
@@ -906,11 +909,172 @@ def test_mlp_head_serves_exactly_on_card(head, algorithm):
             local = e[(e >= sh.lo) & (e < sh.hi)] - sh.lo
             assert np.isin(local, unpack_row(row, sh.n_docs)).all()
     plan = plan_batch(eng._padded(q), eng._global_dfs, eng.shards, verified=True)
-    before = MLP.launches
+    kernels = {"exhaustive": MLP, "block": MLP_MASKED, "two_tier": MLP_TWO_TIER}
+    before = {n: k.launches for n, k in kernels.items()}
     res = eng.query_batch(q)
-    assert MLP.launches - before == sum(bool(sp.run.any()) for sp in plan.shard_plans) > 0
+    running = sum(bool(sp.run.any()) for sp in plan.shard_plans)
+    assert running > 0
+    for name, k in kernels.items():  # one launch a shard and batch, of the algorithm's entry
+        assert k.launches - before[name] == (running if name == algorithm else 0), name
     if algorithm == "two_tier":
         check_two_tier(eng, q, res, exact, eng.li_cfg.truncation_k)
     else:
         for r, e in zip(res, exact):
             assert np.array_equal(r, e)
+
+
+def _differ_outside(got, want, logits, tau, n):
+    """Bits of (rows, words) ``got`` and ``want`` that differ where no
+    pair's logit lies within the margin of tau."""
+    shifts = torch.arange(32, device=got.device, dtype=torch.int32)
+    differ = (((got ^ want).unsqueeze(-1) >> shifts) & 1).reshape(got.shape[0], -1)[:, :n].bool()
+    near = (logits - tau[:, None]).abs() <= NUMERIC_MARGIN * (1 + tau.abs()[:, None])
+    return int((differ & ~near).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(128, 1), (24, 12, 1)])
+def test_mlp_gelu_overflow_on_card(dims):
+    """Pre-activations spanning +-30: for very negative x, 2^t overflows to
+    +inf and the unit gives -0; every logit stays within the margin of the
+    plain version's (F.gelu's tanh form)."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    S, D = 9, 3000
+    a, bd, later = (_t(x).to(dev) for x in _mlp_inputs(rng, S, D, dims))
+    a = (a * 21.0).contiguous()  # A + Bd spans about +-60
+    bd = (bd * 21.0).contiguous()
+    logits = mlp_logits_ref(a, bd, later, dims, 0.05)
+    tau = torch.quantile(logits, 0.5, dim=1).contiguous()
+    kernel_logits = torch.empty_like(logits)
+    got = mlp_membership(a, bd, later, dims, tau, 0.05, logits=kernel_logits)
+    assert bool(torch.isfinite(kernel_logits).all())
+    assert bool(((kernel_logits - logits).abs() <= NUMERIC_MARGIN * (1 + logits.abs())).all())
+    want = mlp_membership_ref(a, bd, later, dims, tau, 0.05)
+    assert _differ_outside(got, want, logits, tau, D) == 0
+    x = a[:, None, :] + bd[None, :, :]
+    assert float(x.min()) < -30 and float(x.max()) > 30
+
+
+def _live_batch(rng, dev, D, block_size, S_per_q=(1, 8), Q=40, T=8, n_terms=60, density=0.6):
+    words = -(-D // 32)
+    Wb = -(-words // block_size)
+    bits = rng.random((n_terms, Wb * 32)) < density
+    table = np.packbits(bits, axis=1, bitorder="little").view(np.uint32)
+    terms = np.full((Q, T), -1, np.int32)
+    for i in range(Q):
+        n = int(rng.integers(S_per_q[0], S_per_q[1] + 1))
+        terms[i, :n] = rng.choice(n_terms, n, replace=False)
+    flat = terms.reshape(-1)
+    valid = np.nonzero(flat >= 0)[0]
+    return (_t(table).to(dev), _t(terms).to(dev),
+            _t((valid // T).astype(np.int32)).to(dev), len(valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,block_size,dims,density", [
+    (132000, 1024, (128, 1), 0.75), (5000, 64, (48, 1), 0.5), (5000, 1024, (50, 1), 0.0),
+    (5000, 96, (64, 1), 1.0), (3000, 64, (24, 12, 1), 0.5)])
+def test_mlp_masked_kernel_matches_plain_on_card(D, block_size, dims, density):
+    """The masked launch against its plain version: zero words in dead
+    blocks, the full rows' bits (outside the margin) in live ones, with
+    all-dead (density 0) and all-live (density 1) masks, blocks smaller
+    than, and not dividing, a 512-doc tile; a CUDA-graph replay rebuilds
+    the item list and gives the same words."""
+    dev = _card()
+    rng = np.random.default_rng(D + block_size)
+    table, terms, slot_query, S = _live_batch(rng, dev, D, block_size, density=density)
+    a, bd, later = (_t(x).to(dev) for x in _mlp_inputs(rng, S, D, dims))
+    logits = torch.cat([mlp_logits_ref(a, bd[i: i + 4096], later, dims, 0.05)
+                        for i in range(0, D, 4096)], dim=1)
+    tau = torch.quantile(logits[:, : min(D, 4096)], 0.5, dim=1).contiguous()
+    live = LiveBlocks(table, terms, slot_query, block_size)
+    before = MLP_MASKED.launches
+    kernel_logits = torch.full_like(logits, float("nan"))
+    got = mlp_membership(a, bd, later, dims, tau, 0.05, live=live, logits=kernel_logits)
+    assert MLP_MASKED.launches == before + 1
+    want = mlp_membership_ref(a, bd, later, dims, tau, 0.05, live)
+    assert _differ_outside(got, want, logits, tau, D) == 0
+    scored = ~torch.isnan(kernel_logits)
+    assert bool(((kernel_logits - logits).abs() <= NUMERIC_MARGIN * (1 + logits.abs()))[scored].all())
+    from repro_torch.kernels.mlp_membership.ref import live_words
+
+    alive = live_words(live, got.shape[1])
+    assert not bool(got[~alive].any())
+    if density == 0.0:
+        assert not bool(alive.any()) and not bool(scored.any())
+    if density == 1.0:
+        assert bool(alive.all())
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mlp_membership(a, bd, later, dims, tau, 0.05, live=live)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        replayed = mlp_membership(a, bd, later, dims, tau, 0.05, live=live)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(128, 1), (50, 1), (24, 12, 1)])
+def test_mlp_two_tier_kernel_matches_plain_on_card(dims):
+    """The two-tier launch against its plain version and against the dense
+    rows ANDed over each query's slots and with the union (the same
+    arithmetic: equal bits): queries of 1 to 8 slots, an all-pad query, an
+    empty union, a repeated term; a CUDA-graph replay starts from zero."""
+    dev = _card()
+    rng = np.random.default_rng(len(dims) + dims[0])
+    D, n_terms, k, Q, T = 20000, 300, 400, 48, 8
+    tier1 = np.full((n_terms, k), D, np.int32)
+    lens = rng.integers(0, k + 1, n_terms).astype(np.int32)
+    lens[:2] = 0
+    for t in range(n_terms):
+        tier1[t, : lens[t]] = np.sort(rng.choice(D, lens[t], replace=False))
+    queries = np.full((Q, T), -1, np.int32)
+    for i in range(Q):
+        queries[i, : 1 + i % T] = rng.choice(np.arange(2, n_terms), 1 + i % T, replace=False)
+    queries[1] = -1
+    queries[2] = -1
+    queries[2, :2] = [0, 1]
+    queries[3, 1] = queries[3, 0]
+    flat = queries.reshape(-1)
+    slots = np.full(Q * T, -1, np.int32)
+    S = int((flat >= 0).sum())
+    slots[flat >= 0] = np.arange(S, dtype=np.int32)
+    slots = slots.reshape(Q, T)
+    a, bd, later = (_t(x).to(dev) for x in _mlp_inputs(rng, S, D, dims))
+    logits = mlp_logits_ref(a, bd, later, dims, 0.05)
+    tau = torch.quantile(logits, 0.2, dim=1).contiguous()
+    t = [_t(x).to(dev) for x in (tier1, lens, queries, slots)]
+    before = MLP_TWO_TIER.launches
+    got = mlp_two_tier(*t, a, bd, later, dims, tau, 0.05)
+    assert MLP_TWO_TIER.launches == before + 1
+    want = mlp_two_tier_ref(*t, a, bd, later, dims, tau, 0.05)
+    union = tier1_union(t[0], t[1], t[2], D)
+    rows = mlp_membership(a, bd, later, dims, tau, 0.05)
+    shifts = torch.arange(32, device=dev, dtype=torch.int32)
+    bits = lambda w: ((w.unsqueeze(-1) >> shifts) & 1).reshape(w.shape[0], -1)[:, :D].bool()  # noqa: E731
+    g, w, r = bits(got), bits(want), bits(rows)
+    near = (logits - tau[:, None]).abs() <= NUMERIC_MARGIN * (1 + tau.abs()[:, None])
+    for i in range(Q):
+        ss = t[3][i][t[3][i] >= 0].long()
+        exact = union[i] & r[ss].all(dim=0) if len(ss) else torch.zeros_like(union[i])
+        assert torch.equal(g[i], exact), i  # the dense launch's arithmetic
+        assert not bool(((g[i] != w[i]) & ~near[ss].any(dim=0)).any()), i
+    assert not bool(g[1].any()) and not bool(union[2].any()) and bool(g.any())
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mlp_two_tier(*t, a, bd, later, dims, tau, 0.05)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        replayed = mlp_two_tier(*t, a, bd, later, dims, tau, 0.05)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, got)

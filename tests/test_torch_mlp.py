@@ -37,8 +37,9 @@ from repro_torch.data.queries import brute_force_answers, sample_queries
 from repro_torch.index.build import build_inverted_index
 from repro_torch.kernels.membership.ops import score_terms_bitmask
 from repro_torch.kernels.membership.ref import pack_bool_words
-from repro_torch.kernels.mlp_membership.kernel import mlp_membership
-from repro_torch.kernels.mlp_membership.ref import mlp_logits_ref, mlp_membership_ref
+from repro_torch.kernels.mlp_membership.kernel import mlp_membership, mlp_two_tier
+from repro_torch.kernels.mlp_membership.ref import (LiveBlocks, mlp_logits_ref,
+                                                    mlp_membership_ref, mlp_two_tier_ref)
 from repro_torch.kernels.two_tier.ref import tier1_union
 
 CORPUS = dict(n_docs=400, n_terms=1600, avg_doc_len=50, seed=31)
@@ -153,8 +154,8 @@ def test_doc_side_cached_until_the_model_changes():
 
 
 # ------------------------------------------------------------ Algorithms 1-3
-def _queries(corpus):
-    q = sample_queries(corpus, 24, seed=8, max_terms=4)
+def _queries(corpus, seed=8):
+    q = sample_queries(corpus, 24, seed=seed, max_terms=4)
     q[3] = -1  # an all-pad query matches nothing
     q[4, 1:] = -1
     return np.pad(q, ((0, 0), (0, 2)), constant_values=-1)
@@ -163,25 +164,40 @@ def _queries(corpus):
 @pytest.mark.parametrize("head", HEADS)
 @pytest.mark.parametrize("algorithm", ["block", "exhaustive", "two_tier"])
 def test_head_candidates_match_reference(corpus, head, algorithm):
-    """The head's candidates through the plain mlp_membership (one call a
-    batch) against the reference's block_query, exhaustive_query and
-    two_tier_query with the same head and thresholds."""
-    params_np = _params(head)
+    """The head's candidates through the plain mlp_membership kernels (one
+    call a batch: Algorithm 1's rows, Algorithm 3's masked rows, Algorithm
+    2's union scoring) against the reference's block_query,
+    exhaustive_query and two_tier_query with the same head and thresholds."""
+    _check_head_candidates(corpus, head, algorithm, seed=2)
+
+
+@pytest.mark.parametrize("head", HEADS)
+@pytest.mark.parametrize("algorithm", ["block", "two_tier"])
+def test_head_candidates_match_reference_second_seed(corpus, head, algorithm):
+    """As above, with other weights and other queries."""
+    _check_head_candidates(corpus, head, algorithm, seed=9)
+
+
+def _check_head_candidates(corpus, head, algorithm, seed):
+    params_np = _params(head, seed)
     inv = build_inverted_index(corpus)
     model = params_from_jax(params_np, device="cpu")
     tau = fit_thresholds(model, inv).tau
     state = alg.build_engine(model, tau, inv, truncation_k=16, block_size=64)
     tau = tau.numpy()
     ref_state = ref_alg.build_engine(_ref(params_np), tau, inv, truncation_k=16, block_size=64)
-    q = _queries(corpus)
+    q = _queries(corpus, seed + 6)
     calls = []
-    plain = alg.mlp_membership
-    alg.mlp_membership = lambda *a: calls.append(a[0].shape[0]) or plain(*a)
+    rows, union = alg.mlp_membership, alg.mlp_two_tier
+    alg.mlp_membership = lambda *a, **kw: calls.append(
+        ("masked" if kw.get("live") is not None else "rows", a[0].shape[0])) or rows(*a, **kw)
+    alg.mlp_two_tier = lambda *a, **kw: calls.append(("two_tier", a[4].shape[0])) or union(*a, **kw)
     try:
         words = alg.run_queries(state, q, algorithm).numpy().view(np.uint32)
     finally:
-        alg.mlp_membership = plain
-    assert calls == [int((q >= 0).sum())]  # one call over the valid slots
+        alg.mlp_membership, alg.mlp_two_tier = rows, union
+    entry = {"block": "masked", "exhaustive": "rows", "two_tier": "two_tier"}[algorithm]
+    assert calls == [(entry, int((q >= 0).sum()))]  # one call over the valid slots
     got = np.unpackbits(words.view(np.uint8), axis=-1, bitorder="little")
     assert not got[:, inv.n_docs:].any()
     got = got[:, : inv.n_docs]
@@ -243,6 +259,141 @@ def test_plain_kernel_tiles_and_score_terms(S, D, dims):
     assert not bits[:, D:].any()
     with pytest.raises(ValueError):
         mlp_membership(a, bd, later[:-1], dims, tau, 0.1)
+
+
+def _head_inputs(rng, S, D, dims):
+    a = torch.from_numpy((rng.standard_normal((S, dims[0])) * 0.7).astype(np.float32))
+    bd = torch.from_numpy((rng.standard_normal((D, dims[0])) * 0.7).astype(np.float32))
+    n = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+    later = torch.from_numpy((rng.standard_normal(n) * 0.3).astype(np.float32))
+    logits = mlp_logits_ref(a, bd, later, dims, 0.05)
+    tau = torch.quantile(logits, 0.3, dim=1).contiguous()
+    return a, bd, later, tau
+
+
+@pytest.mark.parametrize("block_size,dims", [(32, (24, 1)), (64, (24, 12, 1)), (1024, (16, 1))])
+def test_masked_rows_are_full_rows_in_live_blocks(block_size, dims):
+    """Algorithm 3's masked rows: the full rows in the words of blocks that
+    survive the slot's query's block AND (pad terms all-ones, an all-pad
+    query keeps none), zero words in dead ones."""
+    rng = np.random.default_rng(block_size)
+    D, Q, T = 2500, 6, 4
+    words = -(-D // 32)
+    Wb = -(-words // block_size)
+    n_terms = 10
+    table = rng.integers(0, 2 ** 32, (n_terms, Wb), dtype=np.uint64).astype(np.uint32)
+    table |= rng.integers(0, 2 ** 32, (n_terms, Wb), dtype=np.uint64).astype(np.uint32)
+    terms = rng.integers(0, n_terms, (Q, T)).astype(np.int32)
+    terms[:, 2:] = -1
+    terms[1, 1:] = -1
+    terms[2] = -1  # keeps no block and has no slot
+    flat = terms.reshape(-1)
+    valid = np.nonzero(flat >= 0)[0]
+    slot_query = (valid // T).astype(np.int32)
+    a, bd, later, tau = _head_inputs(rng, len(valid), D, dims)
+    live = LiveBlocks(torch.from_numpy(table.view(np.int32)), torch.from_numpy(terms),
+                      torch.from_numpy(slot_query), block_size)
+    full = mlp_membership(a, bd, later, dims, tau, 0.05).numpy().view(np.uint32)
+    masked = mlp_membership(a, bd, later, dims, tau, 0.05, live=live).numpy().view(np.uint32)
+    seen = set()
+    for s, q in enumerate(slot_query):
+        anded = np.bitwise_and.reduce(table[terms[q][terms[q] >= 0]], axis=0)
+        blk = np.arange(words) // (block_size // 32)
+        alive = (anded[blk // 32] >> (blk % 32).astype(np.uint32)) & 1 == 1
+        assert np.array_equal(masked[s, alive], full[s, alive])
+        assert not masked[s, ~alive].any()
+        seen |= set(alive.tolist())
+    assert seen == {True, False} and full.any()
+
+
+def _union_batch(rng, D=700, n_terms=40, k=24, Q=10, T=8):
+    """A tier-1 table and a batch of 1 to 8 valid slots a query, with an
+    all-pad query, a query whose lists are empty (an empty union) and a
+    repeated term."""
+    tier1 = np.full((n_terms, k), D, np.int32)
+    lens = rng.integers(0, k + 1, n_terms).astype(np.int32)
+    lens[:2] = 0
+    for t in range(n_terms):
+        tier1[t, : lens[t]] = np.sort(rng.choice(D, lens[t], replace=False))
+    queries = np.full((Q, T), -1, np.int32)
+    for i in range(Q):
+        n = 1 + i % T
+        queries[i, :n] = rng.choice(np.arange(2, n_terms), n, replace=False)
+    queries[1] = -1
+    queries[2] = -1
+    queries[2, :2] = [0, 1]  # both lists empty
+    queries[3, 1] = queries[3, 0]
+    flat = queries.reshape(-1)
+    slots = np.full(Q * T, -1, np.int32)
+    slots[flat >= 0] = np.arange(int((flat >= 0).sum()), dtype=np.int32)
+    return tier1, lens, queries, slots.reshape(Q, T)
+
+
+@pytest.mark.parametrize("dims", [(24, 1), (20, 12, 1)])
+def test_sparse_plain_version_is_exhaustive_and_union(dims):
+    """Algorithm 2 with a head, plain: the union's docs that pass every
+    valid slot, i.e. the full rows ANDed over the query's slots and with
+    the union (bits may differ only where a slot's logit lies within the
+    margin of its tau: the two sum over different shapes)."""
+    rng = np.random.default_rng(len(dims))
+    tier1, lens, queries, slots = _union_batch(rng)
+    S, D = int((queries >= 0).sum()), 700
+    a, bd, later, tau = _head_inputs(rng, S, D, dims)
+    t = [torch.from_numpy(x) for x in (tier1, lens, queries, slots)]
+    got = mlp_two_tier(*t, a, bd, later, dims, tau, 0.05)
+    assert torch.equal(got, mlp_two_tier_ref(*t, a, bd, later, dims, tau, 0.05))
+    rows = mlp_membership(a, bd, later, dims, tau, 0.05)
+    bits = lambda w: np.unpackbits(w.numpy().view(np.uint8), axis=-1,  # noqa: E731
+                                   bitorder="little")[:, :D].astype(bool)
+    row_bits = bits(rows)
+    logits = mlp_logits_ref(a, bd, later, dims, 0.05).numpy()
+    near = np.abs(logits - tau.numpy()[:, None]) <= NUMERIC_MARGIN * (1 + np.abs(tau.numpy()))[:, None]
+    union = tier1_union(t[0], t[1], t[2], D).numpy()
+    g = bits(got)
+    for i in range(len(queries)):
+        ss = slots[i][slots[i] >= 0]
+        want = union[i] & (row_bits[ss].all(axis=0) if len(ss) else False)
+        assert not ((g[i] != want) & ~near[ss].any(axis=0)).any(), i
+    assert not g[1].any() and not g[2].any() and g.any()
+    assert not union[2].any()
+
+
+def test_gelu_form_of_the_kernel_is_within_a_tenth_of_the_margin():
+    """The kernel's GELU with its constants as written in
+    csrc/mlp_membership.cu (C1, C3, T_MAX), evaluated in float32 over [-30,
+    30] against float64 tanh-GELU, within a tenth of NUMERIC_MARGIN (1 +
+    |gelu|): the deep path's unit form x / (1 + 2^t), t = x (C1 + C3 x^2),
+    and the shallow kernels' pair form x0 d1 / (d0 d1), d = 1 + 2^min(t,
+    T_MAX), with each x paired with its mirror and with its neighbour.  For
+    very negative x the unit form overflows 2^t and gives -0, GELU's limit;
+    the pair form gives x 2^-T_MAX, negative and under 4e-18."""
+    import re
+    from pathlib import Path
+
+    import repro_torch.kernels.cuda as cuda
+
+    src = (Path(cuda.__file__).parent / "csrc" / "mlp_membership.cu").read_text()
+    c1, c3, t_max = (np.float32(re.search(rf"constexpr float {n} = (-?[0-9.e-]+)f;", src).group(1))
+                     for n in ("C1", "C3", "T_MAX"))
+    assert c3 == np.float32(float(c1) * 0.044715)
+    x = np.linspace(-30, 30, 600_001).astype(np.float32)
+    x64 = x.astype(np.float64)
+    want = 0.5 * x64 * (1 + np.tanh(np.sqrt(2 / np.pi) * (x64 + 0.044715 * x64 ** 3)))
+    one = np.float32(1)
+    with np.errstate(over="ignore"):
+        t = x * (c3 * (x * x) + c1)
+        unit = x * (one / (one + np.exp2(t)))
+        assert np.isinf(np.exp2(t[0]))
+        d = one + np.exp2(np.minimum(t, t_max))
+        pairs = [x * ((one / (d * p)) * p) for p in (d[::-1], np.roll(d, 1))]
+    for g in (unit, *pairs):
+        assert g.dtype == np.float32
+        assert (np.abs(g - want) <= 0.1 * NUMERIC_MARGIN * (1 + np.abs(want))).all()
+        assert g[-1] == np.float32(30)
+    assert unit[0] == 0 and np.signbit(unit[0])
+    for g in pairs:
+        low = g[x <= -10]
+        assert (low < 0).all() and (np.abs(low) < 4e-18).all()
 
 
 def test_score_terms_bitmask_with_head_matches_reference_logits():
