@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # Robust-scale main path, one card
     python3 chip_smoke.py --docs 52800 # a smaller collection
     python3 chip_smoke.py --phases ARD --src OTHER/src  # another checkout's package
+    python3 chip_smoke.py --phases L   # the LM stack alone
 
 It needs a CUDA card, ``nvcc`` and the repository checkout it lives in; it
 exits non-zero without a result when either is missing.  It prints the
@@ -119,12 +120,29 @@ card's name and power limit first, then one JSON line per phase:
   C_dense
          phase C's dense_topk rows and the dense passes of phases A to S
          (one dense_topk launch a pass, asserted in phase R)
+  L      the LM stack (``repro_torch.models``, ``launch/steps.py``,
+         ``launch/train.py``), last, once the other phases' engines are
+         released: L1 gemma2-2b at full width (2,614M fp32 parameters), two
+         seeded prompts of 4,096 tokens prefilled and decoded 8 steps at
+         fp32 across the wrap of the 4,096-slot local ring, every step's
+         logits against ``lm_logits`` of the whole sequence (2e-3); L2 the
+         prefill (2 x 4,096) and decode (batch 16 against a 32,768-deep
+         cache) cells in bf16: CUDA-event ms, tokens/s, peak memory; L3
+         ``train_loop`` on the train cell at 1 x 4,096, remat "dots", fp32
+         Adam moments, 3 steps: step 0's ms apart, loss and grad norm a
+         step, peak memory (out of memory, the sequence halves and the line
+         says so); L4 deepseek-v2-lite and -v3 at ``reduce_config`` (MLA,
+         MoE, MTP): prefill and 3 decode steps against the full forward
+         (2e-4), one train step's finite loss; L5 kill-and-resume at
+         reduced gemma2-2b, bit for bit.  It launches none of the repo's
+         kernels (the reference computes it in XLA ops, not Pallas),
+         asserted; the line lists the cuts of the shape cells
 
 then the ``kernels`` line (launch counts from phases A, B, R, S, Q, M and K,
 times, bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script exits non-zero.  ``--phases`` runs a subset (R
 and D need A; S and Q need A and R; M needs A, R and S; C needs A, B and R;
-A_block runs with A), ``--src``
+A_block runs with A; L needs none: ``--phases L`` runs it alone), ``--src``
 drives the package of another checkout (phases A, A_block, B, R and D only
 need what every version of the port has; S and C need Algorithm 2's kernel,
 and C times dense_topk only in a package that has it),
@@ -146,6 +164,7 @@ ROOT = Path(__file__).resolve().parent
 # published H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # dense, tensor cores
 
 # phase R: the reference launcher's ranked batch (launch/serve.py), and its
 # default collection for the dense arena branch
@@ -1078,6 +1097,314 @@ def phase_k(dev) -> dict:
     return {"phase": "K", "steps": 13, "seconds": time.perf_counter() - t0, **summary}
 
 
+# ------------------------------------------------------------ phase L
+# the LM stack at gemma2-2b's full width (configs/gemma2_2b.py)
+L_ARCH = "gemma2-2b"
+L_SEED = 0
+L_PROMPT, L_DECODE = 4096, 8  # decode positions 4,096-4,103 wrap the 4,096-slot local ring
+L_TOL = 2e-3  # L1: logits softcapped at 30, fp32 sums over 26 layers in other orders
+L_DECODE_CACHE, L_DECODE_BATCH, L_DECODE_STEPS = 32768, 16, 16
+L_TRAIN_SEQ, L_TRAIN_STEPS = 4096, 3
+L_MLA = ("deepseek-v2-lite-16b", "deepseek-v3-671b")
+L_MLA_TOL = 2e-4  # tests/test_models.py's bound for decode against the full forward
+# the shape cells of configs/shapes.py and what this phase runs of them
+L_CUTS = {
+    "prefill_32k": "32 x 32,768 run as 2 x 4,096: the reference's attention holds (B, H, S, S) "
+                   "fp32 scores, 34 GB a layer per sequence at 32,768",
+    "decode_32k": "global batch 128 run as 16: 128 sequences' caches take 223 GB",
+    "train_4k": "global batch 256 run as 1 x 4,096, 3 steps",
+}
+
+
+def _event_ms(fn, warmup: int, iters: int) -> tuple[float, object]:
+    """Mean milliseconds a call from CUDA events around ``iters`` calls."""
+    import torch
+
+    out = None
+    for _ in range(warmup):
+        out = fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, out
+
+
+def _device_breakdown(fn, top: int = 8) -> tuple[object, dict | None]:
+    """Run ``fn`` once under torch.profiler -> (its result, {device ms of all
+    its kernels, host ms of the call, the device's busy share of it, the
+    ``top`` kernels by device ms}); None when the profiler saw no device
+    activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name[:90]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not by_name:
+        return out, None
+    device_ms = sum(by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return out, {"device_ms": device_ms, "host_ms": host_ms, "busy_share": device_ms / host_ms,
+                 "top": [{"kernel": n, "ms": ms} for n, ms in ranked]}
+
+
+def _lm_bound(cfg, batch: int, s_q: int, s_k: int, *, train: bool = False,
+              head_rows: int | None = None, param_bytes: int = 0, cache_bytes: int = 0) -> dict:
+    """The least time the card could take for one prefill, decode or train
+    step of a GQA transformer at these shapes: its products (the reference's
+    (s_q, s_k) score products in fp32, the rest in bf16; forward and the two
+    backward products when training; recomputation not counted) at the
+    published peaks, against the bytes it must move (the parameters and
+    the caches, read once)."""
+    d, v = cfg.d_model, cfg.vocab_size
+    hd = cfg.resolved_head_dim
+    tokens = batch * s_q
+    # a GQA block's products: q, k, v, o, then gate, up, down
+    body = cfg.n_layers * (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + 3 * d * cfg.d_ff)
+    head_rows = tokens if head_rows is None else head_rows
+    passes = 3 if train else 1
+    bf16 = passes * (2 * body * tokens + 2 * v * d * head_rows
+                     + 2 * cfg.n_layers * batch * cfg.n_heads * s_q * s_k * hd)  # + P @ V
+    fp32 = passes * 2 * cfg.n_layers * batch * cfg.n_heads * s_q * s_k * hd  # Q @ K^T
+    ops_ms = (bf16 / BF16_FLOPS + fp32 / FP32_FLOPS) * 1e3
+    bytes_ms = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms
+            else "bytes", "bf16_flop": bf16, "fp32_flop": fp32, "bytes": param_bytes + cache_bytes}
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _serve_matches_forward(tf, model, cfg, tokens, n_prompt, steps, max_len, dtype) -> list[float]:
+    """Prefill the first ``n_prompt`` tokens, decode the next ``steps`` one at
+    a time; each step's logits against ``lm_logits`` of the whole sequence
+    at the same position -> the largest absolute difference a step, prefill
+    first."""
+    import torch
+
+    b = tokens.shape[0]
+    caches = tf.init_cache(cfg, b, max_len, dtype, device=tokens.device)
+    outs = [tf.lm_prefill(model, cfg, tokens[:, :n_prompt], caches, dtype)[0]]
+    for i in range(steps):
+        pos = torch.full((b, 1), n_prompt + i, dtype=torch.int32, device=tokens.device)
+        tok = tokens[:, n_prompt + i:n_prompt + i + 1]
+        outs.append(tf.lm_decode_step(model, cfg, tok, pos, caches, dtype)[0])
+    del caches
+    with torch.no_grad():
+        full = tf.lm_logits(model, cfg, tokens[:, :n_prompt + steps], dtype)
+        want = full[:, n_prompt - 1:n_prompt + steps]
+        del full
+    errs = []
+    for i, got in enumerate(outs):
+        assert torch.isfinite(got).all(), f"step {i}: non-finite logits"
+        errs.append(float((got - want[:, i]).abs().max()))
+    return errs
+
+
+def phase_l(dev) -> dict:
+    """The LM stack on the card: serve-path exactness and times, the trainer
+    at gemma2-2b's full width, MLA/MoE/MTP at reduced width, kill-and-resume."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common.config import ShapeSpec, TrainConfig
+    from repro_torch.configs import get_arch, reduce_config
+    from repro_torch.data.loader import lm_token_batches
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import init_train_state
+
+    cfg = get_arch(L_ARCH)[0]
+    out: dict = {"phase": "L", "arch": L_ARCH, "cuts": L_CUTS,
+                 "base_allocated_bytes": torch.cuda.memory_allocated()}
+    t_all = time.perf_counter()
+
+    # L1: prefill + 8 decode steps at fp32 against the full forward
+    _free()
+    t0 = time.perf_counter()
+    pdtype = steps._lm_param_dtype(cfg)
+    model = tf.init_lm(L_SEED, cfg, pdtype, device=dev)[0]
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = next(lm_token_batches(vocab_size=cfg.vocab_size, batch=2,
+                                 seq_len=L_PROMPT + L_DECODE, seed=L_SEED))["tokens"]
+    toks = torch.from_numpy(toks).to(dev)
+    t0 = time.perf_counter()
+    errs = _serve_matches_forward(tf, model, cfg, toks, L_PROMPT, L_DECODE, L_PROMPT + L_DECODE,
+                                  torch.float32)
+    log(f"[L] L1 prefill + {L_DECODE} decode steps vs the full forward: {errs}")
+    out["L1"] = {"params": n_params, "param_dtype": str(pdtype), "compute_dtype": "float32",
+                 "batch": 2, "prompt": L_PROMPT, "decode_steps": L_DECODE,
+                 "max_len": L_PROMPT + L_DECODE, "max_abs_diff": max(errs),
+                 "max_abs_diff_per_step": errs, "tolerance": L_TOL,
+                 "init_seconds": init_s, "seconds": time.perf_counter() - t0,
+                 "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    assert max(errs) <= L_TOL, f"L1: serve path off the full forward by {max(errs)}"
+
+    # L2: the prefill and decode cells in bf16, timed
+    _free()
+    cell = steps.build_cell(cfg, ShapeSpec(name="prefill_32k", kind="prefill",
+                                           seq_len=L_PROMPT, global_batch=2))
+    prompt = toks[:, :L_PROMPT].contiguous()
+    ms, res = _event_ms(lambda: cell.step(model, prompt), warmup=1, iters=3)
+    logits = res[0]
+    assert logits.shape == (2, cfg.vocab_size) and torch.isfinite(logits).all()
+    del logits, res
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prefill = {"batch": 2, "seq": L_PROMPT, "ms": ms,
+               "tokens_per_s": 2 * L_PROMPT / (ms / 1e3),
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+               **_lm_bound(cfg, 2, L_PROMPT, L_PROMPT, head_rows=2, param_bytes=param_bytes)}
+    res, prefill["profile"] = _device_breakdown(lambda: cell.step(model, prompt))
+    del res
+    _free()
+    b, s = L_DECODE_BATCH, L_DECODE_CACHE
+    cell = steps.build_cell(cfg, ShapeSpec(name="decode_32k", kind="decode", seq_len=s,
+                                           global_batch=b))
+    caches = tf.init_cache(cfg, b, s, torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(L_SEED)
+    new = torch.randint(0, cfg.vocab_size, (b, L_DECODE_STEPS + 2), generator=gen, device=dev,
+                        dtype=torch.int32)
+    first = s - L_DECODE_STEPS - 2  # the last positions the cache holds
+    step_no = itertools.count()
+
+    def decode_one():
+        i = next(step_no)
+        pos = torch.full((b, 1), first + i, dtype=torch.int32, device=dev)
+        return cell.step(model, new[:, i:i + 1], pos, caches)
+
+    ms, res = _event_ms(decode_one, warmup=1, iters=L_DECODE_STEPS)
+    logits = res[0]
+    assert logits.shape == (b, cfg.vocab_size) and torch.isfinite(logits).all()
+    cache_bytes = sum(c.k.numel() * 2 + c.v.numel() * 2 for c in caches)
+    decode = {"batch": b, "cache_len": s, "steps": L_DECODE_STEPS,
+              "ms_per_step": ms, "tokens_per_s": b / (ms / 1e3), "cache_bytes": cache_bytes,
+              "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+              **_lm_bound(cfg, b, 1, s, param_bytes=param_bytes, cache_bytes=cache_bytes)}
+    del logits, res
+    res, decode["profile"] = _device_breakdown(decode_one)  # one step more, profiled
+    out["L2"] = {"compute_dtype": "bfloat16", "prefill": prefill, "decode": decode}
+    del res, caches, cell, model, decode_one
+    log(f"[L] L2 {out['L2']}")
+
+    # L3: the trainer (launch/train.py:train_loop) at full width
+    ckpt = ROOT / "build" / "phase_l_ckpt"
+    out["L3"] = []
+    seq = L_TRAIN_SEQ
+    while True:
+        _free()
+        log(f"[L] L3 at seq {seq}: {torch.cuda.memory_allocated()} bytes allocated before")
+        cell = steps.build_cell(cfg, ShapeSpec(name="train_4k", kind="train", seq_len=seq,
+                                               global_batch=1), remat="dots")
+        hist: list = []
+        shutil.rmtree(ckpt, ignore_errors=True)  # no checkpoint to resume from, none written
+        tcfg = TrainConfig(steps=L_TRAIN_STEPS, checkpoint_dir=str(ckpt), checkpoint_every=0,
+                           log_every=1, seed=L_SEED)
+        data = lm_token_batches(vocab_size=cfg.vocab_size, batch=1, seq_len=seq, seed=L_SEED)
+        t0 = time.perf_counter()
+        try:
+            trained, opt, _ = train_loop(cell, tcfg, data_it=data, device=dev, history=hist)
+        except torch.cuda.OutOfMemoryError as e:  # say so, and halve the sequence
+            msg = str(e).splitlines()[0]
+            out["L3"].append({"seq": seq, "out_of_memory": msg,
+                              "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+            log(f"[L] L3 at seq {seq}: out of memory ({msg}); halving")
+            del e
+            seq //= 2
+            if seq < 1024:
+                raise
+            continue
+        run = {"seq": seq, "batch": 1, "remat": "dots", "moments": cell.opt_cfg.moment_dtype,
+               "params": sum(p.numel() for p in trained.parameters()),
+               "seconds": time.perf_counter() - t0,
+               "step0_ms": hist[0]["ms"], "ms_per_step": float(np.mean([h["ms"] for h in hist[1:]])),
+               "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+               **_lm_bound(cfg, 1, seq, seq, train=True)}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+        _, run["profile"] = _device_breakdown(lambda: cell.step(trained, opt, batch))  # a 4th step
+        out["L3"].append(run)
+        del trained, opt, cell, batch
+        assert len(hist) == L_TRAIN_STEPS and all(
+            np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist), hist
+        break
+    log(f"[L] L3 {out['L3']}")
+
+    # L4: MLA, MoE and MTP at reduced width
+    _free()
+    out["L4"] = {}
+    for arch in L_MLA:
+        rc = reduce_config(get_arch(arch)[0])
+        small = tf.init_lm(L_SEED, rc, torch.float32, device=dev)[0]
+        rng = np.random.default_rng(L_SEED)
+        tokens = torch.from_numpy(rng.integers(0, rc.vocab_size, (2, 23)).astype(np.int32)).to(dev)
+        errs = _serve_matches_forward(tf, small, rc, tokens, 20, 3, 32, torch.float32)
+        cell = steps.build_cell(rc, ShapeSpec(name="train", kind="train", seq_len=32, global_batch=2))
+        trained = cell.init_fn(L_SEED, dev)
+        opt = init_train_state(trained, cell.opt_cfg)
+        batch = next(lm_token_batches(vocab_size=rc.vocab_size, batch=2, seq_len=32, seed=L_SEED))
+        m = cell.step(trained, opt, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        loss = float(m["loss"])
+        out["L4"][arch] = {"max_abs_diff": max(errs), "tolerance": L_MLA_TOL, "train_loss": loss,
+                           "param_dtype": str(steps._lm_param_dtype(rc)),
+                           "moments": cell.opt_cfg.moment_dtype, "mtp": rc.use_mtp}
+        assert max(errs) <= L_MLA_TOL, f"L4 {arch}: decode off the full forward by {max(errs)}"
+        assert np.isfinite(loss), f"L4 {arch}: loss {loss}"
+        del small, trained, opt
+    log(f"[L] L4 {out['L4']}")
+
+    # L5: kill-and-resume at reduced width, bit for bit
+    _free()
+    rc = reduce_config(cfg)
+    cell = steps.lm_cell(rc, ShapeSpec(name="train", kind="train", seq_len=64, global_batch=2))
+    batches = list(itertools.islice(lm_token_batches(vocab_size=rc.vocab_size, batch=2, seq_len=64,
+                                                     seed=L_SEED), 4))
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def tc(n, name, every):
+        return TrainConfig(steps=n, checkpoint_dir=str(ckpt / name), checkpoint_every=every,
+                           log_every=100, seed=L_SEED)
+
+    try:
+        straight, opt_a, _ = train_loop(cell, tc(4, "a", 0), data_it=iter(batches), device=dev)
+        train_loop(cell, tc(2, "b", 2), data_it=iter(batches[:2]), device=dev)
+        resumed, opt_b, _ = train_loop(cell, tc(4, "b", 2), data_it=iter(batches[2:]), device=dev)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    sd_a, sd_b = straight.state_dict(), resumed.state_dict()
+    differ = [n for n in sd_a if not torch.equal(sd_a[n], sd_b[n])]
+    out["L5"] = {"steps": 4, "checkpoint_step": 2, "tensors": len(sd_a), "differing": differ,
+                 "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+                 "optimizer_step": [opt_a.step, opt_b.step]}
+    assert opt_a.step == opt_b.step == 4 and not differ, f"L5: resumed run differs in {differ}"
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 def _smi(query: str) -> list[str]:
     """Lines of ``nvidia-smi --query-<query> --format=csv,noheader``."""
     return subprocess.run(["nvidia-smi", f"--query-{query}", "--format=csv,noheader"],
@@ -1941,9 +2268,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=528_000,
                     help="documents in phase A's collection (Robust04's 528k by default)")
-    ap.add_argument("--phases", default="ABRSQMKDC",
+    ap.add_argument("--phases", default="ABRSQMKDCL",
                     help="phases to run (R and D need A; S and Q need A and R; M needs A, R "
-                         "and S; C needs A, B and R)")
+                         "and S; C needs A, B and R; L, the LM stack, needs none)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory that holds the repro_torch package to drive")
     args = ap.parse_args()
@@ -2083,6 +2410,19 @@ def main() -> int:
         emit({"phase": "C", "kernels": [r["name"] for r in rows], "launches": total})
         emit({"phase": "C_dense", "rows": [r for r in rows if r["name"] == "dense_topk"],
               "dense_passes": sum(passes.values())})
+    if "L" in phases:
+        # the earlier phases' engines and kept inputs leave the card first
+        keep.clear()
+        for kept in (rec.inputs, rec.kwargs, rec.second):
+            kept.clear()
+        before, dense_before = launches(), dense.launches
+        result = phase_l(dev)
+        result["launches"] = {n: c - before[n] for n, c in launches().items()}
+        result["dense_passes"] = dense.launches - dense_before
+        # the reference computes this path in XLA ops: no kernel of the repo is on it
+        assert not any(result["launches"].values()) and not result["dense_passes"], result
+        emit(result)
+    if rows is not None:
         emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

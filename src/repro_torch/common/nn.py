@@ -24,6 +24,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def normal_init(gen: torch.Generator | None, shape: Sequence[int], scale: float, *,
+                dtype=torch.float32, device: torch.device | None = None) -> torch.Tensor:
+    """A standard normal draw times ``scale``, drawn in fp32 on ``device``
+    (the generator's) and cast to ``dtype``; on the meta device, shape and
+    dtype only (``gen`` unused)."""
+    if device is not None and device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+    return (torch.randn(tuple(shape), generator=gen, device=device, dtype=torch.float32)
+            * scale).to(dtype)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, dtype=torch.float32,
                scale: float | None = None) -> dict[str, torch.Tensor]:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
@@ -63,8 +74,9 @@ def mlp(params: Sequence[Params], x: torch.Tensor, *,
     return x
 
 
-def rmsnorm_init(dim: int, dtype=torch.float32) -> dict[str, torch.Tensor]:
-    return {"scale": torch.zeros((dim,), dtype=dtype)}
+def rmsnorm_init(dim: int, dtype=torch.float32, device: torch.device | None = None
+                 ) -> dict[str, torch.Tensor]:
+    return {"scale": torch.zeros((dim,), dtype=dtype, device=device)}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:

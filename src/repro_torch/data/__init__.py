@@ -1,5 +1,5 @@
 from repro_torch.data.corpus import Corpus, synthesize_corpus
-from repro_torch.data.loader import membership_batches
+from repro_torch.data.loader import PrefetchLoader, lm_token_batches, membership_batches
 from repro_torch.data.queries import (
     brute_force_answers,
     sample_queries,
@@ -7,5 +7,6 @@ from repro_torch.data.queries import (
     zipf_disjunctions,
 )
 
-__all__ = ["Corpus", "brute_force_answers", "membership_batches", "sample_queries",
+__all__ = ["Corpus", "PrefetchLoader", "brute_force_answers", "lm_token_batches",
+           "membership_batches", "sample_queries",
            "synthesize_corpus", "zipf_conjunctions", "zipf_disjunctions"]

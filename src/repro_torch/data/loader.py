@@ -1,13 +1,75 @@
-"""Training batches for the membership model f(t, d): (term, doc, label)
-triples, positives streamed from the corpus, negatives drawn uniformly and
-labelled exactly (they may collide with positives)."""
+"""Batched data loading with background prefetch.
+
+Two producers:
+  * membership_batches — (term, doc, label) triples for training f(t, d):
+    positives streamed from the corpus, negatives drawn uniformly and
+    labelled exactly (they may collide with positives).
+  * lm_token_batches — synthetic token streams for LM training.
+
+PrefetchLoader runs a producer in a daemon thread with a bounded queue; the
+straggler watchdog in launch/train.py replaces it with a deeper one.
+"""
 from __future__ import annotations
 
-from typing import Iterator
+import queue
+import threading
+from typing import Any, Iterator
 
 import numpy as np
 
 from repro_torch.data.corpus import Corpus
+
+
+class PrefetchLoader:
+    """Wrap an iterator with a daemon-thread prefetch queue.
+
+    ``close()`` stops the thread (it stops between items) and joins it; an
+    error in the producer is raised by the next ``next()``."""
+
+    _POLL_S = 0.05
+
+    def __init__(self, it: Iterator[Any], depth: int = 2):
+        self._it = it
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._done = object()
+        self._err: BaseException | None = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=self._POLL_S)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self):
+        try:
+            for item in self._it:
+                if not self._put(item):
+                    return
+        except BaseException as e:  # surfaced on next()
+            self._err = e
+        self._put(self._done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._done:
+            self._q.put(self._done)  # every later next() ends too
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
 
 
 def membership_batches(
@@ -64,3 +126,17 @@ def membership_batches(
             "docs": np.concatenate([pd, nd]).astype(np.int32),
             "labels": np.concatenate([np.ones(n_pos, np.float32), neg_labels]),
         }
+
+
+def lm_token_batches(
+    *, vocab_size: int, batch: int, seq_len: int, seed: int = 0
+) -> Iterator[dict[str, np.ndarray]]:
+    """Zipfian synthetic token stream for LM training (the reference's
+    stream, token for token, for the same seed)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    p = 1.0 / ranks**1.1
+    p /= p.sum()
+    while True:
+        toks = rng.choice(vocab_size, size=(batch, seq_len + 1), p=p).astype(np.int32)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -1,0 +1,301 @@
+"""Attention variants for the LM family: GQA/MQA, sliding-window, softcap, MLA.
+
+Functions over parameter mappings (a dict of tensors, or a module indexed
+like one).  Shapes follow (B, S, H, hd), with GQA as a head-group product
+(no kv repeat).  All masks are additive fp32 biases computed from position
+indices, so the same code serves training (full causal), prefill and
+single-token decode against a cache.
+
+The reference's arithmetic, op for op: the projections are plain products
+in the compute dtype; the score products take fp32 operands (the
+reference's ``preferred_element_type=float32`` on bf16 operands: a torch
+bf16 product would round its output to bf16), then softcap, mask add,
+softmax, and the value product back in the compute dtype.  No fused
+attention: ``scaled_dot_product_attention`` would change that arithmetic.
+
+Caches are written in place: ``gqa_attention`` and ``mla_attention`` write
+the new rows into the cache they are given and return it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Mapping, NamedTuple
+
+import torch
+
+from repro_torch.common import nn
+from repro_torch.common.config import ArchConfig
+from repro_torch.common.sharding import constrain
+
+NEG_INF = -2.0e38
+
+Params = Mapping[str, Any]
+
+
+# ------------------------------------------------------------------ RoPE
+def rope_freqs(dim: int, theta: float, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions[..., None].float() * inv  # (..., S, dim/2)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, hd) — rotate pairs (x[..., ::2], x[..., 1::2])."""
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
+    out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+# ------------------------------------------------------------------ masks
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int | None = None) -> torch.Tensor:
+    """(B?, Sq) x (B?, Sk) position ids -> (.., Sq, Sk) additive mask.
+
+    Negative k positions are always masked (ring-buffer slots not yet
+    written report pos < 0 — see _ring_positions).
+    """
+    k, q = k_pos[..., None, :], q_pos[..., :, None]
+    ok = (k <= q) & (k >= 0)
+    if window is not None:
+        ok &= k > (q - window)
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, torch.full((), NEG_INF, dtype=torch.float32, device=ok.device))
+
+
+# ------------------------------------------------------------------ products
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) @ w (D, H, K) -> (B, S, H, K), one 2-D product."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def _unproj(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y (B, S, H, K) @ w (H, K, D) -> (B, S, D), one 2-D product."""
+    h, k, d = w.shape
+    return y.reshape(*y.shape[:-2], h * k) @ w.to(y.dtype).reshape(h * k, d)
+
+
+# ------------------------------------------------------------------ GQA
+def init_gqa(gen: torch.Generator | None, cfg: ArchConfig, dtype=torch.float32,
+             device: torch.device | None = None):
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    s = 1.0 / math.sqrt(d)
+    kw = dict(dtype=dtype, device=device)
+    params = {
+        "wq": nn.normal_init(gen, (d, hq, hd), s, **kw),
+        "wk": nn.normal_init(gen, (d, hkv, hd), s, **kw),
+        "wv": nn.normal_init(gen, (d, hkv, hd), s, **kw),
+        "wo": nn.normal_init(gen, (hq, hd, d), 1.0 / math.sqrt(hq * hd), **kw),
+    }
+    axes = {
+        "wq": ("embed", "heads", None),
+        "wk": ("embed", "kv_heads", None),
+        "wv": ("embed", "kv_heads", None),
+        "wo": ("heads", None, "embed"),
+    }
+    return params, axes
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_cache, Hkv, hd) or MLA: c_kv (B, S_cache, kv_lora)
+    v: torch.Tensor  # (B, S_cache, Hkv, hd) or MLA: k_rope (B, S_cache, rope_dim)
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """q: (B,Sq,Hq,hd), k: (B,Sk,Hkv,hd) -> (B,Hq,Sq,Sk) fp32, without kv repeat."""
+    b, sq, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, n_rep, hd)
+    sc = torch.einsum("bsgrh,btgh->bgrst", qg.float(), k.float())
+    return sc.reshape(b, hq, sq, sk)
+
+
+def _gqa_out(probs: torch.Tensor, v: torch.Tensor, n_rep: int) -> torch.Tensor:
+    b, hq, sq, sk = probs.shape
+    hkv = v.shape[2]
+    pg = probs.reshape(b, hkv, n_rep, sq, sk)
+    out = torch.einsum("bgrst,btgh->bsgrh", pg, v.to(probs.dtype))
+    return out.reshape(b, sq, hq, v.shape[3])
+
+
+def gqa_attention(
+    params: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # (B, Sq, D)
+    q_pos: torch.Tensor,  # (B, Sq) absolute positions
+    *,
+    window: int | None = None,
+    cache: KVCache | None = None,
+) -> tuple[torch.Tensor, KVCache | None]:
+    dtype = x.dtype
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    n_rep = hq // hkv
+    seq_mode = cfg.attn_shard == "seq"
+    q_ax = ("batch", "seq_sharded", "heads", None) if seq_mode else ("batch", None, "heads", None)
+    kv_ax = ("batch", None, "kv_heads", None)
+    q = constrain(_proj(x, params["wq"]), *q_ax)
+    k = constrain(_proj(x, params["wk"]), *kv_ax)
+    v = constrain(_proj(x, params["wv"]), *kv_ax)
+    cos, sin = rope_freqs(hd, cfg.rope_theta, q_pos)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    sq = x.shape[1]
+    ring = cache is not None and window is not None and cache.k.shape[1] <= window
+    if cache is not None and ring and sq > 1:
+        # local-layer PREFILL: attend in-sequence (mask enforces the window),
+        # then write only the last min(S_cache, S) tokens — their ring slots
+        # are unique, so the scatter is well-defined.
+        mask = causal_mask(q_pos, q_pos, window)[:, None, :, :]
+        k_use, v_use = k, v
+        s_cache = cache.k.shape[1]
+        tail = min(s_cache, sq)
+        slot = q_pos[:, -tail:] % s_cache
+        _scatter_cache(cache.k, k[:, -tail:], slot)
+        _scatter_cache(cache.v, v[:, -tail:], slot)
+        new_cache = cache
+    elif cache is not None:
+        s_cache = cache.k.shape[1]
+        if ring:
+            slot = q_pos % s_cache  # decode: one unique slot per new token
+            k_pos = _ring_positions(q_pos, s_cache)
+        else:
+            slot = q_pos
+            k_pos = torch.arange(s_cache, dtype=q_pos.dtype,
+                                 device=q_pos.device)[None, :].expand(x.shape[0], s_cache)
+        _scatter_cache(cache.k, k, slot)
+        _scatter_cache(cache.v, v, slot)
+        new_cache = cache
+        mask = causal_mask(q_pos, k_pos, window)[:, None, :, :]
+        k_use, v_use = cache.k, cache.v
+    else:
+        new_cache = None
+        mask = causal_mask(q_pos, q_pos, window)[:, None, :, :]
+        k_use, v_use = k, v
+
+    scale = 1.0 / math.sqrt(hd)
+    scores = _gqa_scores(q, k_use, n_rep) * scale  # (B,Hq,Sq,Sk) fp32
+    scores = nn.softcap(scores, cfg.attn_softcap)
+    probs = torch.softmax(scores + mask, dim=-1).to(dtype)
+    out = constrain(_gqa_out(probs, v_use, n_rep), *q_ax)  # (B,Sq,Hq,hd)
+    return _unproj(out, params["wo"]), new_cache
+
+
+def _scatter_cache(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """cache (B,Sc,...), new (B,Sq,...), slot (B,Sq): rows written in place."""
+    bidx = torch.arange(cache.shape[0], device=slot.device)[:, None].expand_as(slot)
+    cache[bidx, slot.long()] = new.to(cache.dtype)
+    return cache
+
+
+def _ring_positions(q_pos: torch.Tensor, s_cache: int) -> torch.Tensor:
+    """Absolute positions currently living in each ring slot.
+
+    After writing token t at slot t % Sc, slot j holds the largest position
+    p <= max(q_pos) with p % Sc == j.
+    """
+    cur = q_pos.amax(dim=-1, keepdim=True)  # (B,1) newest position
+    slots = torch.arange(s_cache, dtype=q_pos.dtype, device=q_pos.device)[None, :]
+    delta = (cur % s_cache - slots) % s_cache
+    return cur - delta  # (B, Sc); slots never written map to negative positions
+
+
+# ------------------------------------------------------------------ MLA
+def init_mla(gen: torch.Generator | None, cfg: ArchConfig, dtype=torch.float32,
+             device: torch.device | None = None):
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope, vdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kvl = cfg.kv_lora_rank
+    s = 1.0 / math.sqrt(d)
+    kw = dict(dtype=dtype, device=device)
+    params: dict[str, Any] = {}
+    axes: dict[str, Any] = {}
+    if cfg.q_lora_rank:
+        ql = cfg.q_lora_rank
+        params["wdq"] = nn.normal_init(gen, (d, ql), s, **kw)
+        params["q_norm"] = nn.rmsnorm_init(ql, **kw)
+        params["wuq"] = nn.normal_init(gen, (ql, h, nope + rope), 1.0 / math.sqrt(ql), **kw)
+        axes["wdq"] = ("embed", None)
+        axes["q_norm"] = {"scale": (None,)}
+        axes["wuq"] = (None, "heads", None)
+    else:
+        params["wq"] = nn.normal_init(gen, (d, h, nope + rope), s, **kw)
+        axes["wq"] = ("embed", "heads", None)
+    params["wdkv"] = nn.normal_init(gen, (d, kvl), s, **kw)
+    params["kv_norm"] = nn.rmsnorm_init(kvl, **kw)
+    params["wkr"] = nn.normal_init(gen, (d, rope), s, **kw)
+    params["wuk"] = nn.normal_init(gen, (kvl, h, nope), 1.0 / math.sqrt(kvl), **kw)
+    params["wuv"] = nn.normal_init(gen, (kvl, h, vdim), 1.0 / math.sqrt(kvl), **kw)
+    params["wo"] = nn.normal_init(gen, (h, vdim, d), 1.0 / math.sqrt(h * vdim), **kw)
+    axes.update(
+        {
+            "wdkv": ("embed", None),
+            "kv_norm": {"scale": (None,)},
+            "wkr": ("embed", None),
+            "wuk": (None, "heads", None),
+            "wuv": (None, "heads", None),
+            "wo": ("heads", None, "embed"),
+        }
+    )
+    return params, axes
+
+
+def mla_attention(
+    params: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,
+    q_pos: torch.Tensor,
+    *,
+    cache: KVCache | None = None,
+    window: int | None = None,  # unused (MLA layers are global)
+) -> tuple[torch.Tensor, KVCache | None]:
+    """Multi-head Latent Attention (DeepSeek-V2/V3).
+
+    The cache stores the COMPRESSED latent (c_kv, k_rope) — the paper's
+    memory saving — and decode re-expands it per step through wuk/wuv.
+    """
+    dtype = x.dtype
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    b = x.shape[0]
+
+    if cfg.q_lora_rank:
+        cq = nn.rmsnorm(params["q_norm"], x @ params["wdq"].to(dtype))
+        q = _proj(cq, params["wuq"])
+    else:
+        q = _proj(x, params["wq"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    cos, sin = rope_freqs(rope, cfg.rope_theta, q_pos)
+    q_rope = apply_rope(q_rope, cos, sin)
+
+    c_kv = x @ params["wdkv"].to(dtype)  # (B,S,kvl)
+    k_r = (x @ params["wkr"].to(dtype))[:, :, None, :]  # (B,S,1,rope)
+    k_r = apply_rope(k_r, cos, sin)[:, :, 0, :]  # (B,S,rope)
+
+    if cache is not None:
+        s_cache = cache.k.shape[1]
+        _scatter_cache(cache.k, c_kv, q_pos)
+        _scatter_cache(cache.v, k_r, q_pos)
+        new_cache = cache
+        k_pos = torch.arange(s_cache, dtype=q_pos.dtype, device=q_pos.device)[None, :].expand(b, s_cache)
+        c_use, kr_use = cache.k, cache.v
+    else:
+        new_cache = None
+        k_pos = q_pos
+        c_use, kr_use = c_kv, k_r
+
+    # the latent's own dtype, promoted with the compute dtype as the
+    # reference's mixed-dtype products are
+    c_n = nn.rmsnorm(params["kv_norm"], c_use).to(torch.promote_types(c_use.dtype, dtype))
+    k_nope = constrain(_proj(c_n, params["wuk"]), "batch", None, "heads", None)
+    v = constrain(_proj(c_n, params["wuv"]), "batch", None, "heads", None)
+
+    scale = 1.0 / math.sqrt(nope + rope)
+    sc = torch.einsum("bshk,bthk->bhst", q_nope.float(), k_nope.float())
+    sc = sc + torch.einsum("bshk,btk->bhst", q_rope.float(), kr_use.float())
+    mask = causal_mask(q_pos, k_pos)[:, None, :, :]
+    probs = torch.softmax(sc * scale + mask, dim=-1).to(dtype)
+    pv = torch.promote_types(dtype, v.dtype)
+    out = torch.einsum("bhst,bthv->bshv", probs.to(pv), v)
+    return _unproj(out, params["wo"]), new_cache
