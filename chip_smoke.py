@@ -5,6 +5,7 @@
     python3 chip_smoke.py --docs 52800 # a smaller collection
     python3 chip_smoke.py --phases ARD --src OTHER/src  # another checkout's package
     python3 chip_smoke.py --phases L   # the LM stack alone
+    python3 chip_smoke.py --phases GE  # the GNN and recsys families alone
 
 It needs a CUDA card, ``nvcc`` and the repository checkout it lives in; it
 exits non-zero without a result when either is missing.  It prints the
@@ -137,12 +138,36 @@ card's name and power limit first, then one JSON line per phase:
          reduced gemma2-2b, bit for bit.  It launches none of the repo's
          kernels (the reference computes it in XLA ops, not Pallas),
          asserted; the line lists the cuts of the shape cells
+  G      MeshGraphNet at full width (15 layers, hidden 128), after L: G1
+         the reduced model on seeded numpy weights, the card's forward and
+         loss against the port's CPU run (1e-4), and the neighbor sampler
+         run twice from one seed on the minibatch_lg graph (232,965 nodes,
+         114.6M edges), equal; G2 three train steps (CUDA-event ms, step 0
+         apart, loss, peak bytes, and the largest parameter difference
+         between two identical step-0 runs: the scatter-add's atomics; a
+         4th step's device time by kernel, torch.profiler) on
+         minibatch_lg (fanout (15, 10) from 1,024 seeds, padded to 169,984
+         nodes and 168,960 edges, d_feat 602), full_graph_sm and molecule;
+         ogb_products is a cut (the line says why)
+  E      the recsys family: fm, bst and mind at full vocabulary, dlrm-mlperf
+         with every table capped at 4,194,304 rows (a cut), each through
+         the train (65,536 rows, 3 steps), serve (512 and 262,144 rows) and
+         retrieval (1 x 1,000,000 candidates, top-100) cells: ms, rows/s,
+         peak bytes, each serve and retrieval cell's bound, the device time
+         by kernel of one train step, one serve_bulk and one retrieval call
+         (torch.profiler); exactness: a
+         reduced config's forward on the card equals the CPU's on the same
+         weights, the top-100 is the stable sort (score descending, index
+         ascending) of the same scores, and 64 sampled candidates' scores
+         equal the forward with the candidate as the target (1e-4 / 1e-5).
+         G and E launch none of the repo's kernels (asserted)
 
 then the ``kernels`` line (launch counts from phases A, B, R, S, Q, M and K,
 times, bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script exits non-zero.  ``--phases`` runs a subset (R
 and D need A; S and Q need A and R; M needs A, R and S; C needs A, B and R;
-A_block runs with A; L needs none: ``--phases L`` runs it alone), ``--src``
+A_block runs with A; L, G and E need none: ``--phases GE`` runs G and E
+alone), ``--src``
 drives the package of another checkout (phases A, A_block, B, R and D only
 need what every version of the port has; S and C need Algorithm 2's kernel,
 and C times dense_topk only in a package that has it),
@@ -1405,6 +1430,425 @@ def phase_l(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phases G and E
+# the GNN and recsys families (models/{gnn,recsys,sampler}.py, their cells)
+G_ARCH = "meshgraphnet"
+G_SEED = 0
+G_STEPS = 3
+G_TOL = 1e-4  # G1: card vs CPU, fp32 sums (matmuls, LayerNorm, atomic scatter-add) in other orders
+G_MINIBATCH_DEGREE = 492  # 232,965 nodes x 492 = the shape's 114.6M edges
+G_CUTS = {
+    "ogb_products": "61,859,140 edges: the edge MLP's (E, 384) fp32 input alone is 95 GB, "
+                    "more than one card holds; it waits for the mesh slice",
+}
+E_ARCHS = ("fm", "bst", "mind", "dlrm-mlperf")
+E_SEED = 0
+E_STEPS = 3
+E_DLRM_CAP = 4_194_304  # rows a DLRM table keeps on one card
+E_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_models.py's retrieval-vs-forward bound
+E_CHECK_CANDIDATES = 64
+E_CUTS = {
+    "dlrm-mlperf": f"every table capped at {E_DLRM_CAP:,} rows (25.0M of 187.8M, 12.8 GB): the "
+                   "full 96.1 GB of tables does not fit one card, even to serve",
+}
+
+
+def _numpy_state(model, seed: int) -> dict:
+    """Seeded numpy weights for every tensor of ``model``'s state dict, by
+    name: tables 0.1 N, LayerNorm scales 1 + 0.1 N, biases 0.1 N, BST's
+    ``wo`` N / sqrt(H * d/H), other weights N / sqrt(fan-in)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for n, p in model.state_dict().items():
+        leaf, z = n.split(".")[-1], rng.standard_normal(tuple(p.shape))
+        if n.split(".")[0] in ("tables", "linear", "item_table", "pos_table"):
+            z = 0.1 * z
+        elif leaf == "scale":
+            z = 1.0 + 0.1 * z
+        elif leaf in ("b", "bias", "w0", "b_init"):
+            z = 0.1 * z
+        elif leaf == "wo":
+            z = z / np.sqrt(p.shape[0] * p.shape[1])
+        else:
+            z = z / np.sqrt(p.shape[0])
+        out[n] = torch.from_numpy(np.asarray(z, dtype=np.float32))
+    return out
+
+
+def _carried(init, cfg, dev, seed: int):
+    """(the model on the CPU, the same on the card), both holding the same
+    seeded numpy weights."""
+    cpu = init(seed, cfg, device="cpu")[0]
+    state = _numpy_state(cpu, seed)
+    cpu.load_state_dict(state)
+    card = init(seed, cfg, device=dev)[0]
+    card.load_state_dict(state)
+    return cpu, card
+
+
+def _max_diff(a, b) -> float:
+    return float((a.detach().cpu().double() - b.detach().cpu().double()).abs().max())
+
+
+def _step_ms(step, n: int) -> tuple[list[float], list]:
+    """Run ``step`` n times -> (CUDA-event ms of each call, their results)."""
+    import torch
+
+    times, outs = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs.append(step())
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, outs
+
+
+def _graph_batch(n: int, e: int, d_feat: int, cfg, n_valid: int, e_valid: int, gen, dev,
+                 senders=None, receivers=None) -> dict:
+    """A padded graph on the card: seeded features and targets, the first
+    ``n_valid`` nodes and ``e_valid`` edges real; uniform endpoints unless
+    given."""
+    import torch
+
+    def pad(ids, size):
+        out = torch.zeros(size, dtype=torch.int32, device=dev)
+        out[:len(ids)] = ids
+        return out
+
+    if senders is None:
+        senders = torch.randint(0, n_valid, (e_valid,), generator=gen, device=dev)
+        receivers = torch.randint(0, n_valid, (e_valid,), generator=gen, device=dev)
+    node_mask = torch.zeros(n, device=dev)
+    node_mask[:n_valid] = 1.0
+    edge_mask = torch.zeros(e, device=dev)
+    edge_mask[:e_valid] = 1.0
+    return {
+        "node_feat": torch.randn((n, d_feat), generator=gen, device=dev),
+        "edge_feat": torch.randn((e, cfg.edge_feat_dim), generator=gen, device=dev),
+        "senders": pad(senders, e), "receivers": pad(receivers, e),
+        "node_mask": node_mask, "edge_mask": edge_mask,
+        "node_targets": torch.randn((n, cfg.gnn_out_dim), generator=gen, device=dev),
+    }
+
+
+def phase_g(dev) -> dict:
+    """MeshGraphNet at full width on the card: the reduced model against the
+    port's CPU run, the sampler's determinism, then three train steps on
+    each of minibatch_lg (sampled from a 114.6M-edge graph), full_graph_sm
+    and molecule."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch, reduce_config
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn, sampler
+    from repro_torch.train import init_train_state
+
+    t_all = time.perf_counter()
+    cfg = get_arch(G_ARCH)[0]
+    out: dict = {"phase": "G", "arch": G_ARCH, "cuts": G_CUTS, "tolerance": G_TOL,
+                 "base_allocated_bytes": torch.cuda.memory_allocated()}
+
+    # G1: the reduced model, the same seeded numpy weights on the CPU and the card
+    _free()
+    rc = reduce_config(cfg)
+    cpu, card = _carried(gnn.init_mgn, rc, dev, G_SEED)
+    gen = torch.Generator(device="cpu").manual_seed(G_SEED)
+    batch = _graph_batch(2048, 8192, rc.node_feat_dim, rc, 2000, 8000, gen, "cpu")
+    with torch.no_grad():
+        want_out, want_loss = gnn.mgn_forward(cpu, rc, batch), gnn.mgn_loss(cpu, rc, batch)
+        on_card = {k: v.to(dev) for k, v in batch.items()}
+        got_out, got_loss = gnn.mgn_forward(card, rc, on_card), gnn.mgn_loss(card, rc, on_card)
+    g1 = {"config": "reduce_config", "nodes": 2048, "edges": 8192,
+          "forward_max_abs_diff": _max_diff(got_out, want_out),
+          "loss": float(got_loss), "loss_abs_diff": abs(float(got_loss) - float(want_loss))}
+    assert torch.isfinite(got_out).all() and g1["forward_max_abs_diff"] <= G_TOL \
+        and g1["loss_abs_diff"] <= G_TOL, f"G1: card off the CPU: {g1}"
+    del cpu, card, batch, on_card
+
+    # the minibatch_lg graph, and its sampler run twice from one seed
+    shape = {s.name: s for s in GNN_SHAPES}
+    mb = shape["minibatch_lg"]
+    t0 = time.perf_counter()
+    graph = sampler.CSRGraph.random(mb.n_nodes, avg_degree=G_MINIBATCH_DEGREE, seed=G_SEED)
+    graph_s = time.perf_counter() - t0
+    max_n, max_e = sampler.subgraph_budget(mb.batch_nodes, mb.fanout)
+    roots = np.random.default_rng(G_SEED).choice(mb.n_nodes, mb.batch_nodes, replace=False)
+    samples, sample_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        samples.append(sampler.sample_subgraph(graph, roots, mb.fanout, max_nodes=max_n,
+                                               max_edges=max_e,
+                                               rng=np.random.default_rng(G_SEED)))
+        sample_s.append(time.perf_counter() - t0)
+    same = all(np.array_equal(samples[0][k], samples[1][k]) for k in samples[0])
+    g1["sampler_deterministic"] = same
+    assert same, "G1: two samples from one seed differ"
+    out["G1"] = g1
+    sub = samples[0]
+    del samples
+    log(f"[G] G1 {g1}")
+
+    # G2: three train steps a shape at full width
+    out["G2"] = {}
+    for name in ("minibatch_lg", "full_graph_sm", "molecule"):
+        _free()
+        sh = shape[name]
+        cell = steps.build_cell(cfg, sh)
+        n, e, d_feat = steps.gnn_graph_dims(sh)
+        gen = torch.Generator(device=dev).manual_seed(G_SEED)
+        run: dict = {"nodes": n, "edges": e, "d_feat": d_feat}
+        if name == "minibatch_lg":
+            nv, ev = int(sub["node_mask"].sum()), int(sub["edge_mask"].sum())
+            snd = torch.from_numpy(sub["senders"][:ev]).to(dev)
+            rcv = torch.from_numpy(sub["receivers"][:ev]).to(dev)
+            run.update({"graph_edges": int(graph.indptr[-1]), "graph_seconds": graph_s,
+                        "sampler_seconds": sample_s, "valid_nodes": nv, "valid_edges": ev})
+        elif name == "molecule":
+            # 128 graphs of 30 nodes and 64 edges, edges within each graph
+            g_of = torch.arange(sh.n_graphs, device=dev).repeat_interleave(sh.n_edges)
+            snd = g_of * sh.n_nodes + torch.randint(0, sh.n_nodes, (len(g_of),), generator=gen,
+                                                    device=dev)
+            rcv = g_of * sh.n_nodes + torch.randint(0, sh.n_nodes, (len(g_of),), generator=gen,
+                                                    device=dev)
+            nv, ev = sh.n_nodes * sh.n_graphs, len(g_of)
+        else:
+            snd = rcv = None
+            nv, ev = sh.n_nodes, sh.n_edges
+        batch = _graph_batch(n, e, d_feat, cell.arch, nv, ev, gen, dev, snd, rcv)
+        model = cell.init_fn(G_SEED, dev)
+        opt = init_train_state(model, cell.opt_cfg)
+        times, metrics = _step_ms(lambda: cell.step(model, opt, batch), 1)
+        after0 = {k: v.clone() for k, v in model.state_dict().items()}
+        more, metrics2 = _step_ms(lambda: cell.step(model, opt, batch), G_STEPS - 1)
+        times, metrics = times + more, metrics + metrics2
+        run.update({
+            "remat": n > 500_000, "params": sum(p.numel() for p in model.parameters()),
+            "step0_ms": times[0], "ms_per_step": float(np.mean(times[1:])), "step_ms": times,
+            "loss": [float(m["loss"]) for m in metrics],
+            "grad_norm": [float(m["grad_norm"]) for m in metrics],
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        })
+        assert all(np.isfinite(run["loss"])) and all(np.isfinite(run["grad_norm"])), run
+        _, run["profile"] = _device_breakdown(lambda: cell.step(model, opt, batch))  # a 4th step
+        # step 0 again on an identical model: the atomics may differ in the last bits
+        twin = cell.init_fn(G_SEED, dev)
+        cell.step(twin, init_train_state(twin, cell.opt_cfg), batch)
+        run["step0_twin_max_param_diff"] = max(_max_diff(v, after0[k])
+                                               for k, v in twin.state_dict().items())
+        out["G2"][name] = run
+        log(f"[G] G2 {name} {run}")
+        del model, opt, twin, after0, metrics, batch, cell
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def _mlp_flop(dims) -> int:
+    return 2 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def _rec_bound(cfg, rows: int, *, retrieval: bool, weight_bytes: int) -> dict:
+    """The least time the card could take for one serve call of ``rows``
+    rows, or one retrieval over ``rows`` candidates, at the published fp32
+    peak and memory rate: the products of the forward a row (a retrieval
+    candidate: what the candidate changes, the user's side counted once),
+    against the bytes read once (each row's ids and gathered table rows,
+    the dense weights) and written once (a score a row; retrieval writes
+    only its top-100)."""
+    f = 4  # fp32 bytes
+    if cfg.name == "dlrm-mlperf":
+        n_f, d = cfg.n_sparse + 1, cfg.embed_dim
+        top = _mlp_flop([n_f * (n_f - 1) // 2 + cfg.bot_mlp[-1], *cfg.top_mlp])
+        if retrieval:
+            flop, per_row = 2 * (n_f - 1) * d + top, 4 + d * f
+        else:
+            flop = _mlp_flop([cfg.n_dense, *cfg.bot_mlp]) + 2 * (n_f * (n_f - 1) // 2) * d + top
+            per_row = cfg.n_dense * f + cfg.n_sparse * (4 + d * f) + f
+    elif cfg.name == "fm":
+        k = cfg.embed_dim
+        if retrieval:
+            flop, per_row = 2 * k + 2, 4 + (k + 1) * f
+        else:
+            flop, per_row = 4 * cfg.n_sparse * k + cfg.n_sparse, cfg.n_sparse * (4 + (k + 1) * f) + f
+    elif cfg.name == "bst":
+        s, d, h = cfg.hist_len + 1, cfg.embed_dim, cfg.n_heads
+        attn = 2 * 2 * h * s * s * (d // h) + 2 * s * d * d + _mlp_flop([d, 4 * d, d]) * s
+        head = _mlp_flop([s * d, *cfg.top_mlp, 1])
+        if retrieval:  # the history's Q/K/V projections do not depend on the candidate
+            flop, per_row = 3 * 2 * d * d + attn + head, 4 + d * f
+        else:
+            flop, per_row = 3 * 2 * s * d * d + attn + head, s * (4 + d * f) + f
+    else:  # mind
+        L, d, j = cfg.hist_len, cfg.embed_dim, cfg.n_interests
+        if retrieval:
+            flop, per_row = 2 * j * d, 4 + d * f
+        else:
+            flop = 2 * L * d * d + cfg.capsule_iters * 2 * (2 * j * L * d) + 2 * j * d
+            per_row = (L + 1) * (4 + d * f) + f
+    ops_ms = rows * flop / FP32_FLOPS * 1e3
+    bytes_ = rows * per_row + weight_bytes
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms
+            else "bytes", "fp32_flop": rows * flop, "bytes": bytes_}
+
+
+def _rec_batch(cfg, b: int, gen, dev, *, label: bool = True, target: bool = True) -> dict:
+    """A recsys batch on the card, ids uniform over each field's vocabulary."""
+    import torch
+
+    def ids(v, shape):
+        return torch.randint(0, v, shape, generator=gen, device=dev).to(torch.int32)
+
+    out = {}
+    if cfg.name == "dlrm-mlperf":
+        out["dense"] = torch.randn((b, cfg.n_dense), generator=gen, device=dev)
+    if cfg.name in ("dlrm-mlperf", "fm"):
+        out["sparse"] = torch.stack([ids(v, (b,)) for v in cfg.vocab_sizes], dim=1)
+    else:
+        out["hist"] = ids(cfg.vocab_sizes[0], (b, cfg.hist_len))
+        if target:
+            out["target"] = ids(cfg.vocab_sizes[0], (b,))
+    if label:
+        out["label"] = torch.randint(0, 2, (b,), generator=gen, device=dev).float()
+    return out
+
+
+def _swapped(cfg, user: dict, cands) -> dict:
+    """The user's context once per candidate, the candidate as its target
+    (sparse field 0 for DLRM and FM)."""
+    rows = {k: v.expand(len(cands), *v.shape[1:]).clone() for k, v in user.items()}
+    if "sparse" in rows:
+        rows["sparse"][:, 0] = cands
+    else:
+        rows["target"] = cands
+    return rows
+
+
+def phase_e(dev) -> dict:
+    """The recsys family on the card: FM, BST and MIND at full vocabulary,
+    DLRM at its cap, each through the train, serve and retrieval cells, with
+    the exactness checks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch, reduce_config
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+    from repro_torch.train import init_train_state
+
+    t_all = time.perf_counter()
+    shapes = {s.name: s for s in RECSYS_SHAPES}
+    out: dict = {"phase": "E", "cuts": E_CUTS, "tolerance": E_TOL,
+                 "base_allocated_bytes": torch.cuda.memory_allocated(), "archs": {}}
+    for arch in E_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = get_arch(arch)[0]
+        if arch == "dlrm-mlperf":
+            cfg = cfg.replace(vocab_sizes=tuple(min(v, E_DLRM_CAP) for v in cfg.vocab_sizes))
+        res: dict = {"vocab_rows": sum(cfg.vocab_sizes)}
+        gen = torch.Generator(device=dev).manual_seed(E_SEED)
+
+        # a reduced config on the card against the port's CPU run
+        _free()
+        rc = reduce_config(get_arch(arch)[0])
+        cpu, card = _carried(recsys.INIT[arch], rc, dev, E_SEED)
+        small = {k: v.cpu() for k, v in _rec_batch(rc, 256, gen, dev).items()}
+        for k in ("sparse", "hist", "target"):  # ids of -1 and >= V: every lookup clamps
+            if k in small:
+                small[k].view(-1)[:8] = torch.tensor([-1, -5, 10**6, 2**30, 0, 1, 999, 1000])
+        with torch.no_grad():
+            want = recsys.FORWARD[arch](cpu, rc, small)
+            got = recsys.FORWARD[arch](card, rc, {k: v.to(dev) for k, v in small.items()})
+        res["reduced_card_vs_cpu_max_abs"] = _max_diff(got, want)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **E_TOL,
+                                   err_msg=f"E {arch}: reduced forward, card against the CPU")
+        del cpu, card
+
+        # train_batch: three steps from the train cell at full width
+        _free()
+        cell = steps.build_cell(cfg, shapes["train_batch"])
+        t0 = time.perf_counter()
+        model = cell.init_fn(E_SEED, dev)
+        torch.cuda.synchronize()
+        res["init_seconds"] = time.perf_counter() - t0
+        res["params"] = sum(p.numel() for p in model.parameters())
+        res["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+        opt = init_train_state(model, cell.opt_cfg)
+        b = shapes["train_batch"].global_batch
+        batch = _rec_batch(cfg, b, gen, dev)
+        times, metrics = _step_ms(lambda: cell.step(model, opt, batch), E_STEPS)
+        res["train"] = {"batch": b, "step0_ms": times[0], "ms_per_step": float(np.mean(times[1:])),
+                        "step_ms": times, "loss": [float(m["loss"]) for m in metrics],
+                        "grad_norm": [float(m["grad_norm"]) for m in metrics],
+                        "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        assert all(np.isfinite(res["train"]["loss"])), res["train"]
+        _, res["train"]["profile"] = _device_breakdown(lambda: cell.step(model, opt, batch))
+        model.zero_grad(set_to_none=True)
+        del opt, metrics, batch, cell
+        weight_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                           if n.split(".")[0] not in ("tables", "linear", "item_table"))
+
+        # serve_p99 and serve_bulk
+        for name, iters in (("serve_p99", 20), ("serve_bulk", 3)):
+            _free()
+            b = shapes[name].global_batch
+            cell = steps.build_cell(cfg, shapes[name])
+            batch = _rec_batch(cfg, b, gen, dev, label=False)
+            ms, scores = _event_ms(lambda: cell.step(model, batch), warmup=1, iters=iters)
+            assert scores.shape == (b,) and torch.isfinite(scores).all(), name
+            res[name] = {"batch": b, "ms": ms, "rows_per_s": b / (ms / 1e3),
+                         "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                         **_rec_bound(cfg, b, retrieval=False, weight_bytes=weight_bytes)}
+            if name == "serve_bulk":
+                _, res[name]["profile"] = _device_breakdown(lambda: cell.step(model, batch))
+            del batch, scores, cell
+
+        # retrieval_cand: one user against 1,000,000 candidates, top-100
+        _free()
+        sh = shapes["retrieval_cand"]
+        cell = steps.build_cell(cfg, sh)
+        c = sh.n_candidates
+        user = _rec_batch(cfg, 1, gen, dev, label=False, target=False)
+        v0 = cfg.vocab_sizes[0]
+        cands = (torch.arange(c, device=dev) if v0 == c else
+                 torch.randint(0, v0, (c,), generator=gen, device=dev)).to(torch.int32)
+        batch = {**user, "candidates": cands}
+        ms, (vals, ids) = _event_ms(lambda: cell.step(model, batch), warmup=1, iters=3)
+        res["retrieval_cand"] = {
+            "candidates": c, "ms": ms, "candidates_per_s": c / (ms / 1e3),
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "top100_candidates": cands[ids.long()].tolist(), "top100_scores": vals.tolist(),
+            **_rec_bound(cfg, c, retrieval=True, weight_bytes=weight_bytes)}
+        _, res["retrieval_cand"]["profile"] = _device_breakdown(lambda: cell.step(model, batch))
+        # exactness: the top-100 is the stable sort of the same scores, and a
+        # candidate's score is the forward with it as the target
+        with torch.no_grad():
+            scores = recsys.RETRIEVAL[arch](model, cfg, user, cands)
+            s_np = scores.cpu().numpy()
+            order = np.lexsort((np.arange(c), -s_np))[:100]
+            assert np.array_equal(ids.cpu().numpy(), order), f"E {arch}: top-100 ids"
+            assert np.array_equal(vals.cpu().numpy(), s_np[order]), f"E {arch}: top-100 scores"
+            pos = torch.randint(0, c, (E_CHECK_CANDIDATES,), generator=gen, device=dev)
+            fwd = recsys.FORWARD[arch](model, cfg, _swapped(cfg, user, cands[pos]))
+            res["retrieval_vs_forward_max_abs"] = _max_diff(scores[pos], fwd)
+            np.testing.assert_allclose(scores[pos].cpu().numpy(), fwd.cpu().numpy(), **E_TOL,
+                                       err_msg=f"E {arch}: retrieval against the forward")
+        res["top100_equals_stable_sort"] = True
+        res["seconds"] = time.perf_counter() - t_arch
+        out["archs"][arch] = res
+        log(f"[E] {arch} {res}")
+        del model, cell, batch, user, cands, vals, ids, scores, fwd
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 def _smi(query: str) -> list[str]:
     """Lines of ``nvidia-smi --query-<query> --format=csv,noheader``."""
     return subprocess.run(["nvidia-smi", f"--query-{query}", "--format=csv,noheader"],
@@ -2268,9 +2712,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=528_000,
                     help="documents in phase A's collection (Robust04's 528k by default)")
-    ap.add_argument("--phases", default="ABRSQMKDCL",
+    ap.add_argument("--phases", default="ABRSQMKDCLGE",
                     help="phases to run (R and D need A; S and Q need A and R; M needs A, R "
-                         "and S; C needs A, B and R; L, the LM stack, needs none)")
+                         "and S; C needs A, B and R; L, the LM stack, G, the GNN, and E, "
+                         "the recsys family, need none)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory that holds the repro_torch package to drive")
     args = ap.parse_args()
@@ -2410,16 +2855,20 @@ def main() -> int:
         emit({"phase": "C", "kernels": [r["name"] for r in rows], "launches": total})
         emit({"phase": "C_dense", "rows": [r for r in rows if r["name"] == "dense_topk"],
               "dense_passes": sum(passes.values())})
-    if "L" in phases:
+    if {"L", "G", "E"} & phases:
         # the earlier phases' engines and kept inputs leave the card first
         keep.clear()
         for kept in (rec.inputs, rec.kwargs, rec.second):
             kept.clear()
+    for name, run in (("L", phase_l), ("G", phase_g), ("E", phase_e)):
+        if name not in phases:
+            continue
+        _free()
         before, dense_before = launches(), dense.launches
-        result = phase_l(dev)
+        result = run(dev)
         result["launches"] = {n: c - before[n] for n, c in launches().items()}
         result["dense_passes"] = dense.launches - dense_before
-        # the reference computes this path in XLA ops: no kernel of the repo is on it
+        # the reference computes these paths in XLA ops: no kernel of the repo is on them
         assert not any(result["launches"].values()) and not result["dense_passes"], result
         emit(result)
     if rows is not None:

@@ -19,3 +19,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         # tensors report "cuda:N"; name the card so device checks compare equal
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def init_generator(seed: int | torch.Generator, device: str | torch.device = "cuda"
+                   ) -> tuple[torch.Generator | None, torch.device]:
+    """(generator, device) for a model's init: a generator seeded on
+    ``device``, or the one given; none on the meta device, where an init
+    gives shapes and dtypes only."""
+    dev = torch.device(device)
+    dev = dev if dev.type == "meta" else resolve_device(dev)
+    if isinstance(seed, torch.Generator) or dev.type == "meta":
+        return (seed if isinstance(seed, torch.Generator) else None), dev
+    return torch.Generator(device=dev).manual_seed(int(seed)), dev

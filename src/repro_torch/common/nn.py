@@ -1,22 +1,99 @@
 """Tiny functional NN layer helpers shared across model families.
 
 The reference's helpers as functions on tensors: parameters are plain
-mappings of tensors (a ``dict``, or an ``nn.ParameterDict`` when a module
-owns them), layers are functions.  The weight layout is the reference's,
+mappings of tensors (a ``dict``, or a ``ParamTree`` when a module owns
+them), layers are functions.  The weight layout is the reference's,
 ``x @ w`` with ``w`` of shape (d_in, d_out), so its weights carry across as
 copies with no transpose.  Inits draw from a seeded ``torch.Generator``
-(normal x 1/sqrt(d_in) for dense weights, zero biases); the reference's
-sharding-axes twin trees have no counterpart on one device.
+(normal x 1/sqrt(d_in) for dense weights, zero biases) on the generator's
+device, or give shapes only on the meta device.  The reference's
+sharding-axes twin trees are flat ``{state-dict name: logical axes}``
+maps here (``flat_axes``, ``mlp_axes``).
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Mapping, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn as tnn
 
 Params = Mapping[str, torch.Tensor]
+
+
+class ParamTree(tnn.Module):
+    """A tree of parameters indexed like the reference's pytrees: each
+    tensor becomes an ``nn.Parameter``, each mapping a child ``ParamTree``,
+    each list a ``ModuleList`` of child trees (a ``ParameterList`` when its
+    items are tensors).  State-dict names are the tree's paths, e.g.
+    ``layers.3.edge_mlp.0.w`` or ``tables.25``."""
+
+    def __init__(self, tree: Mapping[str, Any]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                self.add_module(k, ParamTree(v))
+            elif isinstance(v, (list, tuple)):
+                if all(isinstance(x, torch.Tensor) for x in v):
+                    self.add_module(k, tnn.ParameterList(v))
+                else:
+                    self.add_module(k, tnn.ModuleList(ParamTree(x) for x in v))
+            else:
+                self.register_parameter(k, tnn.Parameter(v))
+
+    def __getitem__(self, k: str):
+        return getattr(self, k)
+
+    def __contains__(self, k: str) -> bool:
+        return k in self._parameters or k in self._modules
+
+
+def flat_axes(tree: Any, prefix: str = "", out: dict | None = None) -> dict[str, tuple]:
+    """A logical-axes tree (mappings and lists of subtrees, a tuple a leaf)
+    -> {state-dict name: axes}, under ``ParamTree``'s names."""
+    out = {} if out is None else out
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    for k, v in items:
+        name = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, (Mapping, list)):
+            flat_axes(v, name, out)
+        else:
+            out[name] = tuple(v)
+    return out
+
+
+def _to_torch(a: Any, device: torch.device) -> torch.Tensor:
+    """An array (numpy, or anything ``np.asarray`` reads) as a tensor on
+    ``device``; ml_dtypes' bf16 by its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def tree_to_torch(tree: Any, device: torch.device) -> Any:
+    """A reference pytree of arrays (mappings, lists, leaves; None kept) as
+    the same tree of tensors on ``device``."""
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {k: tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_torch(v, device) for v in tree]
+    return _to_torch(tree, device)
+
+
+def mlp_axes(n_layers: int, hidden_axis: str = "model") -> list[dict[str, tuple]]:
+    """The reference's ``mlp_init`` axes: the hidden axis alternates between
+    a layer's output and the next one's input."""
+    out = []
+    for i in range(n_layers):
+        ax_in = hidden_axis if i % 2 == 1 else None
+        ax_out = hidden_axis if i % 2 == 0 else None
+        out.append({"w": (ax_in, ax_out), "b": (ax_out,)})
+    return out
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -35,20 +112,22 @@ def normal_init(gen: torch.Generator | None, shape: Sequence[int], scale: float,
             * scale).to(dtype)
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, dtype=torch.float32,
-               scale: float | None = None) -> dict[str, torch.Tensor]:
+def dense_init(gen: torch.Generator | None, d_in: int, d_out: int, *, dtype=torch.float32,
+               scale: float | None = None, device: torch.device | None = None
+               ) -> dict[str, torch.Tensor]:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return {"w": torch.randn((d_in, d_out), generator=gen, dtype=dtype) * scale}
+    return {"w": normal_init(gen, (d_in, d_out), scale, dtype=dtype, device=device)}
 
 
 def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"].to(x.dtype)
 
 
-def bias_dense_init(gen: torch.Generator, d_in: int, d_out: int, *, dtype=torch.float32,
-                    scale: float | None = None) -> dict[str, torch.Tensor]:
-    p = dense_init(gen, d_in, d_out, dtype=dtype, scale=scale)
-    p["b"] = torch.zeros((d_out,), dtype=dtype)
+def bias_dense_init(gen: torch.Generator | None, d_in: int, d_out: int, *, dtype=torch.float32,
+                    scale: float | None = None, device: torch.device | None = None
+                    ) -> dict[str, torch.Tensor]:
+    p = dense_init(gen, d_in, d_out, dtype=dtype, scale=scale, device=device)
+    p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return p
 
 
@@ -56,10 +135,11 @@ def bias_dense(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"].to(x.dtype) + params["b"].to(x.dtype)
 
 
-def mlp_init(gen: torch.Generator, dims: Sequence[int], *, dtype=torch.float32
-             ) -> list[dict[str, torch.Tensor]]:
+def mlp_init(gen: torch.Generator | None, dims: Sequence[int], *, dtype=torch.float32,
+             device: torch.device | None = None) -> list[dict[str, torch.Tensor]]:
     """dims = [in, h1, ..., out] -> one bias-dense layer per consecutive pair."""
-    return [bias_dense_init(gen, a, b, dtype=dtype) for a, b in zip(dims[:-1], dims[1:])]
+    return [bias_dense_init(gen, a, b, dtype=dtype, device=device)
+            for a, b in zip(dims[:-1], dims[1:])]
 
 
 def mlp(params: Sequence[Params], x: torch.Tensor, *,
@@ -88,8 +168,13 @@ def rmsnorm(params: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tens
     return (x * (1.0 + params["scale"].float())).to(dtype)
 
 
-def layernorm_init(dim: int, dtype=torch.float32) -> dict[str, torch.Tensor]:
-    return {"scale": torch.ones((dim,), dtype=dtype), "bias": torch.zeros((dim,), dtype=dtype)}
+LAYERNORM_AXES = {"scale": (None,), "bias": (None,)}
+
+
+def layernorm_init(dim: int, dtype=torch.float32, device: torch.device | None = None
+                   ) -> dict[str, torch.Tensor]:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
 
 
 def layernorm(params: Params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:

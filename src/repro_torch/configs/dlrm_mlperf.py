@@ -3,13 +3,7 @@
 bot 512-256-128, top 1024-1024-512-256-1, dot interaction."""
 from repro_torch.common.config import ArchConfig
 from repro_torch.configs.shapes import RECSYS_SHAPES
-
-# the 26 categorical cardinalities of the MLPerf Criteo 1TB benchmark
-CRITEO_VOCABS = (
-    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
-    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771,
-    25641295, 39664984, 585935, 12972, 108, 36,
-)
+from repro_torch.models.recsys import CRITEO_VOCABS
 
 CONFIG = ArchConfig(
     name="dlrm-mlperf",

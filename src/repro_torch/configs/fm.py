@@ -3,7 +3,7 @@ via the O(nk) sum-square trick. Criteo layout: 26 categorical vocabs +
 13 bucketized numeric fields (1000 buckets each)."""
 from repro_torch.common.config import ArchConfig
 from repro_torch.configs.shapes import RECSYS_SHAPES
-from repro_torch.configs.dlrm_mlperf import CRITEO_VOCABS
+from repro_torch.models.recsys import CRITEO_VOCABS
 
 CONFIG = ArchConfig(
     name="fm",

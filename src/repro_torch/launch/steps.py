@@ -4,7 +4,9 @@ The one place the launchers, ``chip_smoke.py`` and the tests resolve a cell
 of the arch × shape grid.  A cell bundle holds:
   step          — the step: train (model, opt_state, batch) -> metrics,
                   prefill (model, tokens) -> (logits, caches), decode
-                  (model, token, pos, caches) -> (logits, caches)
+                  (model, token, pos, caches) -> (logits, caches), serve
+                  (model, batch) -> scores, retrieval (model, batch) ->
+                  (top-100 scores, their candidate positions)
   init_fn       — (seed, device) -> model (real tensors)
   param_specs   — {state-dict name: TensorSpec}, from the model built on the
                   meta device (the counterpart of ``jax.eval_shape``):
@@ -12,25 +14,33 @@ of the arch × shape grid.  A cell bundle holds:
   param_axes    — {state-dict name: logical axes}
   input_specs   — TensorSpecs of the data inputs (decode: of the caches too)
   input_axes    — logical axes for the data inputs
-  kind          — train | prefill | decode
+  kind          — train | prefill | decode | serve | retrieval
 
 Axes come from the real init on a structure-preserving SKELETON config (tiny
 dims, the same layer/table/feature structure): axes depend only on
-structure, never on dims.  This slice ports the LM family; the GNN and
-recsys cells come with their models in the next slice.
+structure, never on dims.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, NamedTuple
 
 import torch
 
 from repro_torch.common.config import ArchConfig, OptimizerConfig, ShapeSpec, TrainConfig
+from repro_torch.models import gnn as gnn_mod
+from repro_torch.models import recsys as rec_mod
+from repro_torch.models import sampler as sampler_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.attention import KVCache
+from repro_torch.models.moe import top_k_lowest_index
 from repro_torch.train import make_train_step
+
+# per-shape feature dims where the assignment leaves them open (documented)
+MINIBATCH_D_FEAT = 602  # Reddit-scale node features
+MOLECULE_D_FEAT = 32
 
 
 class TensorSpec(NamedTuple):
@@ -81,6 +91,17 @@ def skeleton(cfg: ArchConfig) -> ArchConfig:
     return dataclasses.replace(cfg, **kw)
 
 
+def _specs_of(init, cfg: ArchConfig) -> tuple[dict[str, TensorSpec], dict]:
+    """(param_specs from the model on the meta device, param_axes from the
+    skeleton's); the two models' state-dict names match one for one."""
+    meta = init(0, cfg, device="meta")[0]
+    specs = {n: _sds(p.shape, p.dtype) for n, p in meta.named_parameters()}
+    axes = init(0, skeleton(cfg), device="meta")[1]
+    if set(specs) != set(axes):
+        raise AssertionError(f"{cfg.name}: parameter and axes names differ")
+    return specs, axes
+
+
 # ===================================================================== LM
 def _lm_param_dtype(cfg: ArchConfig) -> torch.dtype:
     # 671B-scale params train in bf16 (+int8 moments)
@@ -108,10 +129,7 @@ def lm_cell(cfg: ArchConfig, shape: ShapeSpec, *, remat: str = "dots") -> CellBu
     def init_fn(seed: int = 0, device: str | torch.device = "cuda") -> tf_mod.LMModel:
         return tf_mod.init_lm(seed, cfg, pdtype, device=device)[0]
 
-    axes = tf_mod.init_lm(0, skeleton(cfg), pdtype, device="meta")[1]
-    meta = tf_mod.init_lm(0, cfg, pdtype, device="meta")[0]
-    param_specs = {n: _sds(p.shape, p.dtype) for n, p in meta.named_parameters()}
-    del meta
+    param_specs, axes = _specs_of(partial(tf_mod.init_lm, dtype=pdtype), cfg)
 
     b, s = shape.global_batch, shape.seq_len
     if shape.kind == "train":
@@ -155,12 +173,139 @@ def lm_cell(cfg: ArchConfig, shape: ShapeSpec, *, remat: str = "dots") -> CellBu
     return CellBundle(cfg, shape, "decode", step, init_fn, param_specs, axes, inputs, in_axes)
 
 
+# ===================================================================== GNN
+GNN_PAD = 512  # node/edge counts padded to a multiple of every mesh size
+
+
+def _pad_up(n: int, m: int = GNN_PAD) -> int:
+    return -(-n // m) * m
+
+
+def gnn_graph_dims(shape: ShapeSpec) -> tuple[int, int, int]:
+    """(n_nodes, n_edges, d_feat) after padding/flattening rules."""
+    if shape.name == "minibatch_lg":
+        n, e = sampler_mod.subgraph_budget(shape.batch_nodes, shape.fanout)
+        return _pad_up(n), _pad_up(e), MINIBATCH_D_FEAT
+    if shape.name == "molecule":
+        return (
+            _pad_up(shape.n_nodes * shape.n_graphs),
+            _pad_up(shape.n_edges * shape.n_graphs),
+            MOLECULE_D_FEAT,
+        )
+    return _pad_up(shape.n_nodes), _pad_up(shape.n_edges), shape.d_feat
+
+
+def gnn_cell(cfg: ArchConfig, shape: ShapeSpec) -> CellBundle:
+    n, e, d_feat = gnn_graph_dims(shape)
+    cfg = cfg.replace(node_feat_dim=d_feat)
+
+    def init_fn(seed: int = 0, device: str | torch.device = "cuda"):
+        return gnn_mod.init_mgn(seed, cfg, device=device)[0]
+
+    param_specs, axes = _specs_of(gnn_mod.init_mgn, cfg)
+    big = n > 500_000  # full-batch giants get per-layer remat
+
+    def loss_fn(model, batch):
+        return gnn_mod.mgn_loss(model, cfg, batch, remat=big)
+
+    train_step = make_train_step(loss_fn, OptimizerConfig())
+    inputs = {
+        "node_feat": _sds((n, d_feat), torch.float32),
+        "edge_feat": _sds((e, cfg.edge_feat_dim), torch.float32),
+        "senders": _sds((e,), torch.int32),
+        "receivers": _sds((e,), torch.int32),
+        "node_mask": _sds((n,), torch.float32),
+        "edge_mask": _sds((e,), torch.float32),
+        "node_targets": _sds((n, cfg.gnn_out_dim), torch.float32),
+    }
+    # small graphs shard over data only below ~1M edges
+    nd, ed = ("nodes", "edges") if e >= 1_000_000 else ("nodes_sm", "edges_sm")
+    in_axes = {
+        "node_feat": (nd, None),
+        "edge_feat": (ed, None),
+        "senders": (ed,),
+        "receivers": (ed,),
+        "node_mask": (nd,),
+        "edge_mask": (ed,),
+        "node_targets": (nd, None),
+    }
+    return CellBundle(cfg, shape, "train", train_step, init_fn, param_specs, axes,
+                      inputs, in_axes, opt_cfg=OptimizerConfig())
+
+
+# ===================================================================== RecSys
+def recsys_batch_specs(cfg: ArchConfig, b: int) -> tuple[dict, dict]:
+    if cfg.name == "dlrm-mlperf":
+        sp = {
+            "dense": _sds((b, cfg.n_dense), torch.float32),
+            "sparse": _sds((b, cfg.n_sparse), torch.int32),
+            "label": _sds((b,), torch.float32),
+        }
+        ax = {"dense": ("batch", None), "sparse": ("batch", None), "label": ("batch",)}
+    elif cfg.name == "fm":
+        sp = {"sparse": _sds((b, cfg.n_sparse), torch.int32), "label": _sds((b,), torch.float32)}
+        ax = {"sparse": ("batch", None), "label": ("batch",)}
+    else:  # bst, mind
+        sp = {
+            "hist": _sds((b, cfg.hist_len), torch.int32),
+            "target": _sds((b,), torch.int32),
+            "label": _sds((b,), torch.float32),
+        }
+        ax = {"hist": ("batch", None), "target": ("batch",), "label": ("batch",)}
+    return sp, ax
+
+
+def recsys_cell(cfg: ArchConfig, shape: ShapeSpec) -> CellBundle:
+    init = rec_mod.INIT[cfg.name]
+
+    def init_fn(seed: int = 0, device: str | torch.device = "cuda"):
+        return init(seed, cfg, device=device)[0]
+
+    param_specs, axes = _specs_of(init, cfg)
+    b = shape.global_batch
+
+    if shape.kind == "train":
+        def loss_fn(model, batch):
+            return rec_mod.recsys_loss(model, cfg, batch)
+
+        train_step = make_train_step(loss_fn, OptimizerConfig())
+        sp, ax = recsys_batch_specs(cfg, b)
+        return CellBundle(cfg, shape, "train", train_step, init_fn, param_specs, axes,
+                          sp, ax, opt_cfg=OptimizerConfig())
+
+    if shape.kind == "serve":
+        sp, ax = recsys_batch_specs(cfg, b)
+        sp.pop("label"); ax.pop("label")
+
+        @torch.no_grad()
+        def step(model, batch):
+            return rec_mod.FORWARD[cfg.name](model, cfg, batch)
+
+        return CellBundle(cfg, shape, "serve", step, init_fn, param_specs, axes, sp, ax)
+
+    # retrieval: one user context x n_candidates, return top-100
+    sp, ax = recsys_batch_specs(cfg, max(1, b))
+    for k in ("label", "target"):
+        sp.pop(k, None); ax.pop(k, None)
+    sp["candidates"] = _sds((shape.n_candidates,), torch.int32)
+    ax["candidates"] = ("candidates",)
+
+    @torch.no_grad()
+    def step(model, batch):
+        cand = batch["candidates"]
+        rest = {k: v for k, v in batch.items() if k != "candidates"}
+        scores = rec_mod.RETRIEVAL[cfg.name](model, cfg, rest, cand)
+        return top_k_lowest_index(scores, 100)  # lax.top_k: ties to the lower index
+
+    return CellBundle(cfg, shape, "retrieval", step, init_fn, param_specs, axes, sp, ax)
+
+
 # ===================================================================== entry
 def build_cell(cfg: ArchConfig, shape: ShapeSpec, **kw) -> CellBundle:
     if cfg.family == "lm":
         return lm_cell(cfg, shape, **kw)
-    if cfg.family in ("gnn", "recsys"):
-        raise NotImplementedError(
-            f"{cfg.family} cells ({cfg.name}) come with models/gnn.py, models/recsys.py and "
-            "models/sampler.py in the next slice of the port")
+    if cfg.family == "gnn":
+        return gnn_cell(cfg, shape)
+    if cfg.family == "recsys":
+        return recsys_cell(cfg, shape)
     raise ValueError(cfg.family)

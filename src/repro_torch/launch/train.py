@@ -1,17 +1,23 @@
-"""Training launcher: any LM --arch at any scale, with checkpoint/restart
+"""Training launcher: any --arch at any scale, with checkpoint/restart
 and a straggler watchdog.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b --reduced \\
       --device cpu --steps 4 --batch 2 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --arch meshgraphnet --reduced \\
+      --device cpu --steps 4 --batch 4        # a graph of 16 x batch nodes
+  PYTHONPATH=src python -m repro_torch.launch.train --arch fm --reduced \\
+      --device cpu --steps 4 --batch 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
       --steps 3 --batch 1 --seq 4096 --checkpoint-every 0    # one card
 
-A run resumes from the newest checkpoint in ``--ckpt-dir``.  The GNN and
-recsys archs come with their models in the next slice of the port.
+``--arch`` is any of ``configs.ARCH_IDS``: the LM archs, meshgraphnet, and
+dlrm-mlperf, fm, bst and mind.  A run resumes from the newest checkpoint in
+``--ckpt-dir``.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import tempfile
 import time
@@ -66,7 +72,9 @@ def train_loop(cell, cfg: TrainConfig, *, data_it=None, device: str | torch.devi
         opt_state = tree["opt"]
         print(f"[train] resumed from step {start}")
 
-    data = PrefetchLoader(data_it or synthetic_batches(cell), depth=2)
+    if data_it is None:  # a resumed run reads on where the stream left off
+        data_it = itertools.islice(synthetic_batches(cell), start, None)
+    data = PrefetchLoader(data_it, depth=2)
     times: deque[float] = deque(maxlen=20)
     metrics: dict = {}
     try:
@@ -84,7 +92,7 @@ def train_loop(cell, cfg: TrainConfig, *, data_it=None, device: str | torch.devi
                 print(f"[watchdog] step {step} took {dt:.2f}s "
                       f"(median {float(np.median(times)):.2f}s) — raising prefetch")
                 data.close()
-                data = PrefetchLoader(data_it or synthetic_batches(cell), depth=4)
+                data = PrefetchLoader(data_it, depth=4)
             times.append(dt)
             if history is not None:
                 history.append({"step": step, "loss": loss, "grad_norm": gnorm, "ms": dt * 1e3})
@@ -126,7 +134,7 @@ def main(argv=None):
     cell = build_cell(arch, shape, **kw)
     tcfg = TrainConfig(steps=args.steps, checkpoint_dir=args.ckpt_dir,
                        checkpoint_every=args.checkpoint_every, log_every=5)
-    train_loop(cell, tcfg, device=args.device)
+    return train_loop(cell, tcfg, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,3 +1,3 @@
-from repro_torch.models import attention, moe, transformer
+from repro_torch.models import attention, gnn, moe, recsys, sampler, transformer
 
-__all__ = ["attention", "moe", "transformer"]
+__all__ = ["attention", "gnn", "moe", "recsys", "sampler", "transformer"]

@@ -33,32 +33,13 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from repro_torch.common import nn
 from repro_torch.common.config import ArchConfig
-from repro_torch.common.device import resolve_device
+from repro_torch.common.device import init_generator, resolve_device
 from repro_torch.common.sharding import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.train.steps import _save_dots
 
 Axes = tuple  # logical axis names of one parameter, one a dim
-
-
-class Params(tnn.Module):
-    """A tree of parameters indexed like the reference's dicts: each tensor
-    becomes an ``nn.Parameter``, each mapping a child ``Params``."""
-
-    def __init__(self, tree: Mapping[str, Any]):
-        super().__init__()
-        for k, v in tree.items():
-            if isinstance(v, Mapping):
-                self.add_module(k, Params(v))
-            else:
-                self.register_parameter(k, tnn.Parameter(v))
-
-    def __getitem__(self, k: str):
-        return getattr(self, k)
-
-    def __contains__(self, k: str) -> bool:
-        return k in self._parameters or k in self._modules
 
 
 # ------------------------------------------------------------------ FFN
@@ -155,28 +136,18 @@ class LMModel(tnn.Module):
             raise ValueError(f"{len(prefix)} prefix and {len(stacked)} stacked blocks for "
                              f"{cfg.name}'s {n_prefix} and {n_groups} x {period}")
         self.cfg = cfg
-        self.embed = Params(embed)
-        self.prefix = tnn.ModuleList(Params(p) for p in prefix)
-        self.stacked = tnn.ModuleList(Params(p) for p in stacked)
-        self.final_norm = Params(final_norm)
-        self.lm_head = Params(lm_head) if lm_head is not None else None
-        self.mtp = Params(mtp) if mtp is not None else None
+        self.embed = nn.ParamTree(embed)
+        self.prefix = tnn.ModuleList(nn.ParamTree(p) for p in prefix)
+        self.stacked = tnn.ModuleList(nn.ParamTree(p) for p in stacked)
+        self.final_norm = nn.ParamTree(final_norm)
+        self.lm_head = nn.ParamTree(lm_head) if lm_head is not None else None
+        self.mtp = nn.ParamTree(mtp) if mtp is not None else None
 
-    def blocks(self) -> list[tuple[int, Params]]:
+    def blocks(self) -> list[tuple[int, nn.ParamTree]]:
         """(layer_idx as block_forward takes it, block) in layer order."""
         n_prefix, _, period = _layer_split(self.cfg)
         return list(enumerate(self.prefix)) + [
             (n_prefix + i % period, bp) for i, bp in enumerate(self.stacked)]
-
-
-def _flat_axes(tree: Mapping, prefix: str, out: dict[str, Axes]) -> dict[str, Axes]:
-    for k, v in tree.items():
-        name = f"{prefix}.{k}" if prefix else k
-        if isinstance(v, Mapping):
-            _flat_axes(v, name, out)
-        else:
-            out[name] = tuple(v)
-    return out
 
 
 def init_lm(seed: int | torch.Generator, cfg: ArchConfig, dtype=torch.float32, *,
@@ -185,12 +156,7 @@ def init_lm(seed: int | torch.Generator, cfg: ArchConfig, dtype=torch.float32, *
     distributions and scales, drawn from a generator on ``device``; on
     ``torch.device("meta")`` shapes and dtypes only, allocation-free at any
     scale (the counterpart of ``jax.eval_shape``)."""
-    dev = torch.device(device)
-    dev = dev if dev.type == "meta" else resolve_device(dev)
-    if isinstance(seed, torch.Generator) or dev.type == "meta":
-        gen = seed if isinstance(seed, torch.Generator) else None
-    else:
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen, dev = init_generator(seed, device)
     n_prefix, n_groups, period = _layer_split(cfg)
     kw = dict(dtype=dtype, device=dev)
     embed = {"table": nn.normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02, **kw)}
@@ -200,13 +166,13 @@ def init_lm(seed: int | torch.Generator, cfg: ArchConfig, dtype=torch.float32, *
     for i in range(n_prefix):
         p, a = init_block(gen, cfg, i, **kw)
         prefix.append(p)
-        _flat_axes(a, f"prefix.{i}", axes)
+        nn.flat_axes(a, f"prefix.{i}", axes)
     stacked = []
     for g in range(n_groups):
         for j in range(period):
             p, a = init_block(gen, cfg, n_prefix + j, **kw)
             stacked.append(p)
-            _flat_axes(a, f"stacked.{g * period + j}", axes)
+            nn.flat_axes(a, f"stacked.{g * period + j}", axes)
     final_norm = nn.rmsnorm_init(cfg.d_model, **kw)
     axes["final_norm.scale"] = (None,)
     lm_head = None
@@ -217,23 +183,8 @@ def init_lm(seed: int | torch.Generator, cfg: ArchConfig, dtype=torch.float32, *
     mtp = None
     if cfg.use_mtp:
         mtp, a = init_block(gen, cfg, cfg.n_layers - 1, **kw)
-        _flat_axes(a, "mtp", axes)
+        nn.flat_axes(a, "mtp", axes)
     return LMModel(cfg, embed, prefix, stacked, final_norm, lm_head, mtp), axes
-
-
-def _to_torch(a: Any, device: torch.device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: reinterpret the bits
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
-
-
-def _tree_to_torch(tree: Any, device: torch.device) -> Any:
-    if tree is None:
-        return None
-    if isinstance(tree, Mapping):
-        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
-    return _to_torch(tree, device)
 
 
 def _tree_index(tree: Any, g: int) -> Any:
@@ -251,7 +202,7 @@ def lm_params_from_jax(params_np: Any, cfg: ArchConfig, *, device: str | torch.d
     embed, prefix, stacked, final_norm, lm_head, mtp = params_np
     _, n_groups, period = _layer_split(cfg)
     layers = [_tree_index(stacked[j], g) for g in range(n_groups) for j in range(period)]
-    conv = partial(_tree_to_torch, device=dev)
+    conv = partial(nn.tree_to_torch, device=dev)
     return LMModel(cfg, conv(embed), [conv(p) for p in prefix], [conv(p) for p in layers],
                    conv(final_norm), conv(lm_head), conv(mtp))
 
