@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases ARD --src OTHER/src  # another checkout's package
     python3 chip_smoke.py --phases L   # the LM stack alone
     python3 chip_smoke.py --phases GE  # the GNN and recsys families alone
+    python3 chip_smoke.py --phases XW  # the mesh world and the web-scale learned index
 
 It needs a CUDA card, ``nvcc`` and the repository checkout it lives in; it
 exits non-zero without a result when either is missing.  It prints the
@@ -161,12 +162,47 @@ card's name and power limit first, then one JSON line per phase:
          ascending) of the same scores, and 64 sampled candidates' scores
          equal the forward with the candidate as the target (1e-4 / 1e-5).
          G and E launch none of the repo's kernels (asserted)
+  W      the paper's system at ClueWeb09B scale, one rank's share of the
+         (16, 16) mesh (``launch/dryrun_learned_index``), after K: a
+         3,138,816-doc x 128 bf16 shard and a 60,000-term shard at the shapes
+         ``run()`` plans (the allocated bytes asserted equal to its per-rank
+         argument bytes); ``exhaustive_step`` on 256 queries x 8 terms (the
+         valid slots scored on membership, ANDed over the terms on bitset),
+         its words against the plain versions on the first 65,536 docs and
+         on a random 1% of the words, word for word outside NUMERIC_MARGIN of
+         tau; ``block_step`` on 64 queries x 64 candidate blocks of 1,024 docs
+         (the block AND on bitset, against ``bitset_and_popcount_ref``; the
+         candidates' hits against the exhaustive words' bits); ms (CUDA
+         events, the first call apart), the device time by kernel of one
+         exhaustive call (torch.profiler), peak bytes, the bound; its
+         launches join the kernels line
+  X      the mesh world, last: 4 ranks spawned on the card with gloo (a
+         world of several ranks on one card cannot run NCCL), every
+         collective through host memory, bytes counted: X1 the collective
+         matmuls at deepseek-v3's dense-FFN width (x 4,096 x 7,168 split over
+         k, W 7,168 x 18,432) against ``torch.matmul`` of the whole operands
+         (1e-4 relative); X2 the int8 ring all-reduce of 64M fp32 a rank (the
+         same bits on every rank, under 5e-2 relative of the exact sum); X3
+         GPipe over 4 stages of tanh(x @ W_s) at d 7,168, 8 microbatches of
+         512 (1e-5 of the sequential product), and its backward (gradients
+         within 1e-5 relative of autograd through that product); X4 deepseek-v3's MoE at full
+         width (256 routed experts, 64 a rank, drawn expert by expert from
+         their own seeds; top-8, sigmoid gate with bias, the shared expert)
+         through ``moe_dispatch`` on a (data 2, model 2) mesh, 2 x 4,096
+         tokens, at the config's capacity factor and again at 0.5, which
+         drops slots, every output checked after the world exits against
+         ``moe_a2a_ref`` in this process (its own routing; 1e-5 + 1e-4
+         relative); seconds of each part, host bytes, dropped shares, peak
+         bytes.  With 4 cards the
+         world runs again on NCCL, one rank a card, with a DTensor train step
+         of reduced gemma2-2b on a (2, 2) mesh; on one card the line says it
+         did not run.  No kernel of the repo launches (asserted in every rank)
 
-then the ``kernels`` line (launch counts from phases A, B, R, S, Q, M and K,
-times, bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed
+then the ``kernels`` line (launch counts from phases A, B, R, S, Q, M, K and
+W, times, bounds) and, last, ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script exits non-zero.  ``--phases`` runs a subset (R
 and D need A; S and Q need A and R; M needs A, R and S; C needs A, B and R;
-A_block runs with A; L, G and E need none: ``--phases GE`` runs G and E
+A_block runs with A; L, G, E, W and X need none: ``--phases GE`` runs G and E
 alone), ``--src``
 drives the package of another checkout (phases A, A_block, B, R and D only
 need what every version of the port has; S and C need Algorithm 2's kernel,
@@ -2708,14 +2744,561 @@ def dense_rows(rec: Recorder, row) -> None:
         one(arena.table, qt, floors, k, f"cap_k{k}")
 
 
+# ------------------------------------------------------------ phase W
+W_SEED = 41
+W_QUERIES = 256  # one rank's share of serve_queries' 4,096 (the 16-way data axis)
+W_BLOCK_QUERIES = 64  # one rank's share of serve_block's 1,024
+W_CHECK_DOCS = 65_536  # the plain versions' first docs
+W_CHECK_SHARE = 0.01  # and this share of the words, drawn at random
+
+
+def _w_plain_words(te, de_rows, tau, valid):
+    """Plain versions of exhaustive_step's words on a subset of docs: the
+    membership rows of the valid slots (``membership_bitmask_ref``, true fp32)
+    ANDed over each query's terms (``bitset_and_popcount_ref``), and the
+    bits whose logit lies within NUMERIC_MARGIN (1 + |tau|) of tau for some
+    valid term of the query (there the kernel's fp32 order may differ)."""
+    import torch
+
+    from repro_torch.core.learned_bloom import NUMERIC_MARGIN
+    from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref
+    from repro_torch.kernels.membership.ref import (membership_bitmask_ref,
+                                                    membership_logits_ref, pack_bool_words)
+
+    q, t = valid.shape
+    rows = membership_bitmask_ref(te, de_rows, tau, 0.0)  # (R, words)
+    logits = membership_logits_ref(te, de_rows, 0.0)
+    near_rows = pack_bool_words((logits - tau[:, None]).abs()
+                                <= NUMERIC_MARGIN * (1 + tau.abs()[:, None]))
+    del logits
+    slot = torch.cumsum(valid.reshape(-1).long(), 0).reshape(q, t) - 1
+    full = torch.full((q, t, rows.shape[1]), -1, dtype=torch.int32, device=rows.device)
+    full[valid] = rows[slot[valid]]
+    words, _ = bitset_and_popcount_ref(full, valid.to(torch.int32))
+    full.zero_()
+    full[valid] = near_rows[slot[valid]]
+    near = full[:, 0]
+    for i in range(1, t):
+        near = near | full[:, i]
+    return words, near
+
+
+def phase_w(dev) -> dict:
+    """Phase W: one rank's share of the paper's system at ClueWeb09B scale
+    on the (16, 16) mesh (``launch/dryrun_learned_index``), on the
+    membership and bitset kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import dryrun_learned_index as li
+
+    t0 = time.perf_counter()
+    plan = {r["shape"]: r for r in li.run(multi_pod=False)}
+    exh, blk = plan["serve_queries"]["args"], plan["serve_block"]["args"]
+    n_docs, e = exh["doc_embed"]["shard_shape"]
+    n_terms = exh["term_embed"]["shard_shape"][0]
+    q_exh, t = exh["queries"]["shard_shape"]
+    if q_exh != W_QUERIES or blk["queries"]["shard_shape"][0] != W_BLOCK_QUERIES:
+        raise AssertionError(f"the plan's per-rank queries {q_exh}, "
+                             f"{blk['queries']['shard_shape'][0]}")
+    gen = torch.Generator(device=dev).manual_seed(W_SEED)
+    _free()
+    # the rank's shard: doc rows of the data axis, term rows of the model axis;
+    # f = te . de ~ N(0, 1), tau in [0.3, 0.8): a term holds ~30% of the docs
+    params = {
+        "doc_embed": torch.randn((n_docs, e), generator=gen, device=dev).to(torch.bfloat16),
+        "term_embed": (torch.randn((n_terms, e), generator=gen, device=dev)
+                       / np.sqrt(e)).to(torch.bfloat16),
+        "tau": 0.3 + 0.5 * torch.rand(n_terms, generator=gen, device=dev),
+    }
+    queries = torch.randint(0, n_terms, (q_exh, t), generator=gen, device=dev, dtype=torch.int32)
+    queries[-1, t - 3:] = -1  # pad terms act as all-ones
+    allocated = {**params, "queries": queries}
+    bytes_ok = {n: allocated[n].numel() * allocated[n].element_size() == exh[n]["bytes"]
+                for n in exh}
+    seconds = {"setup": time.perf_counter() - t0}
+
+    torch.cuda.reset_peak_memory_stats()
+    first_ms, words = _event_ms(lambda: li.exhaustive_step(params, queries), 0, 1)
+    peak = torch.cuda.max_memory_allocated()
+    ms, _ = _event_ms(lambda: li.exhaustive_step(params, queries), 0, 3)
+    _, profile = _device_breakdown(lambda: li.exhaustive_step(params, queries), top=6)
+    n_words = words.shape[1]
+    if tuple(words.shape) != (q_exh, n_docs // 32):
+        raise AssertionError(f"exhaustive_step words {tuple(words.shape)}")
+
+    # the plain versions: the first docs, and a random share of the words
+    t1 = time.perf_counter()
+    valid = queries >= 0
+    q = queries.clamp(min=0).long()
+    te = params["term_embed"][q[valid]].float()
+    tau = params["tau"][q[valid]]
+    checks = {}
+    cols = torch.randperm(n_words, generator=gen, device=dev)[:int(n_words * W_CHECK_SHARE)]
+    cols = cols.sort().values
+    for name, wcols in (("first_docs", torch.arange(W_CHECK_DOCS // 32, device=dev)),
+                        ("random_words", cols)):
+        doc = (wcols[:, None] * 32 + torch.arange(32, device=dev)).reshape(-1)
+        want, near = _w_plain_words(te, params["doc_embed"][doc].float(), tau, valid)
+        got = words[:, wcols]
+        differ = int(_popcount((got ^ want) & ~near))
+        if differ:
+            raise AssertionError(f"W ({name}): {differ} bits differ outside the margin")
+        checks[name] = {"words": int(want.numel()), "bits_within_margin": int(_popcount(near)),
+                        "differing_bits_within_margin": int(_popcount((got ^ want) & near)),
+                        "hits": int(_popcount(got))}
+    seconds["plain_checks"] = time.perf_counter() - t1
+    hits = int(_popcount(words))
+    flop = 2 * int(valid.sum()) * n_docs * e
+    bound = {"ops_ms": flop / FP32_FLOPS * 1e3,
+             "bytes_ms": (n_docs * e * 2 + int(valid.sum()) * n_words * 4) / HBM_BYTES_PER_S * 1e3}
+
+    # serve_block: the first W_BLOCK_QUERIES queries, 64 candidate blocks each
+    nb = blk["block_maps"]["shard_shape"][1]
+    block_maps = torch.randint(-2**31, 2**31 - 1, (n_terms, nb), generator=gen, device=dev,
+                               dtype=torch.int32)
+    bq = queries[:W_BLOCK_QUERIES].contiguous()
+    n_blocks = n_docs // li.BLOCK_SIZE
+    picks = torch.rand((W_BLOCK_QUERIES, n_blocks), generator=gen, device=dev).argsort(1)
+    picks = picks[:, :li.CAND_BLOCKS].sort(1).values
+    cand = (picks[:, :, None] * li.BLOCK_SIZE
+            + torch.arange(li.BLOCK_SIZE, device=dev)).reshape(W_BLOCK_QUERIES, -1)
+    cand = cand.to(torch.int32)
+    allocated = {**params, "queries": bq, "block_maps": block_maps, "cand_docs": cand}
+    bytes_ok.update({f"block.{n}": allocated[n].numel() * allocated[n].element_size()
+                     == blk[n]["bytes"] for n in blk})
+    if not all(bytes_ok.values()):
+        raise AssertionError(f"W: allocated bytes differ from run()'s plan: {bytes_ok}")
+    torch.cuda.reset_peak_memory_stats()
+    block_ms, (anded, cand_hits) = _event_ms(
+        lambda: li.block_step(params, bq, block_maps, cand), 1, 5)
+    block_peak = torch.cuda.max_memory_allocated()
+    from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref
+
+    want_and, _ = bitset_and_popcount_ref(block_maps[bq.clamp(min=0).long()],
+                                          (bq >= 0).to(torch.int32))
+    if not torch.equal(anded, want_and):
+        raise AssertionError("W: block_step's block AND differs from bitset_and_popcount_ref")
+    # the candidates' hits are the exhaustive words' bits at those docs, outside the margin
+    bits = (words[:W_BLOCK_QUERIES].gather(1, (cand // 32).long()) >> (cand % 32)) & 1
+    doc_rows = params["doc_embed"][cand.reshape(-1).long()].float().reshape(*cand.shape, e)
+    logits = torch.einsum("qte,qce->qtc", params["term_embed"][bq.clamp(min=0).long()].float(),
+                          doc_rows)
+    del doc_rows
+    btau = params["tau"][bq.clamp(min=0).long()]
+    near = (((logits - btau[:, :, None]).abs() <= 1e-5 * (1 + btau.abs()[:, :, None]))
+            & (bq >= 0)[:, :, None]).any(1)
+    del logits
+    mismatch = int(((bits.bool() != cand_hits) & ~near).sum())
+    if mismatch:
+        raise AssertionError(f"W: {mismatch} candidate hits differ from the exhaustive words")
+    return {
+        "phase": "W", "mesh": plan["serve_queries"]["mesh"],
+        "cut": "one rank's share of the 256-rank mesh; queries draw their terms from the "
+               "rank's 60,000-term shard, so no cross-rank gather",
+        "serve_queries": {"docs": n_docs, "queries": q_exh, "slots": int(valid.sum()),
+                          "words": n_words, "ms": ms, "first_call_ms": first_ms,
+                          "peak_bytes": peak, "profile": profile,
+                          "argument_bytes": plan["serve_queries"]["argument_bytes"],
+                          "hits": hits, "fp32_flop": flop, "tflop_s": flop / ms / 1e9,
+                          "bound_ms": max(bound.values()),
+                          "bound_by": "operations" if bound["ops_ms"] >= bound["bytes_ms"]
+                          else "bytes", "checks": checks},
+        "serve_block": {"queries": W_BLOCK_QUERIES, "candidates": int(cand.shape[1]),
+                        "ms": block_ms, "peak_bytes": block_peak,
+                        "argument_bytes": plan["serve_block"]["argument_bytes"],
+                        "surviving_block_bits": int(_popcount(anded)),
+                        "candidate_hits": int(cand_hits.sum()),
+                        "candidates_within_margin": int(near.sum())},
+        "bytes_equal_plan": bytes_ok, "seconds": {**seconds, "total": time.perf_counter() - t0},
+    }
+
+
+def _popcount(words) -> int:
+    """Set bits of an int32 word tensor."""
+    import torch
+
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    total = 0
+    for b in range(32):
+        total += int(((w >> b) & 1).sum())
+    return total
+
+
+# ------------------------------------------------------------ phase X
+X_SEED = 31
+X_RANKS = 4
+X_FFN = (4096, 7168, 18432)  # deepseek-v3's dense FFN: (tokens, d_model, d_ff)
+X_CAR = 64 * 2**20  # compressed all-reduce: fp32 elements a rank
+X_PIPE = (4, 7168, 8, 512)  # stages, width, microbatches, rows a microbatch
+X_MOE = (2, 4096)  # batch (train_4k's 256 cut to 2), sequence
+X_DROP_CF = 0.5  # X4's second run: a capacity factor that drops slots
+
+
+def _x_tokens(d: int, dev):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(X_SEED + 100)
+    return torch.randn((*X_MOE, d), generator=gen, device=dev)
+
+
+def _x_moe_globals(cfg, dev) -> dict:
+    """Router, selection bias and shared expert, the same on every rank."""
+    import math
+
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(X_SEED + 101)
+    d, e, fs = cfg.d_model, cfg.n_routed_experts, cfg.moe_d_ff * cfg.n_shared_experts
+    return {
+        "router": torch.randn((d, e), generator=gen, device=dev) / math.sqrt(d),
+        "bias": 0.05 * torch.randn(e, generator=gen, device=dev),
+        "shared_gate": torch.randn((d, fs), generator=gen, device=dev) / math.sqrt(d),
+        "shared_up": torch.randn((d, fs), generator=gen, device=dev) / math.sqrt(d),
+        "shared_down": torch.randn((fs, d), generator=gen, device=dev) / math.sqrt(fs),
+    }
+
+
+def _x_expert(cfg, e: int, dev):
+    """Routed expert ``e``'s (w_gate, w_up, w_down), from its own generator."""
+    import math
+
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(X_SEED * 1_000_003 + e)
+    d, f = cfg.d_model, cfg.moe_d_ff
+    return (torch.randn((d, f), generator=gen, device=dev) / math.sqrt(d),
+            torch.randn((d, f), generator=gen, device=dev) / math.sqrt(d),
+            torch.randn((f, d), generator=gen, device=dev) / math.sqrt(f))
+
+
+def _x_kernel_launches() -> int:
+    """Launches of every kernel of the repo in this process."""
+    import importlib
+
+    total = 0
+    for mod, attrs in (("membership", ("KERNEL",)), ("bitset", ("KERNEL",)),
+                       ("guided_search", ("KERNEL",)), ("plm_decode", ("KERNEL",)),
+                       ("pfor", ("KERNEL",)), ("bm25_score", ("KERNEL",)),
+                       ("fused_query", ("KERNEL",)), ("two_tier", ("KERNEL",)),
+                       ("mlp_membership", ("KERNEL", "MASKED", "TWO_TIER"))):
+        m = importlib.import_module(f"repro_torch.kernels.{mod}.kernel")
+        total += sum(getattr(m, a).launches for a in attrs)
+    from repro_torch.kernels.fused_query import dense
+
+    return total + dense.launches
+
+
+def _x_rank(rank: int, world: int, out_dir: str, backend: str) -> None:
+    """One rank of phase X's world: X1-X4 (and, on NCCL, the DTensor train
+    step), its numbers written to ``x_rank<r>.json``, X4's output by rank 0."""
+    import math
+
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.common.sharding import concrete_mesh, mesh_context
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import (collective_matmul_ag, compressed_allreduce,
+                                         make_pipeline_fn, matmul_reduce_scatter)
+    from repro_torch.distributed.comm import HOST, all_gather
+    from repro_torch.models import moe
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res: dict = {"rank": rank, "backend": backend}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    def gen(seed: int):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    flat = concrete_mesh((world,), ("data",))
+
+    # X1: collective matmuls at deepseek-v3's dense-FFN width
+    m, k, n = X_FFN
+    g = gen(X_SEED)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)
+    kl, nl = k // world, n // world
+    want = x @ w[:, rank * nl:(rank + 1) * nl]
+    x_sh = x[:, rank * kl:(rank + 1) * kl].contiguous()
+    HOST.reset()
+    ag, ag_s = timed(lambda: collective_matmul_ag(
+        x_sh, w[:, rank * nl:(rank + 1) * nl].contiguous(), "data", flat))
+    ag_bytes = HOST.bytes
+    HOST.reset()
+    rs, rs_s = timed(lambda: matmul_reduce_scatter(
+        x_sh, w[rank * kl:(rank + 1) * kl].contiguous(), "data", flat))
+    res["X1"] = {"shape": [m, k, n], "ag_rel_err": rel(ag, want), "rs_rel_err": rel(rs, want),
+                 "ag_s": ag_s, "rs_s": rs_s, "host_bytes": ag_bytes + HOST.bytes}
+    del x, w, want, x_sh, ag, rs
+    torch.cuda.empty_cache()
+
+    # X2: int8 ring all-reduce of 64M fp32 a rank
+    mine = torch.randn(X_CAR, generator=gen(X_SEED + 1 + rank), device=dev)
+    HOST.reset()
+    out, car_s = timed(lambda: compressed_allreduce({"g": mine}, flat, "data")["g"])
+    car_bytes = HOST.bytes
+    del mine
+    exact = torch.zeros(X_CAR, device=dev)
+    for r in range(world):
+        exact += torch.randn(X_CAR, generator=gen(X_SEED + 1 + r), device=dev)
+    err = rel(out, exact)
+    del exact
+    parts = all_gather(out[None].view(torch.int32), "data", mesh=flat)
+    same = all(torch.equal(parts[r], parts[0]) for r in range(world))
+    res["X2"] = {"elements": X_CAR, "rel_err": err, "same_bits_on_every_rank": same,
+                 "s": car_s, "host_bytes": car_bytes}
+    del out, parts
+    torch.cuda.empty_cache()
+
+    # X3: GPipe over 4 stages of tanh(x @ W_s)
+    stages, d, micro, rows = X_PIPE
+    g = gen(X_SEED + 2)
+    ws = torch.randn((stages, d, d), generator=g, device=dev) / math.sqrt(d)
+    xs = torch.randn((micro, rows, d), generator=g, device=dev)
+    pmesh = concrete_mesh((world,), ("pipe",))
+    pf = make_pipeline_fn(lambda wp, h: torch.tanh(h @ wp), pmesh, stages)
+    HOST.reset()
+    got, pipe_s = timed(lambda: pf(ws, xs))
+    seq = []
+    for i in range(micro):  # microbatch by microbatch: the pipeline's products
+        h = xs[i]
+        for s in range(stages):
+            h = torch.tanh(h @ ws[s])
+        seq.append(h)
+    seq = torch.stack(seq)
+    res["X3"] = {"max_abs_err": float((got - seq).abs().max()), "s": pipe_s,
+                 "host_bytes": HOST.bytes}
+    del got, seq
+    # X3's backward: gradients of sum(y * cot) by the reverse schedule
+    # against autograd through the sequential product
+    cot = torch.randn((micro, rows, d), generator=g, device=dev)
+    w_p, x_p = ws.clone().requires_grad_(), xs.clone().requires_grad_()
+    HOST.reset()
+    _, back_s = timed(lambda: (pf(w_p, x_p) * cot).sum().backward())
+    w_q, x_q = ws.clone().requires_grad_(), xs.clone().requires_grad_()
+    for i in range(micro):  # microbatch by microbatch: the pipeline's products
+        h = x_q[i]
+        for s in range(stages):
+            h = torch.tanh(h @ w_q[s])
+        (h * cot[i]).sum().backward()
+    res["X3"].update({"grad_rel_err": max(rel(w_p.grad, w_q.grad), rel(x_p.grad, x_q.grad)),
+                      "backward_s": back_s, "backward_host_bytes": HOST.bytes})
+    del ws, xs, cot, w_p, x_p, w_q, x_q, h
+    torch.cuda.empty_cache()
+
+    # X4: deepseek-v3's routed experts over (data 2, model 2), 64 a rank
+    cfg = get_arch("deepseek-v3-671b")[0]
+    mesh = concrete_mesh((2, 2), ("data", "model"))
+    t0 = time.perf_counter()
+    e_loc = cfg.n_routed_experts // world
+    d, f = cfg.d_model, cfg.moe_d_ff
+    local = [torch.empty((e_loc, *shape), device=dev) for shape in ((d, f), (d, f), (f, d))]
+    for i in range(e_loc):  # this rank's experts only, drawn one by one
+        for dst, w_e in zip(local, _x_expert(cfg, rank * e_loc + i, dev)):
+            dst[i] = w_e
+    params = _x_moe_globals(cfg, dev)
+    for name, w_loc in zip(("w_gate", "w_up", "w_down"), local):
+        params[name] = DTensor.from_local(w_loc, mesh, (Shard(0), Shard(0)), run_check=False)
+    del local
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    x = _x_tokens(cfg.d_model, dev)
+    weight_bytes = sum(params[nm].to_local().numel() * 4 for nm in ("w_gate", "w_up", "w_down"))
+    torch.cuda.reset_peak_memory_stats()
+    HOST.reset()
+    with mesh_context(mesh):
+        y, moe_s = timed(lambda: moe.moe_dispatch(params, cfg, x))
+    res["X4"] = {"draw_s": draw_s, "s": moe_s, "host_bytes": HOST.bytes,
+                 "host_calls": HOST.calls, "weight_bytes": weight_bytes,
+                 "peak_bytes": torch.cuda.max_memory_allocated()}
+    if HOST.bytes == 0 and backend == "gloo":
+        raise AssertionError("X4 moved nothing through the host: the all-to-all path did not run")
+    with mesh_context(mesh):  # again at a capacity that drops slots
+        y_drop, drop_s = timed(lambda: moe.moe_dispatch(
+            params, cfg.replace(moe_capacity_factor=X_DROP_CF), x))
+    res["X4"]["drop_s"] = drop_s
+    if rank == 0:
+        torch.save({"y": y.cpu(), "y_drop": y_drop.cpu()}, os.path.join(out_dir, "x4_y.pt"))
+    del params, x, y, y_drop
+    torch.cuda.empty_cache()
+
+    if backend == "nccl":
+        res["train"] = _x_train_step(rank, dev)
+    res["kernel_launches"] = _x_kernel_launches()
+    with open(os.path.join(out_dir, f"x_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _x_train_step(rank: int, dev) -> dict:
+    """Reduced gemma2-2b, one AdamW step (fp32 compute) on a (2, 2) DTensor
+    mesh by the production rules, against the one-process step on this card."""
+    import torch
+
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.common.sharding import concrete_mesh
+    from repro_torch.configs import get_arch, reduce_config
+    from repro_torch.launch.mesh import sharded_step_vs_one_process
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import make_train_step
+
+    rc = reduce_config(get_arch("gemma2-2b")[0]).replace(d_model=64, n_heads=4, head_dim=16)
+    cell = build_cell(rc, ShapeSpec(name="t", kind="train", seq_len=32, global_batch=8))
+    step = make_train_step(lambda m, b: tf.lm_loss(m, rc, b, compute_dtype=torch.float32,
+                                                   remat="dots"), cell.opt_cfg)
+    gen = torch.Generator(device=dev).manual_seed(X_SEED + 3)
+    batch = {k: torch.randint(0, rc.vocab_size, (8, 32), generator=gen, device=dev,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    return sharded_step_vs_one_process(cell, step, cell.opt_cfg, cell.init_fn(0, dev), batch,
+                                       concrete_mesh((2, 2), ("data", "model")))
+
+
+def _x_world(backend: str, out_dir: Path) -> list[dict]:
+    from repro_torch.distributed.comm import run_world
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    run_world(_x_rank, X_RANKS, str(out_dir), backend, backend=backend, timeout_s=1200.0)
+    ranks = [json.loads((out_dir / f"x_rank{r}.json").read_text()) for r in range(X_RANKS)]
+    for r in ranks:
+        x1, x2, x3 = r["X1"], r["X2"], r["X3"]
+        if max(x1["ag_rel_err"], x1["rs_rel_err"]) > 1e-4:
+            raise AssertionError(f"X1 ({backend}) rank {r['rank']}: {x1}")
+        if not x2["same_bits_on_every_rank"] or x2["rel_err"] >= 5e-2:
+            raise AssertionError(f"X2 ({backend}) rank {r['rank']}: {x2}")
+        if x3["max_abs_err"] > 1e-5 or x3["grad_rel_err"] > 1e-5:
+            raise AssertionError(f"X3 ({backend}) rank {r['rank']}: {x3}")
+        if r["kernel_launches"]:
+            raise AssertionError(f"X ({backend}) rank {r['rank']} launched the repo's kernels")
+        if "train" in r:
+            tr = r["train"]
+            for k in ("loss", "grad_norm"):
+                if abs(tr[k][0] - tr[k][1]) > 1e-5 * abs(tr[k][1]):
+                    raise AssertionError(f"X train ({backend}) rank {r['rank']}: {tr}")
+            for name, v in tr["leaves"].items():
+                if v["grad_diff"] > 1e-5 * v["grad_max"] or v["param_diff"] > 0.05 * tr["lr"]:
+                    raise AssertionError(f"X train ({backend}) rank {r['rank']} {name}: {v}")
+    return ranks
+
+
+def _x_check_moe(dev, out_dir: Path) -> dict:
+    """X4 against ``moe_a2a_ref`` in this process, every token, one expert
+    drawn at a time, with the shared expert written out here: 1e-5 + 1e-4
+    relative, at the config's capacity factor and at one that drops."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe_a2a import a2a_capacity, moe_a2a_ref
+
+    cfg = get_arch("deepseek-v3-671b")[0]
+    got = torch.load(out_dir / "x4_y.pt")
+    x = _x_tokens(cfg.d_model, dev)
+    glob = _x_moe_globals(cfg, dev)
+    shared = (F.silu(x @ glob["shared_gate"]) * (x @ glob["shared_up"])) @ glob["shared_down"]
+    out = {"drop_capacity_factor": X_DROP_CF}
+    for key, cf in (("y", cfg.moe_capacity_factor), ("y_drop", X_DROP_CF)):
+        t0 = time.perf_counter()
+        routed, dropped = moe_a2a_ref(x, glob["router"], glob["bias"],
+                                      lambda e: _x_expert(cfg, e, dev),
+                                      cfg.replace(moe_capacity_factor=cf), 2, 2)
+        want = routed + shared
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        err = (got[key].to(dev) - want).abs()
+        over = int((err > 1e-5 + 1e-4 * want.abs()).sum())
+        if over:
+            raise AssertionError(f"X4 ({key}): {over} outputs differ from moe_a2a_ref beyond "
+                                 f"1e-5 + 1e-4 rel")
+        if key == "y_drop" and not 0.0 < dropped < 1.0:
+            raise AssertionError(f"X4: capacity factor {cf} dropped a share of {dropped}")
+        tag = "" if key == "y" else "drop_"
+        out.update({f"{tag}max_abs_err": float(err.max()),
+                    f"{tag}max_abs_out": float(want.abs().max()),
+                    f"{tag}dropped_share": dropped, f"{tag}ref_s": ref_s})
+    cap = a2a_capacity(cfg, X_MOE[0] * X_MOE[1] // X_RANKS, X_RANKS)  # the send buffers'
+    out.update({"capacity": cap, "send_buffer_bytes": X_RANKS * (cap + 1) * cfg.d_model * 4})
+    return out
+
+
+def phase_x(dev) -> dict:
+    """Phase X: the mesh world, 4 ranks on the card over gloo (each
+    collective through host memory), then on NCCL where there are 4 cards."""
+    import torch
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "phase_x"
+    ranks = _x_world("gloo", out_dir)
+    moe_check = _x_check_moe(dev, out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    worst = {k: max(r[k][f] for r in ranks) for k, f in
+             (("X1", "ag_rel_err"), ("X2", "rel_err"), ("X3", "max_abs_err"))}
+    result = {
+        "phase": "X", "world": X_RANKS, "backend": "gloo", "passed": ["X1", "X2", "X3", "X4"],
+        "transport": "one card: gloo moves CUDA tensors through host memory (copied out and "
+                     "back by the comm helpers); times are the host transport's, not the card's",
+        "X1": {"shape": ranks[0]["X1"]["shape"], "worst_rel_err": worst["X1"],
+               "ag_s": [r["X1"]["ag_s"] for r in ranks], "rs_s": [r["X1"]["rs_s"] for r in ranks],
+               "host_bytes": [r["X1"]["host_bytes"] for r in ranks]},
+        "X2": {"elements": X_CAR, "worst_rel_err": worst["X2"], "same_bits": True,
+               "s": [r["X2"]["s"] for r in ranks],
+               "host_bytes": [r["X2"]["host_bytes"] for r in ranks]},
+        "X3": {"shape": list(X_PIPE), "worst_max_abs_err": worst["X3"],
+               "s": [r["X3"]["s"] for r in ranks],
+               "host_bytes": [r["X3"]["host_bytes"] for r in ranks],
+               "worst_grad_rel_err": max(r["X3"]["grad_rel_err"] for r in ranks),
+               "backward_s": [r["X3"]["backward_s"] for r in ranks],
+               "backward_host_bytes": [r["X3"]["backward_host_bytes"] for r in ranks]},
+        "X4": {"arch": "deepseek-v3-671b", "tokens": list(X_MOE),
+               "cut": "train_4k's batch of 256 cut to 2",
+               "draw_s": [r["X4"]["draw_s"] for r in ranks], "s": [r["X4"]["s"] for r in ranks],
+               "drop_s": [r["X4"]["drop_s"] for r in ranks],
+               "host_bytes": [r["X4"]["host_bytes"] for r in ranks],
+               "weight_bytes": [r["X4"]["weight_bytes"] for r in ranks],
+               "peak_bytes": [r["X4"]["peak_bytes"] for r in ranks], **moe_check},
+        "kernel_launches": 0,
+    }
+    if torch.cuda.device_count() >= X_RANKS:
+        nccl = _x_world("nccl", out_dir)
+        result["nccl"] = {
+            "X1_worst_rel_err": max(max(r["X1"]["ag_rel_err"], r["X1"]["rs_rel_err"])
+                                    for r in nccl),
+            "X2_worst_rel_err": max(r["X2"]["rel_err"] for r in nccl),
+            "X3_worst_max_abs_err": max(r["X3"]["max_abs_err"] for r in nccl),
+            "X3_worst_grad_rel_err": max(r["X3"]["grad_rel_err"] for r in nccl),
+            "X4_s": [r["X4"]["s"] for r in nccl], "X1_ag_s": [r["X1"]["ag_s"] for r in nccl],
+            "X2_s": [r["X2"]["s"] for r in nccl], "X3_s": [r["X3"]["s"] for r in nccl],
+            "train": nccl[0]["train"], "X4": _x_check_moe(dev, out_dir)}
+        shutil.rmtree(out_dir, ignore_errors=True)
+    else:
+        result["nccl"] = (f"not run: {torch.cuda.device_count()} card(s); the NCCL world "
+                          f"needs {X_RANKS}, one rank a card")
+    result["seconds"] = time.perf_counter() - t0
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=528_000,
                     help="documents in phase A's collection (Robust04's 528k by default)")
-    ap.add_argument("--phases", default="ABRSQMKDCLGE",
+    ap.add_argument("--phases", default="ABRSQMKWDCLGEX",
                     help="phases to run (R and D need A; S and Q need A and R; M needs A, R "
-                         "and S; C needs A, B and R; L, the LM stack, G, the GNN, and E, "
-                         "the recsys family, need none)")
+                         "and S; C needs A, B and R; W, the learned index at ClueWeb09B "
+                         "scale, L, the LM stack, G, the GNN, E, the recsys family, and X, "
+                         "the mesh world, need none)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory that holds the repro_torch package to drive")
     args = ap.parse_args()
@@ -2814,7 +3397,8 @@ def main() -> int:
                           ("S", lambda: phase_s(dev, launches, clock, keep)),
                           ("Q", lambda: phase_q(dev, keep)),
                           ("M", lambda: phase_m(dev, launches, keep)),
-                          ("K", lambda: phase_k(dev))):
+                          ("K", lambda: phase_k(dev)),
+                          ("W", lambda: phase_w(dev))):
             if name not in phases:
                 continue
             for k in kernels.values():
@@ -2839,7 +3423,8 @@ def main() -> int:
                          ("Q", ("membership", "bitset", "bm25_score")),
                          ("M", ("mlp_membership", "mlp_membership_masked", "mlp_two_tier",
                                 "bitset", "pfor")),
-                         ("K", ("membership", "bitset"))):
+                         ("K", ("membership", "bitset")),
+                         ("W", ("membership", "bitset"))):
         for n in names:
             if phase in counts and n in counts[phase] and counts[phase][n] == 0:
                 raise AssertionError(f"{n} did not launch on its path (phase {phase})")
@@ -2855,12 +3440,12 @@ def main() -> int:
         emit({"phase": "C", "kernels": [r["name"] for r in rows], "launches": total})
         emit({"phase": "C_dense", "rows": [r for r in rows if r["name"] == "dense_topk"],
               "dense_passes": sum(passes.values())})
-    if {"L", "G", "E"} & phases:
+    if {"L", "G", "E", "X"} & phases:
         # the earlier phases' engines and kept inputs leave the card first
         keep.clear()
         for kept in (rec.inputs, rec.kwargs, rec.second):
             kept.clear()
-    for name, run in (("L", phase_l), ("G", phase_g), ("E", phase_e)):
+    for name, run in (("L", phase_l), ("G", phase_g), ("E", phase_e), ("X", phase_x)):
         if name not in phases:
             continue
         _free()
@@ -2869,6 +3454,7 @@ def main() -> int:
         result["launches"] = {n: c - before[n] for n, c in launches().items()}
         result["dense_passes"] = dense.launches - dense_before
         # the reference computes these paths in XLA ops: no kernel of the repo is on them
+        # (phase X's ranks assert their own counts)
         assert not any(result["launches"].values()) and not result["dense_passes"], result
         emit(result)
     if rows is not None:

@@ -6,7 +6,13 @@
     ``os.rename`` to ``<dir>/step_<n>``: a crash mid-write never corrupts
     the latest checkpoint;
   * restore reads the leaves host-side and places them on ``device`` (or
-    beside the leaf of ``like`` they replace);
+    beside the leaf of ``like`` they replace), or lays them out on a device
+    mesh by ``shardings`` (a matching tree of ``NamedSharding``): the mesh
+    may differ from the one the checkpoint was written from (elastic
+    scale up/down = reshard on load);
+  * in a ``torch.distributed`` world every rank calls ``save_checkpoint``
+    (a DTensor leaf is gathered whole, which is collective), rank 0 writes,
+    and the others wait for it;
   * keep_last garbage-collects old steps, newest-first retention.
 
 A tree is a state dict, or nested dicts, lists, tuples and dataclasses
@@ -49,14 +55,15 @@ def _children(tree: Any) -> list[tuple[str, Any]]:
     raise TypeError(f"not a checkpoint tree node: {type(tree).__name__}")
 
 
-def _flatten_with_paths(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
+def _flatten_with_paths(tree: Any, prefix: str = "", leaf: type | None = None
+                        ) -> Iterator[tuple[str, Any]]:
     if tree is None:
         return
-    if _is_leaf(tree):
+    if _is_leaf(tree) or (leaf is not None and isinstance(tree, leaf)):
         yield prefix, tree
         return
     for name, child in _children(tree):
-        yield from _flatten_with_paths(child, f"{prefix}/{name}" if prefix else name)
+        yield from _flatten_with_paths(child, f"{prefix}/{name}" if prefix else name, leaf)
 
 
 def _rebuild(like: Any, leaves: Iterator[Any]) -> Any:
@@ -76,8 +83,18 @@ def _rebuild(like: Any, leaves: Iterator[Any]) -> Any:
     return type(like)(kids)
 
 
+def _world() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
 def _to_host(leaf: Any) -> tuple[bytes, list[int], str]:
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu().contiguous()
         name = _NAMES[t.dtype]
         if t.dtype == torch.bfloat16:
@@ -109,12 +126,24 @@ def _from_host(raw: bytes, shape: list[int], name: str, like: Any, device) -> An
 
 def save_checkpoint(directory: str, step: int, tree: Any, *, extra: dict | None = None) -> str:
     flat = list(_flatten_with_paths(tree))
-    tmp = os.path.join(directory, f"tmp.{step}.{os.getpid()}")
     final = os.path.join(directory, f"step_{step:08d}")
-    os.makedirs(tmp, exist_ok=True)
     # store raw bytes: numpy's npz cannot represent bf16 — the dtype lives
     # in the manifest and the bytes are reinterpreted on restore
     host = [_to_host(leaf) for _, leaf in flat]
+    if _world():
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            _write(directory, step, flat, host, extra)
+        dist.barrier()
+        return final
+    return _write(directory, step, flat, host, extra)
+
+
+def _write(directory: str, step: int, flat: list, host: list, extra: dict | None) -> str:
+    tmp = os.path.join(directory, f"tmp.{step}.{os.getpid()}")
+    final = os.path.join(directory, f"step_{step:08d}")
+    os.makedirs(tmp, exist_ok=True)
     np.savez(os.path.join(tmp, "shards.npz"),
              **{f"leaf_{i}": np.frombuffer(raw, dtype=np.uint8) for i, (raw, _, _) in enumerate(host)})
     manifest = {
@@ -144,11 +173,15 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore_checkpoint(directory: str, step: int, like: Any, *,
-                       device: str | torch.device | None = None) -> Any:
+                       device: str | torch.device | None = None, shardings: Any = None) -> Any:
     """Restore into the structure of ``like``.  Tensor leaves (and every bf16
     leaf) come back as tensors on ``device``, or on the device of the leaf of
     ``like`` they replace when ``device`` is None; numpy leaves as numpy
-    arrays, Python numbers as Python numbers.  Dtypes are the checkpoint's."""
+    arrays, Python numbers as Python numbers.  Dtypes are the checkpoint's.
+
+    With ``shardings`` (a tree matching ``like`` of ``NamedSharding``), each
+    leaf is read on the host and distributed by its placements over its
+    mesh, whatever mesh it was saved from (every rank reads the file)."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -162,6 +195,17 @@ def restore_checkpoint(directory: str, step: int, like: Any, *,
             _from_host(data[f"leaf_{i}"].tobytes(), shp, dt, like_leaves[i], dev)
             for i, (dt, shp) in enumerate(zip(manifest["dtypes"], manifest["shapes"]))
         ]
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.common.sharding import NamedSharding
+
+        placed = [s for _, s in _flatten_with_paths(shardings, leaf=NamedSharding)]
+        if len(placed) != n:
+            raise ValueError(f"{len(placed)} shardings for {n} leaves")
+        leaves = [distribute_tensor(torch.as_tensor(leaf).to(sh.mesh.device_type), sh.mesh,
+                                    sh.placements)
+                  for leaf, sh in zip(leaves, placed)]
     return _rebuild(like, iter(leaves))
 
 
@@ -176,12 +220,13 @@ class CheckpointManager:
         self._gc()
         return out
 
-    def restore_latest(self, like: Any, device: str | torch.device | None = None
-                       ) -> tuple[int, Any] | None:
+    def restore_latest(self, like: Any, device: str | torch.device | None = None,
+                       shardings: Any = None) -> tuple[int, Any] | None:
         step = latest_step(self.directory)
         if step is None:
             return None
-        return step, restore_checkpoint(self.directory, step, like, device=device)
+        return step, restore_checkpoint(self.directory, step, like, device=device,
+                                        shardings=shardings)
 
     def _gc(self):
         steps = sorted(

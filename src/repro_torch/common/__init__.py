@@ -1,6 +1,6 @@
 """Configs and small helpers shared by every layer of the port (the
-reference's mesh-placement helpers wait for the distributed slice; the
-logical sharding rules are in ``common.sharding``)."""
+logical sharding rules and their placement on a device mesh are in
+``common.sharding``)."""
 from repro_torch.common.config import (
     ArchConfig,
     LearnedIndexConfig,

@@ -1,18 +1,32 @@
-"""Logical-axis sharding rules, MaxText-style: the rules half of the
-reference's ``common/sharding.py``.
+"""Logical-axis sharding rules, MaxText-style, and their placement on a
+``torch.distributed`` device mesh: the reference's ``common/sharding.py``.
 
 Every parameter and activation is annotated with *logical* axis names; a
 rules table maps logical names to mesh axes per mesh.  The rules run over a
-``MeshSpec``, a plain description of axis names and sizes (the counterpart
-of the reference's ``abstract_mesh``); a spec is a tuple with one entry a
-dimension: a mesh-axis name, a tuple of names, or ``None`` (replicated).
-Placing tensors on a real mesh waits for the distributed slice; in one
-process ``constrain`` is the identity, as the reference's is on one device.
+``MeshSpec`` (a plain description of axis names and sizes, the counterpart
+of the reference's ``abstract_mesh``: planning needs no world) or over a
+``DeviceMesh``; a spec is a tuple with one entry a dimension: a mesh-axis
+name, a tuple of names, or ``None`` (replicated).
+
+The mesh half maps the reference's JAX pieces onto ``torch.distributed``:
+``concrete_mesh`` builds a ``DeviceMesh`` over an initialised process group,
+``mesh_context``/``current_mesh`` hold the ambient mesh (``jax.set_mesh`` /
+``get_abstract_mesh``), ``axis_index`` is the rank's coordinate on a mesh
+dimension (``lax.axis_index``), a spec becomes DTensor placements
+(``Shard(d)`` / ``Replicate()`` per mesh dimension), and ``shard_map`` runs a
+function on each rank's blocks of global inputs.  A tensor dimension split
+over several mesh axes is split outer axis first, as JAX's
+``P(("data", "model"))`` is.
 """
 from __future__ import annotations
 
+import math
+from contextlib import contextmanager
+from contextvars import ContextVar
 from dataclasses import dataclass
-from typing import Any, Mapping, Sequence
+from typing import Any, Callable, Mapping, NamedTuple, Sequence
+
+import torch
 
 # logical axis -> mesh axis (or tuple of mesh axes, or None = replicated)
 # "batch" folds pod+data so multi-pod meshes scale batch across pods.
@@ -45,6 +59,14 @@ DEFAULT_RULES: dict[str, Any] = {
 Spec = tuple  # one entry a dim: a mesh-axis name, a tuple of names, or None
 
 
+class NamedSharding(NamedTuple):
+    """A layout on a device mesh: one DTensor placement per mesh dimension
+    (the counterpart of JAX's ``NamedSharding(mesh, spec)``)."""
+
+    mesh: Any
+    placements: tuple
+
+
 @dataclass(frozen=True)
 class MeshSpec:
     """Axis names and sizes of a device mesh, with no devices behind it."""
@@ -66,10 +88,135 @@ def abstract_mesh(shape: Sequence[int], names: Sequence[str]) -> MeshSpec:
     return MeshSpec(tuple(names), tuple(int(s) for s in shape))
 
 
-def resolve_axis(logical: str | None, mesh: MeshSpec, rules: Mapping[str, Any] | None = None) -> Any:
+def concrete_mesh(shape: Sequence[int], names: Sequence[str], *, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of the given shape over the initialised world, rank
+    ``r`` at row-major position ``r``, its dimensions named ``names``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if len(shape) != len(names):
+        raise ValueError(f"shape {tuple(shape)} and names {tuple(names)} must align")
+    if not dist.is_initialized():
+        raise RuntimeError("concrete_mesh: initialise the process group first")
+    n = math.prod(shape)
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {tuple(shape)} mesh needs a world of {n}, not {dist.get_world_size()}")
+    return DeviceMesh(device_type, torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(names))
+
+
+_AMBIENT: ContextVar = ContextVar("repro_torch_mesh", default=None)
+
+
+@contextmanager
+def mesh_context(mesh):
+    """``with mesh_context(mesh):`` makes ``mesh`` the ambient mesh.  Under
+    a ``DeviceMesh`` a plain tensor that meets a DTensor (a position range,
+    a mask the model makes) acts as replicated on it (DTensor's
+    ``implicit_replication``)."""
+    token = _AMBIENT.set(mesh)
+    try:
+        if isinstance(mesh, MeshSpec):
+            yield mesh
+        else:
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            with implicit_replication():
+                yield mesh
+    finally:
+        _AMBIENT.reset(token)
+
+
+def current_mesh():
+    """The ambient mesh (a ``DeviceMesh`` or ``MeshSpec``), or None."""
+    return _AMBIENT.get()
+
+
+def as_spec(mesh) -> MeshSpec:
+    """A ``MeshSpec`` of a ``DeviceMesh`` (a ``MeshSpec`` unchanged)."""
+    if isinstance(mesh, MeshSpec):
+        return mesh
+    return MeshSpec(tuple(mesh.mesh_dim_names), tuple(int(s) for s in mesh.shape))
+
+
+def mesh_size(mesh) -> int:
+    return math.prod(as_spec(mesh).axis_sizes)
+
+
+def _axes(axis: str | Sequence[str]) -> tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def axis_size(axis: str | Sequence[str], mesh=None) -> int:
+    """Ranks along a mesh axis (or the product over several) of ``mesh``,
+    the ambient mesh by default."""
+    sizes = as_spec(mesh if mesh is not None else current_mesh()).shape
+    return math.prod(sizes[a] for a in _axes(axis))
+
+
+def axis_index(axis: str | Sequence[str], mesh=None) -> int:
+    """This rank's coordinate along a mesh axis, ``lax.axis_index``; over
+    several axes, their coordinates flattened outer axis first."""
+    mesh = mesh if mesh is not None else current_mesh()
+    coord = mesh.get_coordinate()
+    names = list(mesh.mesh_dim_names)
+    idx = 0
+    for a in _axes(axis):
+        d = names.index(a)
+        idx = idx * int(mesh.shape[d]) + int(coord[d])
+    return idx
+
+
+def pvary(x, axis_names):
+    """Marking a value as varying over axes: the identity here, where every
+    rank's tensor is its own (JAX's type system needs the mark)."""
+    return x
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None))) for a in x)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any, is_leaf: Callable | None = None) -> Any:
+    """Map ``fn`` over the leaves of mappings, lists and tuples (NamedTuples
+    and dataclass instances kept as leaves unless ``is_leaf`` says so), with
+    matching ``rest`` trees alongside."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, Mapping):
+        return type(tree)((k, tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf))
+                          for k in tree)
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf)
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """A spec -> one DTensor placement per mesh dimension: ``Shard(d)`` on
+    each mesh axis tensor dimension ``d`` is split over, ``Replicate()``
+    elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(as_spec(mesh).axis_names)
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        dims = [names.index(a) for a in _axes(entry)]
+        if dims != sorted(dims):  # DTensor splits by mesh dimension, outer first
+            raise ValueError(f"axes {entry} of {spec} must come in the mesh's order {names}")
+        for a in _axes(entry):
+            if not isinstance(out[names.index(a)], Replicate):
+                raise ValueError(f"mesh axis {a!r} used twice in {spec}")
+            out[names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+def resolve_axis(logical: str | None, mesh, rules: Mapping[str, Any] | None = None) -> Any:
     rules = rules or DEFAULT_RULES
     target = rules.get(logical, None)
-    names = set(mesh.axis_names)
+    names = set(as_spec(mesh).axis_names)
     if target is None:
         return None
     if isinstance(target, tuple):
@@ -83,7 +230,7 @@ def resolve_axis(logical: str | None, mesh: MeshSpec, rules: Mapping[str, Any] |
 def spec_for_shape(
     logical_axes: Sequence[str | None],
     shape: Sequence[int],
-    mesh: MeshSpec,
+    mesh,
     rules: Mapping[str, Any] | None = None,
 ) -> Spec:
     """Divisibility-aware spec: mesh axes that don't divide a dim are dropped
@@ -91,7 +238,7 @@ def spec_for_shape(
     first dim that claims it wins) — e.g. MQA's kv_heads=1 falls back to
     replicated, and MoE ('experts','embed','mlp') keeps experts on `model`
     and drops mlp's claim."""
-    sizes = mesh.shape
+    sizes = as_spec(mesh).shape
     used: set[str] = set()
     entries: list[Any] = []
     for ax, dim in zip(logical_axes, shape):
@@ -118,13 +265,154 @@ def spec_for_shape(
 
 def partition_spec(
     logical_axes: Sequence[str | None],
-    mesh: MeshSpec,
+    mesh,
     rules: Mapping[str, Any] | None = None,
 ) -> Spec:
     return tuple(resolve_axis(ax, mesh, rules) for ax in logical_axes)
 
 
+def logical_to_sharding(
+    logical_axes: Sequence[str | None],
+    mesh,
+    rules: Mapping[str, Any] | None = None,
+) -> tuple:
+    """('batch', None, 'model') -> DTensor placements over ``mesh``."""
+    return placements(partition_spec(logical_axes, as_spec(mesh), rules), mesh)
+
+
+def sharding_for_shape(
+    logical_axes: Sequence[str | None],
+    shape: Sequence[int],
+    mesh,
+    rules: Mapping[str, Any] | None = None,
+) -> tuple:
+    """Divisibility-aware placements (``spec_for_shape``'s)."""
+    return placements(spec_for_shape(logical_axes, shape, as_spec(mesh), rules), mesh)
+
+
+def with_sharding(x, logical_axes: Sequence[str | None], mesh):
+    """Lay ``x`` out by logical axes: a DTensor is redistributed, a plain
+    tensor (the same global value on every rank) distributed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    pl = logical_to_sharding(logical_axes, mesh)
+    if isinstance(x, DTensor):
+        return x.redistribute(mesh, pl)
+    return distribute_tensor(x, mesh, pl)
+
+
+def shard_module(model: torch.nn.Module, param_axes: Mapping[str, tuple], mesh) -> torch.nn.Module:
+    """Replace every parameter of ``model`` (the same global values on every
+    rank) by a DTensor laid out by its logical axes, divisibility-aware
+    (``spec_for_shape``, as the dry run places them), in place."""
+    from torch.distributed.tensor import distribute_tensor
+
+    for name, p in list(model.named_parameters()):
+        pl = sharding_for_shape(param_axes[name], tuple(p.shape), mesh)
+        owner = model.get_submodule(name.rpartition(".")[0])
+        setattr(owner, name.rpartition(".")[2],
+                torch.nn.Parameter(distribute_tensor(p.detach(), mesh, pl)))
+    return model
+
+
+def shard_params(params: Any, axes_tree: Any, mesh) -> Any:
+    """Distribute a tree of (global) parameter tensors by a matching tree of
+    logical axes -> the same tree of DTensors."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return tree_map(lambda ax, p: distribute_tensor(p, mesh, logical_to_sharding(ax, mesh)),
+                    axes_tree, params, is_leaf=_is_axes)
+
+
+def sharding_tree(axes_tree: Any, mesh) -> Any:
+    """Logical-axes tree -> placements tree."""
+    return tree_map(lambda ax: logical_to_sharding(ax, mesh), axes_tree, is_leaf=_is_axes)
+
+
+def abstract_like(params: Any) -> Any:
+    """A tree of tensors -> the same tree of meta tensors (shape and dtype
+    only, the counterpart of ``jax.ShapeDtypeStruct``)."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
+
+
 def constrain(x, *logical_axes: str | None):
-    """Activation sharding constraint by logical axes: the identity in one
-    process, where there is no mesh to lay ``x`` out on."""
+    """Activation sharding constraint by logical axes on the ambient mesh:
+    the identity on a plain tensor, outside a mesh and on one rank; a
+    DTensor is redistributed to the divisibility-aware placements."""
+    if type(x) is torch.Tensor:  # the one-process path: nothing to look up
+        return x
+    from torch.distributed.tensor import DTensor
+
+    mesh = current_mesh()
+    if not isinstance(x, DTensor) or mesh is None or mesh_size(mesh) <= 1:
+        return x
+    # redistribute even to the same placements: the backward then lays the
+    # gradient out as the forward had it
+    return x.redistribute(x.device_mesh, sharding_for_shape(logical_axes, tuple(x.shape),
+                                                            x.device_mesh))
+
+
+def pin(x):
+    """The identity, whose backward lays a DTensor's gradient out as ``x``
+    is laid out (DTensor may shard a gradient where a later view of it
+    cannot split the dimension); the identity on a plain tensor."""
+    if type(x) is torch.Tensor:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    return x.redistribute(x.device_mesh, x.placements) if isinstance(x, DTensor) else x
+
+
+def _block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of a global tensor under ``spec``."""
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n, i = axis_size(entry, mesh), axis_index(entry, mesh)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of size {x.shape[d]} does not split {n} ways ({spec})")
+        blk = x.shape[d] // n
+        x = x.narrow(d, i * blk, blk)
     return x
+
+
+def shard_map(fn: Callable, mesh, in_specs: Sequence[Any], out_specs: Any) -> Callable:
+    """``fn`` on each rank's blocks, the reference's ``shard_map`` over
+    global inputs: every argument (a tensor, or a tree of them under one
+    spec) is the global value, sliced to this rank's block by its spec (a
+    DTensor is redistributed to the spec's placements and gives its local
+    tensor); each output is reassembled by its out spec with
+    ``all_gather``, and a replicated out spec returns this rank's own
+    value.
+
+    Gradients are those of the one global function: an output's gradient
+    must be the same on every rank, as its value is; a global input's is
+    summed over the mesh, and a DTensor input's is partial over the mesh
+    dimensions its spec replicates it on (``comm.mesh_input``,
+    ``comm.mesh_output``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.distributed.comm import mesh_input, mesh_output
+
+    def local(x, spec):
+        if isinstance(x, DTensor):
+            # resharded to the spec, as the reference's are (even to the same
+            # placements: the backward then lays the gradient out as x is)
+            want = placements(spec, mesh)
+            x = x.redistribute(x.device_mesh, want)
+            return x.to_local(grad_placements=tuple(
+                Partial() if isinstance(p, Replicate) else p for p in want))
+        if isinstance(x, torch.Tensor):
+            return _block(mesh_input(x, mesh) if x.requires_grad else x, spec, mesh)
+        return x
+
+    def run(*args):
+        if len(args) != len(in_specs):
+            raise ValueError(f"{len(args)} arguments, {len(in_specs)} in_specs")
+        blocks = [tree_map(lambda x, s=s: local(x, s), a) for a, s in zip(args, in_specs)]
+        out = fn(*blocks)
+        if _is_axes(out_specs):
+            return tree_map(lambda y: mesh_output(y, out_specs, mesh), out)
+        return tree_map(lambda y, s: mesh_output(y, s, mesh), out, out_specs)
+
+    return run

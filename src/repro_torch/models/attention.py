@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.common import nn
 from repro_torch.common.config import ArchConfig
-from repro_torch.common.sharding import constrain
+from repro_torch.common.sharding import constrain, pin
 
 NEG_INF = -2.0e38
 
@@ -64,16 +64,23 @@ def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int | None = N
 
 
 # ------------------------------------------------------------------ products
+def _flat(y: torch.Tensor) -> torch.Tensor:
+    """``y`` (B, ...) sharded over the batch only, so that a view can split
+    its head dimension (a DTensor view cannot split a dimension sharded
+    unevenly over the group it splits into): the identity off a mesh."""
+    return constrain(y, "batch", *(None,) * (y.dim() - 1))
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, D) @ w (D, H, K) -> (B, S, H, K), one 2-D product."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    return _flat(x @ pin(w.to(x.dtype).reshape(d, h * k))).reshape(*x.shape[:-1], h, k)
 
 
 def _unproj(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """y (B, S, H, K) @ w (H, K, D) -> (B, S, D), one 2-D product."""
     h, k, d = w.shape
-    return y.reshape(*y.shape[:-2], h * k) @ w.to(y.dtype).reshape(h * k, d)
+    return pin(_flat(y).reshape(*y.shape[:-2], h * k)) @ pin(w.to(y.dtype).reshape(h * k, d))
 
 
 # ------------------------------------------------------------------ GQA
@@ -107,7 +114,7 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor, n_rep: int) -> torch.Tensor:
     """q: (B,Sq,Hq,hd), k: (B,Sk,Hkv,hd) -> (B,Hq,Sq,Sk) fp32, without kv repeat."""
     b, sq, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    qg = q.reshape(b, sq, hkv, n_rep, hd)
+    qg = _flat(q).reshape(b, sq, hkv, n_rep, hd)
     sc = torch.einsum("bsgrh,btgh->bgrst", qg.float(), k.float())
     return sc.reshape(b, hq, sq, sk)
 
@@ -115,7 +122,7 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor, n_rep: int) -> torch.Tensor:
 def _gqa_out(probs: torch.Tensor, v: torch.Tensor, n_rep: int) -> torch.Tensor:
     b, hq, sq, sk = probs.shape
     hkv = v.shape[2]
-    pg = probs.reshape(b, hkv, n_rep, sq, sk)
+    pg = _flat(probs).reshape(b, hkv, n_rep, sq, sk)
     out = torch.einsum("bgrst,btgh->bsgrh", pg, v.to(probs.dtype))
     return out.reshape(b, sq, hq, v.shape[3])
 

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.common import nn
 from repro_torch.common.config import ArchConfig
-from repro_torch.common.sharding import constrain
+from repro_torch.common.sharding import as_spec, constrain, current_mesh, mesh_size
 
 CAPACITY_FACTOR = 1.25
 
@@ -62,10 +62,23 @@ def init_moe(gen: torch.Generator | None, cfg: ArchConfig, dtype=torch.float32,
 
 
 def moe_dispatch(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """Entry point.  In one process this is the grouped path, as the
-    reference's is on a mesh of one device; explicit all-to-all expert
-    parallelism (``cfg.moe_a2a``) needs a mesh, which the distributed slice
-    brings."""
+    """Entry point: explicit all-to-all expert parallelism (``cfg.moe_a2a``)
+    under a mesh of more than one rank where it applies (the expert count
+    divides the expert ranks, the batch the data ranks, and a data block's
+    tokens the model ranks), else the grouped path.  Both give the same
+    outputs at equal capacity."""
+    if getattr(cfg, "moe_a2a", False):
+        from repro_torch.models.moe_a2a import moe_a2a_applicable, moe_ffn_a2a
+
+        mesh = current_mesh()
+        if mesh is not None and mesh_size(mesh) > 1 and moe_a2a_applicable(cfg):
+            b, s, d = x.shape
+            sizes = as_spec(mesh).shape
+            dp = sizes.get("pod", 1) * sizes.get("data", 1)
+            mp = sizes.get("model", 1)
+            if b % dp == 0 and (b // dp) * s % mp == 0:
+                y = moe_ffn_a2a(params, cfg, x)
+                return y + _shared(params, x) if cfg.n_shared_experts else y
     return moe_ffn(params, cfg, x)
 
 

@@ -43,6 +43,17 @@ def apply_remat(loss_fn: LossFn, policy: str) -> LossFn:
     raise ValueError(f"unknown remat policy {policy}")
 
 
+def _laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient laid out as its parameter: DTensor may leave a
+    replicated parameter's gradient partial (the data-parallel sum not yet
+    taken) or sharded otherwise; the update needs the parameter's layout."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(
     loss_fn: LossFn,
     opt_cfg: OptimizerConfig,
@@ -75,7 +86,8 @@ def make_train_step(
                 part.backward()
                 parts.append(part.detach())
             loss = sum(parts) / n_microbatches
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        grads = [_laid_out_as(p.grad, p) if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
         if n_microbatches > 1:
             grads = [g / n_microbatches for g in grads]
         metrics = adam_update(grads, opt_state, params, opt_cfg)

@@ -269,6 +269,11 @@ slice10 = {"repro_torch.core.gain", "repro_torch.common.nn", "repro_torch.kernel
            "repro_torch.kernels.mlp_membership.ref", "repro_torch.kernels.mlp_membership.bench",
            "repro_torch.launch.quickstart", "repro_torch.launch.product_search"}
 assert slice10 <= set(mods), slice10 - set(mods)
+mesh = {"repro_torch.distributed." + m for m in ("comm", "compression", "collective_matmul",
+                                                 "pipeline")}
+mesh |= {"repro_torch.distributed", "repro_torch.models.moe_a2a", "repro_torch.launch.mesh",
+         "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_learned_index"}
+assert mesh <= set(mods), mesh - set(mods)
 print(len(mods))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
