@@ -2746,6 +2746,7 @@ def dense_rows(rec: Recorder, row) -> None:
 
 # ------------------------------------------------------------ phase W
 W_SEED = 41
+W_LIB_CHUNKS = 4  # torch.matmul's row-1c logits in doc chunks (25.7 GB whole)
 W_QUERIES = 256  # one rank's share of serve_queries' 4,096 (the 16-way data axis)
 W_BLOCK_QUERIES = 64  # one rank's share of serve_block's 1,024
 W_CHECK_DOCS = 65_536  # the plain versions' first docs
@@ -2848,6 +2849,22 @@ def phase_w(dev) -> dict:
                         "differing_bits_within_margin": int(_popcount((got ^ want) & near)),
                         "hits": int(_popcount(got))}
     seconds["plain_checks"] = time.perf_counter() - t1
+    # row 1c: the step's membership call alone (eager), torch.matmul of the
+    # same fp32 product (logits only) and the plain version, both in
+    # W_LIB_CHUNKS doc chunks; these launches are no part of the path's count
+    from repro_torch.kernels.membership.kernel import KERNEL as MEMBERSHIP, membership_bitmask
+    from repro_torch.kernels.membership.ref import membership_bitmask_ref
+
+    counted = MEMBERSHIP.launches
+    de32 = params["doc_embed"].float()
+    tau32 = tau.float().contiguous()
+    eager_ms, _ = _event_ms(lambda: membership_bitmask(te.contiguous(), de32, tau32, 0.0), 1, 3)
+    MEMBERSHIP.launches = counted
+    chunks = de32.split(n_docs // W_LIB_CHUNKS)
+    library_ms, _ = _event_ms(lambda: [tuple((te @ c.T).shape) for c in chunks], 1, 3)
+    plain_ms, _ = _event_ms(lambda: [tuple(membership_bitmask_ref(te, c, tau32, 0.0).shape)
+                                     for c in chunks], 0, 1)
+    del de32, chunks
     hits = int(_popcount(words))
     flop = 2 * int(valid.sum()) * n_docs * e
     bound = {"ops_ms": flop / FP32_FLOPS * 1e3,
@@ -2903,7 +2920,10 @@ def phase_w(dev) -> dict:
                           "hits": hits, "fp32_flop": flop, "tflop_s": flop / ms / 1e9,
                           "bound_ms": max(bound.values()),
                           "bound_by": "operations" if bound["ops_ms"] >= bound["bytes_ms"]
-                          else "bytes", "checks": checks},
+                          else "bytes", "checks": checks,
+                          "membership": {"eager_ms": eager_ms, "library_ms": library_ms,
+                                         "library": f"torch.matmul, fp32, {W_LIB_CHUNKS} doc "
+                                                    f"chunks", "plain_ms": plain_ms}},
         "serve_block": {"queries": W_BLOCK_QUERIES, "candidates": int(cand.shape[1]),
                         "ms": block_ms, "peak_bytes": block_peak,
                         "argument_bytes": plan["serve_block"]["argument_bytes"],
@@ -2912,6 +2932,201 @@ def phase_w(dev) -> dict:
                         "candidates_within_margin": int(near.sum())},
         "bytes_equal_plan": bytes_ok, "seconds": {**seconds, "total": time.perf_counter() - t0},
     }
+
+
+# ------------------------------------------------------------ phases P and T
+# P(a): the three hardest cells of the grid on the 16x16 mesh; P(b): cut
+# cells on a one-rank mesh against the same step run for real on the card
+P_CELLS = (("deepseek-v3-671b", "train_4k"), ("dlrm-mlperf", "train_batch"),
+           ("meshgraphnet", "ogb_products"))
+P_PEAK_TOL = 0.20
+P_SEED = 43
+P_TIMEOUT_S = 900  # the dry runs' processes, counted from the run's start
+
+
+def _p_cut_cells():
+    """(name, cell) of phase L's gemma2-2b cuts (prefill_32k at 2 x 4,096,
+    train_4k at 1 x 4,096) and FM's train_batch at 65,536."""
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell
+
+    lm, fm = get_arch(L_ARCH)[0], get_arch("fm")
+    return (("gemma2-2b prefill 2x4096",
+             build_cell(lm, ShapeSpec(name="prefill_32k", kind="prefill", seq_len=4096,
+                                      global_batch=2))),
+            ("gemma2-2b train 1x4096",
+             build_cell(lm, ShapeSpec(name="train_4k", kind="train", seq_len=4096,
+                                      global_batch=1))),
+            ("fm train_batch 65536",
+             build_cell(fm[0], next(s for s in fm[1] if s.name == "train_batch"))))
+
+
+def _p_real(cell, dev) -> tuple[int, int, float]:
+    """The cell's step once for real on the card -> (FlopCounterMode's FLOPs,
+    the peak allocated bytes over the step, its ms)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.train import init_train_state
+
+    gen = torch.Generator(device=dev).manual_seed(P_SEED)
+    model = cell.init_fn(P_SEED, dev)
+    opt = init_train_state(model, cell.opt_cfg) if cell.kind == "train" else None
+    hi = getattr(cell.arch, "vocab_size", 0) or min(cell.arch.vocab_sizes or (2,))
+    batch = {k: (torch.randint(0, hi, s.shape, generator=gen, device=dev, dtype=s.dtype)
+                 if s.dtype == torch.int32 else
+                 torch.randint(0, 2, s.shape, generator=gen, device=dev).to(s.dtype))
+             for k, s in cell.input_specs.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        if cell.kind == "train":
+            cell.step(model, opt, batch)
+        else:
+            cell.step(model, batch["tokens"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt, batch
+    return fc.get_total_flops(), peak, ms
+
+
+def _p_fake_cuts(out: Path) -> int:
+    """P(b)'s dry runs (``--p-fake``, in a process of their own): each cut
+    cell's step on a one-rank mesh of a fake world -> JSON at ``out``."""
+    from repro_torch.common.sharding import concrete_mesh
+    from repro_torch.launch import dryrun
+
+    res = {}
+    for name, cell in _p_cut_cells():
+        t0 = time.perf_counter()
+        with dryrun.fake_world(1):
+            r = dryrun._dryrun_bundle(cell, concrete_mesh((1, 1), ("data", "model")),
+                                      device="cuda")
+        res[name] = {**r, "seconds": time.perf_counter() - t0}
+    out.write_text(json.dumps(res))
+    return 0
+
+
+def p_start(src: Path) -> list:
+    """Phase P's dry runs, started as processes of their own when the run
+    begins (they need host cores, not the card, and take minutes): P(a)'s
+    three cells through ``python -m repro_torch.launch.dryrun`` and P(b)'s
+    cut cells through ``--p-fake``; ``phase_p`` collects them."""
+    out = ROOT / "build" / "phase_p"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(src))
+    cmds = {f"{arch}/{shape}": ([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                                 arch, "--shape", shape, "--out", str(out / f"a{i}.json")],
+                                out / f"a{i}.json")
+            for i, (arch, shape) in enumerate(P_CELLS)}
+    cmds["b"] = ([sys.executable, str(ROOT / "chip_smoke.py"), "--p-fake", str(out / "b.json"),
+                  "--src", str(src)], out / "b.json")
+    procs = []
+    for name, (cmd, path) in cmds.items():
+        with open(path.with_suffix(".log"), "w") as err:
+            procs.append((name, path, time.perf_counter(),
+                          subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+                                           stderr=err)))
+    return procs
+
+
+def p_stop(procs: list) -> None:
+    for *_, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def phase_p(dev, procs: list) -> dict:
+    """Phase P: the grid dry-run on the card's machine (fake tensors: no card
+    memory).  (a) ``dryrun_cell`` on the 16x16 mesh for the three hardest
+    cells, each ``ok``; (b) the dry run's body on a one-rank mesh against
+    the same cut cell run for real here: FLOPs equal exactly, peaks within
+    20%.  A dry run that fails, or reports ``error``, fails the phase."""
+    import torch
+
+    out: dict = {"phase": "P", "a": {}, "b": {}}
+    t_all = time.perf_counter()
+    done = {}
+    for name, path, t0, proc in procs:
+        rc = proc.wait(timeout=P_TIMEOUT_S)
+        if rc != 0 or not path.exists():
+            log(path.with_suffix(".log").read_text()[-6000:])
+            raise AssertionError(f"P: the dry run of {name} exited {rc}")
+        done[name] = (json.loads(path.read_text()), time.perf_counter() - t0)
+    for arch, shape in P_CELLS:
+        rs, waited = done[f"{arch}/{shape}"]
+        r = rs[0]
+        if r["status"] != "ok":
+            raise AssertionError(f"P(a): {arch} x {shape}: {r}")
+        out["a"][f"{arch}/{shape}"] = {
+            "process_seconds_by_collection": waited, "lower_s": r["lower_s"],
+            "compile_s": r["compile_s"], "flops_per_device": r["flops_per_device"],
+            "bytes_per_device": r["bytes_per_device"], "memory": r["memory"],
+            "peak_bytes": r["peak_bytes"],
+            "collective_bytes_per_device": r["collective_bytes_per_device"],
+            "largest_collectives": [{k: e[k] for k in ("kind", "bytes", "op", "where",
+                                                       "backward", "calls")}
+                                    for e in r["largest_collectives"]]}
+    fakes = done["b"][0]
+    for name, cell in _p_cut_cells():
+        _free()
+        fake = fakes[name]
+        flops, peak, ms = _p_real(cell, dev)
+        _free()
+        rel = abs(fake["peak_bytes"] - peak) / peak
+        out["b"][name] = {"fake_flops": fake["flops_per_device"], "real_flops": flops,
+                          "fake_peak_bytes": fake["peak_bytes"], "real_peak_bytes": peak,
+                          "peak_rel_diff": rel, "fake_seconds": fake["seconds"],
+                          "real_step_ms": ms, "argument_bytes": fake["memory"]["argument_bytes"]}
+        log(f"[P] (b) {name}: flops {fake['flops_per_device']} / {flops}, "
+            f"peak {fake['peak_bytes']} / {peak} ({rel:.3f})")
+        if fake["flops_per_device"] != flops:
+            raise AssertionError(f"P(b) {name}: dry-run FLOPs {fake['flops_per_device']} "
+                                 f"!= FlopCounterMode's {flops}")
+        if rel > P_PEAK_TOL:
+            raise AssertionError(f"P(b) {name}: dry-run peak {fake['peak_bytes']} vs "
+                                 f"{peak} on the card ({rel:.3f} > {P_PEAK_TOL})")
+    out["peak_tolerance"] = P_PEAK_TOL
+    out["seconds"] = time.perf_counter() - t_all
+    out["still_allocated_bytes"] = torch.cuda.memory_allocated()
+    return out
+
+
+def phase_t(dev) -> dict:
+    """Phase T: ``launch/train_lm.py`` at its defaults on the card (gemma2-100m,
+    300 steps of 8 x 128, a checkpoint every 100, 20 steps resumed)."""
+    import math
+
+    import torch
+
+    from repro_torch.launch import train_lm
+
+    ckpt = ROOT / "build" / "train_lm_ckpt"
+    t0 = time.perf_counter()
+    try:
+        r = train_lm.run(ckpt_dir=str(ckpt), device=str(dev))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if next(r["model"].parameters()).device.type != "cuda":
+        raise AssertionError("T: the model did not train on the card")
+    if not r["final_loss"] < math.log(32000) or r["resumed_from"] != 300:
+        raise AssertionError(f"T: loss {r['final_loss']}, resumed from {r['resumed_from']}")
+    ms = sorted(h["ms"] for h in r["history"][1:])
+    step_ms = ms[len(ms) // 2]
+    return {"phase": "T", "params": sum(p.numel() for p in r["model"].parameters()),
+            "steps": len(r["history"]), "batch": 8, "seq": 128,
+            "final_loss": r["final_loss"], "uniform_loss": math.log(32000),
+            "resumed_from": r["resumed_from"], "resumed_steps": len(r["resumed"]),
+            "resumed_final_loss": r["resumed"][-1]["loss"],
+            "step0_ms": r["history"][0]["ms"], "median_step_ms": step_ms,
+            "tokens_per_s": 8 * 128 * 1e3 / step_ms, "peak_bytes": r["peak_bytes"],
+            "train_s": r["train_s"], "resume_s": r["resume_s"],
+            "seconds": time.perf_counter() - t0}
 
 
 def _popcount(words) -> int:
@@ -3294,14 +3509,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=528_000,
                     help="documents in phase A's collection (Robust04's 528k by default)")
-    ap.add_argument("--phases", default="ABRSQMKWDCLGEX",
+    ap.add_argument("--phases", default="ABRSQMKWDCLGEPTX",
                     help="phases to run (R and D need A; S and Q need A and R; M needs A, R "
                          "and S; C needs A, B and R; W, the learned index at ClueWeb09B "
-                         "scale, L, the LM stack, G, the GNN, E, the recsys family, and X, "
-                         "the mesh world, need none)")
+                         "scale, L, the LM stack, G, the GNN, E, the recsys family, P, the "
+                         "grid dry-run, T, the train_lm example, and X, the mesh world, "
+                         "need none)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory that holds the repro_torch package to drive")
+    ap.add_argument("--p-fake", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.p_fake is not None:  # phase P's one-rank dry runs, in a process of their own
+        sys.path.insert(0, str(args.src.resolve()))
+        return _p_fake_cuts(args.p_fake)
     phases = set(args.phases.upper())
     if ({"R", "D"} & phases and "A" not in phases) or ("C" in phases and not {"A", "B", "R"} <= phases) \
             or ({"S", "Q"} & phases and not {"A", "R"} <= phases) \
@@ -3386,10 +3606,24 @@ def main() -> int:
     clock = DecodeClock()
     clock.install()
 
+    counts, passes, keep = {}, {}, {"kernels": kernels}
+    p_procs = p_start(src) if "P" in phases else []
+    try:
+        return _run_phases(args, phases, dev, kernels, rec, clock, counts, passes, keep,
+                           p_procs)
+    finally:
+        p_stop(p_procs)
+
+
+def _run_phases(args, phases, dev, kernels, rec, clock, counts, passes, keep, p_procs) -> int:
+    import torch
+
+    from repro_torch.core import algorithms
+    from repro_torch.kernels.fused_query import dense
+
     def launches() -> dict[str, int]:
         return {n: k.launches for n, k in kernels.items()}
 
-    counts, passes, keep = {}, {}, {"kernels": kernels}
     try:
         for name, run in (("A", lambda: phase_a(args, dev, launches, clock, keep)),
                           ("B", lambda: phase_b(dev, launches)),
@@ -3440,12 +3674,13 @@ def main() -> int:
         emit({"phase": "C", "kernels": [r["name"] for r in rows], "launches": total})
         emit({"phase": "C_dense", "rows": [r for r in rows if r["name"] == "dense_topk"],
               "dense_passes": sum(passes.values())})
-    if {"L", "G", "E", "X"} & phases:
+    if {"L", "G", "E", "P", "T", "X"} & phases:
         # the earlier phases' engines and kept inputs leave the card first
         keep.clear()
         for kept in (rec.inputs, rec.kwargs, rec.second):
             kept.clear()
-    for name, run in (("L", phase_l), ("G", phase_g), ("E", phase_e), ("X", phase_x)):
+    for name, run in (("L", phase_l), ("G", phase_g), ("E", phase_e),
+                      ("P", lambda d: phase_p(d, p_procs)), ("T", phase_t), ("X", phase_x)):
         if name not in phases:
             continue
         _free()

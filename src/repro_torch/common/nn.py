@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn as tnn
 
+from repro_torch.common.sharding import is_dtensor, local_rows
+
 Params = Mapping[str, torch.Tensor]
 
 
@@ -145,6 +147,16 @@ def mlp_init(gen: torch.Generator | None, dims: Sequence[int], *, dtype=torch.fl
 def mlp(params: Sequence[Params], x: torch.Tensor, *,
         act: Callable[[torch.Tensor], torch.Tensor] = F.relu,
         final_act: Callable[[torch.Tensor], torch.Tensor] | None = None) -> torch.Tensor:
+    if is_dtensor(x):  # on a mesh: each rank's rows through the whole layers
+        keys = [[k for k in ("w", "b") if k in p] for p in params]
+        flat = [p[k] for p, ks in zip(params, keys) for k in ks]
+
+        def rows(xb, *ws):
+            it = iter(ws)
+            return mlp([{k: next(it) for k in ks} for ks in keys], xb, act=act,
+                       final_act=final_act)
+
+        return local_rows(rows, (x,), flat)
     for i, p in enumerate(params):
         x = bias_dense(p, x)
         if i < len(params) - 1:
@@ -178,6 +190,10 @@ def layernorm_init(dim: int, dtype=torch.float32, device: torch.device | None = 
 
 
 def layernorm(params: Params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    if is_dtensor(x):  # on a mesh: each rank's rows
+        return local_rows(lambda xb, scale, bias: layernorm({"scale": scale, "bias": bias}, xb,
+                                                          eps=eps),
+                          (x,), (params["scale"], params["bias"]))
     dtype = x.dtype
     x = x.float()
     mu = x.mean(-1, keepdim=True)

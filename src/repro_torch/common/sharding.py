@@ -58,6 +58,14 @@ DEFAULT_RULES: dict[str, Any] = {
 
 Spec = tuple  # one entry a dim: a mesh-axis name, a tuple of names, or None
 
+# Logical axes whose mesh axes may split a dimension unevenly, as
+# ``torch.chunk`` does (the first ranks take ceil(n / ranks) rows, the
+# last ones fewer): embedding-table rows.  16 divides none of 25 of the 26
+# Criteo vocabularies (DLRM's 96.1 GB of tables), and the reference's
+# divisibility rule would replicate them on every rank; the port shards
+# them (a departure from the reference's plan).
+UNEVEN = frozenset({"table_vocab"})
+
 
 class NamedSharding(NamedTuple):
     """A layout on a device mesh: one DTensor placement per mesh dimension
@@ -237,7 +245,8 @@ def spec_for_shape(
     (trailing-first), and a mesh axis is never used twice in one spec (the
     first dim that claims it wins) — e.g. MQA's kv_heads=1 falls back to
     replicated, and MoE ('experts','embed','mlp') keeps experts on `model`
-    and drops mlp's claim."""
+    and drops mlp's claim.  An ``UNEVEN`` axis keeps its mesh axes where
+    the dim has at least a row a rank."""
     sizes = as_spec(mesh).shape
     used: set[str] = set()
     entries: list[Any] = []
@@ -252,7 +261,7 @@ def spec_for_shape(
             prod = 1
             for a in t:
                 prod *= sizes[a]
-            if dim % prod == 0:
+            if dim % prod == 0 or (ax in UNEVEN and dim >= prod):
                 break
             t = t[:-1]
         if not t:
@@ -301,17 +310,20 @@ def with_sharding(x, logical_axes: Sequence[str | None], mesh):
     return distribute_tensor(x, mesh, pl)
 
 
-def shard_module(model: torch.nn.Module, param_axes: Mapping[str, tuple], mesh) -> torch.nn.Module:
+def shard_module(model: torch.nn.Module, param_axes: Mapping[str, tuple], mesh, *,
+                 src_data_rank: int | None = 0) -> torch.nn.Module:
     """Replace every parameter of ``model`` (the same global values on every
     rank) by a DTensor laid out by its logical axes, divisibility-aware
-    (``spec_for_shape``, as the dry run places them), in place."""
+    (``spec_for_shape``, as the dry run places them), in place.  Rank
+    ``src_data_rank``'s values are sent to the others; ``None`` keeps each
+    rank's own (no communication)."""
     from torch.distributed.tensor import distribute_tensor
 
     for name, p in list(model.named_parameters()):
         pl = sharding_for_shape(param_axes[name], tuple(p.shape), mesh)
         owner = model.get_submodule(name.rpartition(".")[0])
-        setattr(owner, name.rpartition(".")[2],
-                torch.nn.Parameter(distribute_tensor(p.detach(), mesh, pl)))
+        setattr(owner, name.rpartition(".")[2], torch.nn.Parameter(
+            distribute_tensor(p.detach(), mesh, pl, src_data_rank=src_data_rank)))
     return model
 
 
@@ -336,15 +348,12 @@ def abstract_like(params: Any) -> Any:
 
 
 def constrain(x, *logical_axes: str | None):
-    """Activation sharding constraint by logical axes on the ambient mesh:
-    the identity on a plain tensor, outside a mesh and on one rank; a
-    DTensor is redistributed to the divisibility-aware placements."""
-    if type(x) is torch.Tensor:  # the one-process path: nothing to look up
-        return x
-    from torch.distributed.tensor import DTensor
-
-    mesh = current_mesh()
-    if not isinstance(x, DTensor) or mesh is None or mesh_size(mesh) <= 1:
+    """Activation sharding constraint by logical axes on the tensor's mesh:
+    the identity on a plain tensor and on one rank; a DTensor is
+    redistributed to the divisibility-aware placements.  The mesh is the
+    DTensor's own, not the ambient one: a recompute in the backward (remat)
+    may run on the autograd engine's device thread, outside any context."""
+    if not is_dtensor(x) or mesh_size(x.device_mesh) <= 1:
         return x
     # redistribute even to the same placements: the backward then lays the
     # gradient out as the forward had it
@@ -361,6 +370,120 @@ def pin(x):
     from torch.distributed.tensor import DTensor
 
     return x.redistribute(x.device_mesh, x.placements) if isinstance(x, DTensor) else x
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a plain tensor answers without importing
+    DTensor)."""
+    if type(x) is torch.Tensor:  # the one-process path: nothing to import
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def local_rows(fn: Callable, rows: Sequence[torch.Tensor], whole: Sequence[torch.Tensor] = (),
+               *, partial_out: bool = False):
+    """``fn(*rows, *whole)`` computed on each rank's rows: the ``rows``
+    tensors (split alike along dim 0, however many mesh dimensions split
+    it) give their blocks, the ``whole`` tensors (weights, a gathered
+    table) are replicated first, and the result is laid out as the rows
+    (or, with ``partial_out``, is a whole-shaped sum of every rank's part:
+    partial over the mesh dimensions that split the rows).  Off a mesh,
+    ``fn(*rows, *whole)``.  Data parallelism over rows on the tensors'
+    local blocks: DTensor's rules, which vary between torch versions (a row
+    dimension split by two mesh dimensions, a bias added to a partial sum,
+    an index update), are not consulted.  Gradients by the same layouts:
+    the whole tensors' are partial over the row-splitting mesh dimensions
+    and reduced to their own layouts by DTensor."""
+    lead = next((x for x in rows if is_dtensor(x)), None)
+    if lead is None:
+        return fn(*rows, *whole)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = lead.device_mesh
+    split = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in lead.placements)
+    summed = tuple(Partial() if p.is_shard(0) else Replicate() for p in split)
+    every = (Replicate(),) * mesh.ndim
+
+    def as_dt(x):
+        return x if is_dtensor(x) else DTensor.from_local(x, mesh, every)
+
+    blocks = [as_dt(x).redistribute(mesh, split).to_local(grad_placements=split) for x in rows]
+    wholes = [as_dt(w).redistribute(mesh, every).to_local(grad_placements=summed) for w in whole]
+    out = fn(*blocks, *wholes).contiguous()
+    if partial_out:
+        return DTensor.from_local(out, mesh, summed, shape=out.shape, stride=out.stride())
+    shape = (lead.shape[0], *out.shape[1:])
+    return DTensor.from_local(out, mesh, split, shape=shape,
+                              stride=tuple(math.prod(shape[d + 1:]) for d in range(len(shape))))
+
+
+class _BlockRows(torch.autograd.Function):
+    """Rows of this rank's block of a table at block-relative ids (zeros for
+    ids outside the block).  The backward sums every rank's rows, in the
+    global order of the ids: the gradient of the whole batch gathered over
+    the mesh (``gather``), each id's row added in turn as one process adds
+    them, so the block's gradient is the one-process gradient's rows."""
+
+    @staticmethod
+    def forward(ctx, block, at, at_all, gather):
+        n = block.shape[0]
+        ctx.save_for_backward(at_all)
+        ctx.n, ctx.gather = n, gather
+        mine = ((at >= 0) & (at < n)).to(block.dtype)[..., None]
+        return block[at.clamp(0, max(n - 1, 0))] * mine
+
+    @staticmethod
+    def backward(ctx, g):
+        (at_all,) = ctx.saved_tensors
+        n = ctx.n
+        g_all = ctx.gather(g)
+        mine = ((at_all >= 0) & (at_all < n)).to(g_all.dtype)[..., None]
+        grad = torch.zeros((n, g_all.shape[-1]), dtype=g_all.dtype, device=g_all.device)
+        grad.index_put_((at_all.clamp(0, max(n - 1, 0)).reshape(-1),),
+                        (g_all * mine).reshape(-1, g_all.shape[-1]), accumulate=True)
+        return grad, None, None, None
+
+
+def take_rows(table, ids: torch.Tensor):
+    """``table[ids]`` (ids in range) of a DTensor table whose rows may be
+    sharded, without moving the table: each rank reads the ids that fall in
+    its rows (zeros for the others), so the result is partial (a sum) over
+    the mesh dimensions that split the rows, laid out as ``ids`` elsewhere.
+    The table's gradient stays row-sharded and is the one-process
+    gradient's (``_BlockRows``): the rows' gradients are gathered, where
+    ``ids`` are sharded, instead of the table.  DTensor's own rules would
+    gather the whole table (indexing) or sum a gradient of the whole table
+    (``F.embedding``).  The table is split by rows or replicated on each
+    mesh dimension, as its logical axes (rows, None) lay it out."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    rows = [d for d, p in enumerate(table.placements) if p.is_shard(0)]
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, (Replicate(),) * mesh.ndim)
+    id_pl = tuple(Replicate() if d in rows else p for d, p in enumerate(ids.placements))
+    ids = ids.redistribute(mesh, id_pl)
+    r0, n = 0, int(table.shape[0])
+    coord = mesh.get_coordinate()
+    for d in rows:
+        blk = -(-n // mesh.size(d))
+        start = min(coord[d] * blk, n)
+        r0, n = r0 + start, min(n, start + blk) - start
+    dim = int(table.shape[1])
+    shape = (*ids.shape, dim)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+    def gather(g: torch.Tensor) -> torch.Tensor:  # the rows' gradient, the whole batch's
+        return DTensor.from_local(g, mesh, id_pl, shape=shape, stride=stride).full_tensor()
+
+    local = table.to_local(grad_placements=tuple(Shard(0) if d in rows else Replicate()
+                                                 for d in range(mesh.ndim)))
+    out = _BlockRows.apply(local, ids.to_local() - r0, ids.full_tensor() - r0, gather)
+    return DTensor.from_local(out, mesh, tuple(Partial() if d in rows else p
+                                               for d, p in enumerate(id_pl)),
+                              shape=shape, stride=stride)
 
 
 def _block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:

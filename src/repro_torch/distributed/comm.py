@@ -27,6 +27,7 @@ from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.common.sharding import current_mesh
 
@@ -68,9 +69,12 @@ def group_of(axis: str | Sequence[str], mesh=None):
         if dims != sorted(dims):
             raise ValueError(f"axes {axes} must come in the mesh's order {tuple(names)}")
         rest = [d for d in range(len(names)) if d not in dims]
-        # move the group's axes last and flatten them, outer axis first
-        n = math.prod(int(mesh.mesh.shape[d]) for d in dims)
-        table = mesh.mesh.permute(*rest, *dims).reshape(-1, n)
+        # move the group's axes last and flatten them, outer axis first: the
+        # mesh's rank table is bookkeeping, worked out with every dispatch
+        # mode off (a dry run's fake tensors have no values)
+        with _disable_current_modes():
+            n = math.prod(int(mesh.mesh.shape[d]) for d in dims)
+            table = mesh.mesh.permute(*rest, *dims).reshape(-1, n)
         me = dist.get_rank()
         for row in table.tolist():
             if row != sorted(row):  # a group's ranks are numbered in sorted order

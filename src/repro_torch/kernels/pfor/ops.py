@@ -107,3 +107,11 @@ def decode_lists(
     for row, i in enumerate(nonempty):
         out[i] = flat[out_base[row] : out_base[row] + lens[i]].copy()
     return out
+
+
+def decode_stream(words: np.ndarray, n: int, *, device: torch.device | str = "cuda"
+                  ) -> np.ndarray:
+    """Full decode of one optpfd stream -> its ``n`` int32 doc ids (gaps
+    summed), the reference's ``decode_stream``: ``decode_lists`` of one
+    list."""
+    return decode_lists([words], [n], device=device)[0]

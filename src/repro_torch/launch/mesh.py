@@ -48,7 +48,9 @@ def sharded_step_vs_one_process(cell, step, opt_cfg, model, batch: dict, mesh) -
     -> the two losses and gradient norms, the step's lr, and per leaf the
     largest gradient and parameter differences, the largest gradient, the
     share of parameter elements within 0.05 lr of the copy's, the leaf's
-    size and its dtype; and how many leaves the rules sharded.  ``model`` is left
+    size and its dtype, the largest difference of its first moment (int8
+    moments dequantized) and the largest moment, and its moments' DTensor
+    placements; and how many leaves the rules sharded.  ``model`` is left
     sharded."""
     import copy
 
@@ -56,7 +58,7 @@ def sharded_step_vs_one_process(cell, step, opt_cfg, model, batch: dict, mesh) -
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     from repro_torch.common.sharding import mesh_context, shard_module, sharding_for_shape
-    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.optimizer import dequantize_blockwise, init_adam
 
     plain = copy.deepcopy(model)
     shard_module(model, cell.param_axes, mesh)
@@ -68,13 +70,27 @@ def sharded_step_vs_one_process(cell, step, opt_cfg, model, batch: dict, mesh) -
     with mesh_context(mesh):
         m = step(model, opt, sharded)
     m = {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in m.items()}
-    pm = step(plain, init_adam([p for _, p in sorted(plain.named_parameters())], opt_cfg), batch)
+    plain_opt = init_adam([p for _, p in sorted(plain.named_parameters())], opt_cfg)
+    pm = step(plain, plain_opt, batch)
     lr = float(pm["lr"])
     want = dict(plain.named_parameters())
+    order = {name: i for i, (name, _) in enumerate(sorted(model.named_parameters()))}
+
+    def moment(state, name, shape):
+        mo = state.m[order[name]]
+        mo = dequantize_blockwise(mo, shape) if isinstance(mo, dict) else mo
+        return (mo.full_tensor() if isinstance(mo, DTensor) else mo).float()
+
+    def placed(mo):
+        if isinstance(mo, dict):
+            return {k: [str(p) for p in v.placements] for k, v in mo.items()}
+        return [str(p) for p in mo.placements]
+
     leaves = {}
     with torch.no_grad():
         for name, p in model.named_parameters():
             q = want[name]
+            d_m = (moment(opt, name, tuple(p.shape)) - moment(plain_opt, name, tuple(q.shape)))
             d_p = (p.full_tensor().float() - q.float()).abs()
             g = p.grad.full_tensor().float() if p.grad is not None else torch.zeros_like(d_p)
             g_want = q.grad.float() if q.grad is not None else torch.zeros_like(d_p)
@@ -83,7 +99,10 @@ def sharded_step_vs_one_process(cell, step, opt_cfg, model, batch: dict, mesh) -
                             "param_diff": float(d_p.max()),
                             "within": float((d_p <= 0.05 * lr).float().mean()),
                             "numel": d_p.numel(),
-                            "dtype": str(q.dtype).removeprefix("torch.")}
+                            "dtype": str(q.dtype).removeprefix("torch."),
+                            "m_diff": float(d_m.abs().max()),
+                            "m_max": float(moment(plain_opt, name, tuple(q.shape)).abs().max()),
+                            "m_placements": placed(opt.m[order[name]])}
     return {"loss": [float(m["loss"]), float(pm["loss"])],
             "grad_norm": [float(m["grad_norm"]), float(pm["grad_norm"])], "lr": lr,
             "leaves": leaves, "sharded": [n_sharded, len(leaves)]}

@@ -30,6 +30,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.common.config import ArchConfig, OptimizerConfig, ShapeSpec, TrainConfig
+from repro_torch.common.sharding import is_dtensor, sharding_for_shape
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import sampler as sampler_mod
@@ -123,6 +124,22 @@ def _cache_axes(cfg: ArchConfig, cache_struct) -> list[KVCache]:
     return [KVCache(one(kv.k), one(kv.v)) for kv in cache_struct]
 
 
+def _new_caches(cfg: ArchConfig, b: int, s: int, tokens: torch.Tensor) -> list[KVCache]:
+    """Prefill's empty bf16 caches; on a mesh (DTensor tokens) DTensors laid
+    out by ``_cache_axes``, each rank allocating its own block only."""
+    if not is_dtensor(tokens):
+        return tf_mod.init_cache(cfg, b, s, torch.bfloat16, device=tokens.device)
+    from torch.distributed.tensor import zeros
+
+    mesh = tokens.device_mesh
+    struct = [KVCache(_sds(k, torch.bfloat16), _sds(v, torch.bfloat16))
+              for k, v in tf_mod.cache_spec(cfg, b, s)]
+    return [KVCache(*(zeros(t.shape, dtype=t.dtype, device_mesh=mesh,
+                            placements=sharding_for_shape(ax, t.shape, mesh))
+                      for t, ax in zip(kv, axes)))
+            for kv, axes in zip(struct, _cache_axes(cfg, struct))]
+
+
 def lm_cell(cfg: ArchConfig, shape: ShapeSpec, *, remat: str = "dots") -> CellBundle:
     pdtype = _lm_param_dtype(cfg)
 
@@ -146,8 +163,7 @@ def lm_cell(cfg: ArchConfig, shape: ShapeSpec, *, remat: str = "dots") -> CellBu
 
     if shape.kind == "prefill":
         def step(model, tokens):
-            caches = tf_mod.init_cache(cfg, b, s, torch.bfloat16, device=tokens.device)
-            return tf_mod.lm_prefill(model, cfg, tokens, caches)
+            return tf_mod.lm_prefill(model, cfg, tokens, _new_caches(cfg, b, s, tokens))
 
         inputs = {"tokens": _sds((b, s), torch.int32)}
         return CellBundle(cfg, shape, "prefill", step, init_fn, param_specs, axes,

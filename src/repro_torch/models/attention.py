@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.common import nn
 from repro_torch.common.config import ArchConfig
-from repro_torch.common.sharding import constrain, pin
+from repro_torch.common.sharding import constrain, is_dtensor, local_rows, pin
 
 NEG_INF = -2.0e38
 
@@ -69,6 +69,22 @@ def _flat(y: torch.Tensor) -> torch.Tensor:
     its head dimension (a DTensor view cannot split a dimension sharded
     unevenly over the group it splits into): the identity off a mesh."""
     return constrain(y, "batch", *(None,) * (y.dim() - 1))
+
+
+def _per_rank_rows(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn`` of tensors whose rows (dim 0, the batch) are independent, as
+    attention's core is: ``sharding.local_rows`` over the batch, a tensor
+    with one row (a mask shared by the batch) taken whole.  DTensor never
+    sees the products' flattened (batch, heads) dimensions, which it
+    cannot split under a 3-D mesh."""
+    rows = [i for i, x in enumerate(xs) if x.shape[0] > 1 or x is xs[0]]
+    whole = [i for i in range(len(xs)) if i not in rows]
+
+    def run(*args):
+        by = dict(zip(rows + whole, args))
+        return fn(*(by[i] for i in range(len(xs))))
+
+    return local_rows(run, [xs[i] for i in rows], [xs[i] for i in whole])
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -183,17 +199,70 @@ def gqa_attention(
         k_use, v_use = k, v
 
     scale = 1.0 / math.sqrt(hd)
-    scores = _gqa_scores(q, k_use, n_rep) * scale  # (B,Hq,Sq,Sk) fp32
-    scores = nn.softcap(scores, cfg.attn_softcap)
-    probs = torch.softmax(scores + mask, dim=-1).to(dtype)
-    out = constrain(_gqa_out(probs, v_use, n_rep), *q_ax)  # (B,Sq,Hq,hd)
+
+    def core(q, k_use, v_use, mask):
+        scores = _gqa_scores(q, k_use, n_rep) * scale  # (B,Hq,Sq,Sk) fp32
+        scores = nn.softcap(scores, cfg.attn_softcap)
+        probs = torch.softmax(scores + mask, dim=-1).to(dtype)
+        return _gqa_out(probs, v_use, n_rep)  # (B,Sq,Hq,hd)
+
+    out = constrain(_per_rank_rows(core, q, k_use, v_use, mask), *q_ax)
     return _unproj(out, params["wo"]), new_cache
 
 
 def _scatter_cache(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     """cache (B,Sc,...), new (B,Sq,...), slot (B,Sq): rows written in place."""
+    if is_dtensor(cache):
+        return _scatter_cache_blocks(cache, new, slot)
     bidx = torch.arange(cache.shape[0], device=slot.device)[:, None].expand_as(slot)
     cache[bidx, slot.long()] = new.to(cache.dtype)
+    return cache
+
+
+@torch.no_grad()
+def _scatter_cache_blocks(cache, new: torch.Tensor, slot: torch.Tensor):
+    """``_scatter_cache`` into a DTensor cache laid out by batch and
+    sequence (``("batch", "seq_sharded")``), each rank writing its own
+    block: the new rows and slots are laid out by the cache's batch
+    placements, and a rank keeps the rows whose slot falls in its
+    sequence block [s0, s0 + n).  One new row a batch row (decode) is
+    written at its slot clamped into the block, or the slot's own value
+    written back where it falls outside; several (prefill; slots distinct
+    in a row, as the caches' writers make them) through the inverse map
+    slot -> row, which rewrites the block."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = cache.device_mesh
+    rows = tuple(p if p.is_shard(0) else Replicate() for p in cache.placements)
+
+    def laid_out(x):
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim)
+        return x.redistribute(mesh, rows).to_local()
+
+    block = cache.to_local()
+    new_l, slot_l = laid_out(new).to(cache.dtype), laid_out(slot).long()
+    s0, n = 0, int(cache.shape[1])
+    coord = mesh.get_coordinate()
+    for d, p in enumerate(cache.placements):
+        if p.is_shard(1):
+            blk = -(-n // mesh.size(d))
+            start = min(coord[d] * blk, n)
+            s0, n = s0 + start, min(n, start + blk) - start
+    trail = (1,) * (block.dim() - 2)
+    b = block.shape[0]
+    if slot_l.shape[1] == 1:
+        at = slot_l - s0
+        inside = (at >= 0) & (at < n)
+        at = at.clamp(0, n - 1)
+        bidx = torch.arange(b, device=block.device)[:, None]
+        block[bidx, at] = torch.where(inside.view(b, 1, *trail), new_l, block[bidx, at])
+        return cache
+    inv = torch.full((b, int(cache.shape[1])), -1, dtype=torch.long, device=block.device)
+    inv.scatter_(1, slot_l, torch.arange(slot_l.shape[1], device=block.device).expand_as(slot_l))
+    inv = inv[:, s0:s0 + n]
+    rows_in = new_l[torch.arange(b, device=block.device)[:, None], inv.clamp(min=0)]
+    block.copy_(torch.where((inv >= 0).view(b, n, *trail), rows_in, block))
     return cache
 
 
@@ -267,8 +336,10 @@ def mla_attention(
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     b = x.shape[0]
 
+    # the low-rank projections laid out by batch (``_flat``), their
+    # gradients too: DTensor would split them over the sequence
     if cfg.q_lora_rank:
-        cq = nn.rmsnorm(params["q_norm"], x @ params["wdq"].to(dtype))
+        cq = nn.rmsnorm(params["q_norm"], _flat(x @ params["wdq"].to(dtype)))
         q = _proj(cq, params["wuq"])
     else:
         q = _proj(x, params["wq"])
@@ -276,8 +347,8 @@ def mla_attention(
     cos, sin = rope_freqs(rope, cfg.rope_theta, q_pos)
     q_rope = apply_rope(q_rope, cos, sin)
 
-    c_kv = x @ params["wdkv"].to(dtype)  # (B,S,kvl)
-    k_r = (x @ params["wkr"].to(dtype))[:, :, None, :]  # (B,S,1,rope)
+    c_kv = _flat(x @ params["wdkv"].to(dtype))  # (B,S,kvl)
+    k_r = _flat(x @ params["wkr"].to(dtype))[:, :, None, :]  # (B,S,1,rope)
     k_r = apply_rope(k_r, cos, sin)[:, :, 0, :]  # (B,S,rope)
 
     if cache is not None:
@@ -286,7 +357,9 @@ def mla_attention(
         _scatter_cache(cache.v, k_r, q_pos)
         new_cache = cache
         k_pos = torch.arange(s_cache, dtype=q_pos.dtype, device=q_pos.device)[None, :].expand(b, s_cache)
-        c_use, kr_use = cache.k, cache.v
+        # a sequence-sharded cache read whole: its re-expansion flattens
+        # (B, S), which DTensor cannot do with both dimensions sharded
+        c_use, kr_use = (constrain(c, "batch", None, None) for c in (cache.k, cache.v))
     else:
         new_cache = None
         k_pos = q_pos
@@ -299,10 +372,14 @@ def mla_attention(
     v = constrain(_proj(c_n, params["wuv"]), "batch", None, "heads", None)
 
     scale = 1.0 / math.sqrt(nope + rope)
-    sc = torch.einsum("bshk,bthk->bhst", q_nope.float(), k_nope.float())
-    sc = sc + torch.einsum("bshk,btk->bhst", q_rope.float(), kr_use.float())
-    mask = causal_mask(q_pos, k_pos)[:, None, :, :]
-    probs = torch.softmax(sc * scale + mask, dim=-1).to(dtype)
     pv = torch.promote_types(dtype, v.dtype)
-    out = torch.einsum("bhst,bthv->bshv", probs.to(pv), v)
+
+    def core(q_nope, q_rope, k_nope, kr_use, v, mask):
+        sc = torch.einsum("bshk,bthk->bhst", q_nope.float(), k_nope.float())
+        sc = sc + torch.einsum("bshk,btk->bhst", q_rope.float(), kr_use.float())
+        probs = torch.softmax(sc * scale + mask, dim=-1).to(dtype)
+        return torch.einsum("bhst,bthv->bshv", probs.to(pv), v)
+
+    mask = causal_mask(q_pos, k_pos)[:, None, :, :]
+    out = _per_rank_rows(core, q_nope, q_rope, k_nope, kr_use, v, mask)
     return _unproj(out, params["wo"]), new_cache

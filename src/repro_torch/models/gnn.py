@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common import nn
 from repro_torch.common.config import ArchConfig
 from repro_torch.common.device import init_generator, resolve_device
+from repro_torch.common.sharding import is_dtensor, local_rows
 
 Axes = tuple  # logical axis names of one parameter, one a dim
 
@@ -84,17 +85,25 @@ def mgn_forward(model: nn.ParamTree, cfg: ArchConfig, batch: Mapping[str, torch.
     emask = batch["edge_mask"][:, None].to(v.dtype)
     n = v.shape[0]
 
-    def one_layer(v, e, layer):
-        # edge update: e' = e + LN(MLP([e, v_src, v_dst]))
+    def gather(e, snd, rcv, v):
         # index_select, whose backward is an index_add: serial on the CPU, so
         # a step there is deterministic (indexing's accumulates in parallel)
-        msg_in = torch.cat([e, v.index_select(0, snd), v.index_select(0, rcv)], dim=-1)
+        return torch.cat([e, v.index_select(0, snd), v.index_select(0, rcv)], dim=-1)
+
+    def scatter(rcv, x):
+        return x.new_zeros((n, x.shape[1])).index_add(0, rcv, x)
+
+    def one_layer(v, e, layer):
+        # edge update: e' = e + LN(MLP([e, v_src, v_dst])); on a mesh each
+        # rank's edges read the whole node table (gathered) ...
+        msg_in = local_rows(gather, (e, snd, rcv), (v,))
         upd = nn.layernorm(layer["edge_ln"], nn.mlp(layer["edge_mlp"], msg_in, act=F.relu))
         e = e + upd * emask
-        # node update: v' = v + LN(MLP([v, Σ_incoming e']))
-        agg = v.new_zeros((n, e.shape[1])).index_add(0, rcv, e * emask)
+        # node update: v' = v + LN(MLP([v, Σ_incoming e'])); ... and add
+        # into a whole one, summed over the ranks and laid out as the nodes
+        agg = _as_nodes(local_rows(scatter, (rcv, e * emask), partial_out=True), v)
         if cfg.gnn_aggregator == "mean":
-            deg = v.new_zeros((n, 1)).index_add(0, rcv, emask)
+            deg = _as_nodes(local_rows(scatter, (rcv, emask), partial_out=True), v)
             agg = agg / torch.clamp(deg, min=1.0)
         v = v + nn.layernorm(
             layer["node_ln"], nn.mlp(layer["node_mlp"], torch.cat([v, agg], dim=-1), act=F.relu))
@@ -108,6 +117,13 @@ def mgn_forward(model: nn.ParamTree, cfg: ArchConfig, batch: Mapping[str, torch.
             v, e = one_layer(v, e, layer)
 
     return nn.mlp(model["decoder"], v, act=F.relu)
+
+
+def _as_nodes(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A whole-shaped node array laid out as the node table ``v``."""
+    if not is_dtensor(x):
+        return x
+    return x.redistribute(v.device_mesh, v.placements)
 
 
 def mgn_loss(model: nn.ParamTree, cfg: ArchConfig, batch: Mapping[str, torch.Tensor],

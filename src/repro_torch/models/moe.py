@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.common import nn
 from repro_torch.common.config import ArchConfig
-from repro_torch.common.sharding import as_spec, constrain, current_mesh, mesh_size
+from repro_torch.common.sharding import (as_spec, constrain, current_mesh, is_dtensor,
+                                         local_rows, mesh_size)
 
 CAPACITY_FACTOR = 1.25
 
@@ -70,8 +71,9 @@ def moe_dispatch(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tens
     if getattr(cfg, "moe_a2a", False):
         from repro_torch.models.moe_a2a import moe_a2a_applicable, moe_ffn_a2a
 
-        mesh = current_mesh()
-        if mesh is not None and mesh_size(mesh) > 1 and moe_a2a_applicable(cfg):
+        # the tensor's mesh (a recompute in the backward runs outside the context)
+        mesh = x.device_mesh if is_dtensor(x) else current_mesh()
+        if mesh is not None and mesh_size(mesh) > 1 and moe_a2a_applicable(cfg, mesh):
             b, s, d = x.shape
             sizes = as_spec(mesh).shape
             dp = sizes.get("pod", 1) * sizes.get("data", 1)
@@ -90,7 +92,9 @@ def top_k_lowest_index(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Ten
 
 
 def _route(params: Params, cfg: ArchConfig, x: torch.Tensor):
-    logits = x.float() @ params["router"].float()  # (B,S,E) fp32
+    # (B,S,E) fp32, laid out by batch, its gradient too: DTensor would
+    # otherwise split it over the sequence, which the backward flattens
+    logits = constrain(x.float() @ params["router"].float(), "batch", None, None)
     gate = torch.sigmoid(logits) if cfg.moe_aux_free else torch.softmax(logits, dim=-1)
     # aux-loss-free: bias steers SELECTION only, not combine weights (dsv3 §3.2)
     sel = gate + params["bias"][None, None, :] if cfg.moe_aux_free else gate
@@ -99,8 +103,9 @@ def _route(params: Params, cfg: ArchConfig, x: torch.Tensor):
 
 def _shared(params: Params, x: torch.Tensor) -> torch.Tensor:
     dtype = x.dtype
-    hs = F.silu(x @ params["shared_gate"].to(dtype)) * (x @ params["shared_up"].to(dtype))
-    return hs @ params["shared_down"].to(dtype)
+    g = constrain(x @ params["shared_gate"].to(dtype), "batch", None, "mlp")
+    u = constrain(x @ params["shared_up"].to(dtype), "batch", None, "mlp")
+    return (F.silu(g) * u) @ params["shared_down"].to(dtype)
 
 
 def capacity(cfg: ArchConfig, s: int) -> int:
@@ -124,6 +129,25 @@ def _slots(top_idx: torch.Tensor, e: int, cap: int):
     return flat_e, pos_c, dropped
 
 
+def _experts(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor
+             ) -> torch.Tensor:
+    """The routed experts' FFN: buf (B, E, C, D) -> (B, E, C, D), each
+    expert on its own slots.  On a mesh, each rank runs its experts
+    (``local_rows`` over the expert dimension, slots and weights split
+    alike): DTensor cannot multiply a flattened (B, C) that the mesh splits
+    on both sides."""
+    if not is_dtensor(buf):
+        h = F.silu(torch.einsum("becd,edf->becf", buf, wg)) * torch.einsum("becd,edf->becf", buf, wu)
+        return torch.einsum("becf,efd->becd", h, wd)
+
+    def ffn(x, g, u, w):  # x (E_local, B, C, D)
+        h = F.silu(torch.einsum("ebcd,edf->ebcf", x, g)) * torch.einsum("ebcd,edf->ebcf", x, u)
+        return torch.einsum("ebcf,efd->ebcd", h, w)
+
+    xe = constrain(buf.permute(1, 0, 2, 3), "experts", None, None, None)
+    return local_rows(ffn, (xe, wg, wu, wd)).permute(1, 0, 2, 3)
+
+
 def moe_ffn(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D). Dispatch groups = batch rows."""
     dtype = x.dtype
@@ -137,19 +161,23 @@ def moe_ffn(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     cap = capacity(cfg, s)
     flat_e, pos_c, dropped = _slots(top_idx, e, cap)
 
-    tok = torch.arange(s * k, device=x.device) // k  # slot -> token within row
-    bidx = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    buf = torch.zeros((b, e, cap + 1, d), dtype=dtype, device=x.device)
-    buf = buf.index_put((bidx, flat_e, pos_c), x[:, tok])  # row `cap` collects drops
-    buf = constrain(buf, None, "experts", None, None)
+    def dispatch(x, flat_e, pos_c):  # row `cap` collects drops
+        b = x.shape[0]
+        tok = torch.arange(s * k, device=x.device) // k  # slot -> token within row
+        bidx = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
+        buf = torch.zeros((b, e, cap + 1, d), dtype=dtype, device=x.device)
+        return buf.index_put((bidx, flat_e, pos_c), x[:, tok])
 
-    h_g = torch.einsum("becd,edf->becf", buf, params["w_gate"].to(dtype))
-    h_u = torch.einsum("becd,edf->becf", buf, params["w_up"].to(dtype))
-    h = F.silu(h_g) * h_u
-    out = torch.einsum("becf,efd->becd", h, params["w_down"].to(dtype))
+    def combine(out, flat_e, pos_c):  # (B, S*k, d)
+        bidx = torch.arange(out.shape[0], device=out.device)[:, None].expand_as(flat_e)
+        return out[bidx, flat_e, pos_c]
+
+    # on a mesh the slots are placed and read on each rank's batch rows
+    # (``local_rows``), and the buffer moves between them and the experts
+    buf = constrain(local_rows(dispatch, (x, flat_e, pos_c)), None, "experts", None, None)
+    out = _experts(buf, *(params[w].to(dtype) for w in ("w_gate", "w_up", "w_down")))
     out = constrain(out, None, "experts", None, None)
-
-    slot_out = out[bidx, flat_e, pos_c]  # (B, S*k, d)
+    slot_out = local_rows(combine, (constrain(out, "batch", None, None, None), flat_e, pos_c))
     slot_out = torch.where(dropped[..., None], torch.zeros((), dtype=dtype, device=x.device),
                            slot_out)
     y = (slot_out.reshape(b, s, k, d) * top_w[..., None].to(dtype)).sum(dim=2)

@@ -31,9 +31,11 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.common.config import ArchConfig
-from repro_torch.common.sharding import axis_index, current_mesh, mesh_size, shard_map, as_spec
+from repro_torch.common.sharding import (as_spec, axis_index, current_mesh, is_dtensor,
+                                         mesh_size, placements, shard_map)
 from repro_torch.distributed.comm import all_to_all, psum
 from repro_torch.models.moe import CAPACITY_FACTOR, top_k_lowest_index
 
@@ -44,8 +46,8 @@ def _axes_present(mesh) -> tuple[str, ...]:
     return tuple(a for a in ("data", "model") if a in as_spec(mesh).axis_names)
 
 
-def moe_a2a_applicable(cfg: ArchConfig) -> bool:
-    mesh = current_mesh()
+def moe_a2a_applicable(cfg: ArchConfig, mesh=None) -> bool:
+    mesh = mesh if mesh is not None else current_mesh()
     if mesh is None or mesh_size(mesh) <= 1:
         return False
     axes = _axes_present(mesh)
@@ -87,9 +89,11 @@ def route_slots(mine: torch.Tensor, router: torch.Tensor, bias: torch.Tensor, cf
 
 def moe_a2a_local(xs: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
                   wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, cfg: ArchConfig,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, *, merge: bool = True) -> torch.Tensor:
     """One rank's part: its data block xs (B_loc, S, D) and its experts
-    w* (E_loc, ·, ·) -> its block of the routed output (B_loc, S, D)."""
+    w* (E_loc, ·, ·) -> its block of the routed output (B_loc, S, D).  With
+    ``merge=False`` the model-axis slices are not summed: each rank returns
+    its own slice's rows and zeros elsewhere (a partial sum over model)."""
     mesh = mesh if mesh is not None else current_mesh()
     axes = _axes_present(mesh)
     sizes = as_spec(mesh).shape
@@ -125,7 +129,12 @@ def moe_a2a_local(xs: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
     rle = recv_le.reshape(-1)
     rok = recv_ok.reshape(-1)
     out_rows = torch.zeros_like(rows)
+    planned = is_fake(rows)  # a dry run: the routing's row counts are unknown
     for j in range(e_loc):  # each arrived row through its own expert only
+        if planned:  # every arrived slot, masked: the work at capacity
+            h = F.silu(rows @ wg[j].to(dtype)) * (rows @ wu[j].to(dtype))
+            out_rows = torch.where(((rle == j) & rok)[:, None], h @ wd[j].to(dtype), out_rows)
+            continue
         # an expert that got no row still runs (on none), so that every
         # rank's out_rows needs a gradient alike and the backward's
         # all-to-all runs on every rank
@@ -143,7 +152,7 @@ def moe_a2a_local(xs: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
     if mp > 1:  # merge the model-axis slices
         y_full = torch.zeros((flat.shape[0] // mp, mp, d), dtype=dtype, device=dev)
         y_full[:, mj] = y_mine
-        y_full = psum(y_full, "model", mesh).reshape(-1, d)
+        y_full = (psum(y_full, "model", mesh) if merge else y_full).reshape(-1, d)
     else:
         y_full = y_mine
     return y_full.reshape(b_loc, s, d)
@@ -166,6 +175,8 @@ def moe_ffn_a2a(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     the data axes; the expert weights global, or DTensors sharded over
     (data, model).  -> y (B, S, D) on every rank.  Call only when
     ``moe_a2a_applicable``."""
+    if is_dtensor(x):
+        return _moe_a2a_dtensor(params, cfg, x, x.device_mesh)
     mesh = current_mesh()
     x_spec, w_spec = _specs(mesh)
 
@@ -175,6 +186,35 @@ def moe_ffn_a2a(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return shard_map(inner, mesh, in_specs=(x_spec, (None, None), (None,), w_spec, w_spec, w_spec),
                      out_specs=x_spec)(
         x, params["router"], params["bias"], params["w_gate"], params["w_up"], params["w_down"])
+
+
+def _moe_a2a_dtensor(params, cfg: ArchConfig, x, mesh):
+    """``moe_ffn_a2a`` of a DTensor ``x``: each rank runs ``moe_a2a_local``
+    on its blocks, and the result stays laid out as ``x`` over the data
+    axes and partial over model (each model rank's token slice), which the
+    next op reduces as it needs (a ``shard_map`` output would be gathered
+    whole on every rank).  Gradients by the same layouts: ``x``'s partial
+    over model, the router's partial over the mesh, each rank's experts
+    its own."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    x_spec, w_spec = _specs(mesh)
+    names = list(as_spec(mesh).axis_names)
+
+    def over(spec):
+        return placements(spec, mesh)
+
+    x_pl = over(x_spec)
+    x_grad = tuple(Partial() if names[d] == "model" else p for d, p in enumerate(x_pl))
+    xs = x.redistribute(mesh, x_pl).to_local(grad_placements=x_grad)
+    every = (Partial(),) * mesh.ndim
+    router, bias = (params[k].redistribute(mesh, (Replicate(),) * mesh.ndim)
+                    .to_local(grad_placements=every) for k in ("router", "bias"))
+    wg, wu, wd = (params[k].redistribute(mesh, over(w_spec)).to_local(
+        grad_placements=over(w_spec)) for k in ("w_gate", "w_up", "w_down"))
+    y = moe_a2a_local(xs, router, bias, wg, wu, wd, cfg, mesh, merge=False)
+    y_pl = tuple(Partial() if names[d] == "model" else p for d, p in enumerate(x_pl))
+    return DTensor.from_local(y, mesh, y_pl, shape=x.shape, stride=x.stride())
 
 
 def moe_a2a_ref(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor, experts: Expert,

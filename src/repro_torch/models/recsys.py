@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.common import nn
 from repro_torch.common.config import ArchConfig
 from repro_torch.common.device import init_generator, resolve_device
+from repro_torch.common.sharding import is_dtensor, local_rows, take_rows
 
 # MLPerf DLRM Criteo-1TB per-field vocabulary sizes (26 categorical fields)
 CRITEO_VOCABS = (
@@ -41,8 +42,10 @@ CRITEO_VOCABS = (
 
 def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` at ``ids`` clamped to [0, V-1]: ``jnp.take(table,
-    ids, axis=0, mode="clip")``."""
-    return table[ids.long().clamp(0, table.shape[0] - 1)]
+    ids, axis=0, mode="clip")``.  A DTensor table is read in place
+    (``sharding.take_rows``)."""
+    ids = ids.long().clamp(0, table.shape[0] - 1)
+    return take_rows(table, ids) if is_dtensor(table) else table[ids]
 
 
 # ------------------------------------------------------------ EmbeddingBag
@@ -89,7 +92,10 @@ def init_dlrm(seed, cfg: ArchConfig, dtype=torch.float32, *, device="cuda"):
 
 
 def _dlrm_interact(emb: torch.Tensor) -> torch.Tensor:
-    """emb (B, F, D) -> upper-triangle of emb @ embᵀ, (B, F(F-1)/2)."""
+    """emb (B, F, D) -> upper-triangle of emb @ embᵀ, (B, F(F-1)/2); on a
+    mesh, on each rank's rows."""
+    if is_dtensor(emb):
+        return local_rows(_dlrm_interact, (emb,))
     f = emb.shape[1]
     z = torch.bmm(emb, emb.transpose(1, 2))
     iu, ju = torch.triu_indices(f, f, offset=1, device=emb.device)
@@ -279,10 +285,12 @@ def mind_retrieval(params, cfg: ArchConfig, batch, candidates: torch.Tensor) -> 
 
 
 # ------------------------------------------------------------------ losses
+def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return -(labels * F.logsigmoid(logits) + (1 - labels) * F.logsigmoid(-logits))
+
+
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return torch.mean(
-        -(labels * F.logsigmoid(logits) + (1 - labels) * F.logsigmoid(-logits))
-    )
+    return torch.mean(local_rows(_bce, (logits, labels)))
 
 
 FORWARD = {"dlrm-mlperf": dlrm_forward, "fm": fm_forward, "bst": bst_forward, "mind": mind_forward}

@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from repro_torch.common import nn
 from repro_torch.common.config import ArchConfig
 from repro_torch.common.device import init_generator, resolve_device
-from repro_torch.common.sharding import constrain
+from repro_torch.common.sharding import constrain, is_dtensor, take_rows
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.train.steps import _save_dots
@@ -103,12 +103,17 @@ def block_forward(
         a, new_cache = attn.mla_attention(params["attn"], cfg, h, q_pos, cache=cache)
     else:
         a, new_cache = attn.gqa_attention(params["attn"], cfg, h, q_pos, window=window, cache=cache)
+    # each branch's output (a sum over the model axis) laid out as the
+    # residual stream, its gradient too: else DTensor may scatter the sum
+    # over the sequence, which the products of the backward then flatten
+    a = constrain(a, "batch", None, None)
     if "post_ln1" in params:
         a = nn.rmsnorm(params["post_ln1"], a, eps=cfg.norm_eps)
     x = x + a
     h = nn.rmsnorm(params["ln2"], x, eps=cfg.norm_eps)
     use_moe = cfg.use_moe and layer_idx >= cfg.first_dense_layers
     f = moe_mod.moe_dispatch(params["ffn"], cfg, h) if use_moe else ffn(params["ffn"], cfg, h)
+    f = constrain(f, "batch", None, None)
     if "post_ln2" in params:
         f = nn.rmsnorm(params["post_ln2"], f, eps=cfg.norm_eps)
     return x + f, new_cache
@@ -240,17 +245,23 @@ def _run_blocks(model: LMModel, cfg: ArchConfig, x, q_pos, caches=None, remat: s
 def _embed_in(model: LMModel, cfg: ArchConfig, tokens: torch.Tensor, compute_dtype,
               scale: bool = True) -> torch.Tensor:
     # rows gathered, then cast: the values of the reference's cast-then-take
-    x = model.embed["table"][tokens.long()].to(compute_dtype)
+    table = model.embed["table"]
+    x = (take_rows(table, tokens.long()) if is_dtensor(table)
+         else table[tokens.long()]).to(compute_dtype)
     if scale and cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype, device=x.device)
     return x
 
 
 def _head(model: LMModel, cfg: ArchConfig, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    x = constrain(x, "batch", *(None,) * (x.dim() - 1))  # its gradient laid out so too
     if model.lm_head is None:
         logits = x @ model.embed["table"].to(compute_dtype).T
     else:
         logits = x @ model.lm_head["w"].to(compute_dtype)
+    # laid out by batch and vocab, its gradient too (DTensor may move the
+    # cross entropy's vocab reduction onto the sequence)
+    logits = constrain(logits, "batch", None, "vocab")
     return nn.softcap(logits.float(), cfg.logit_softcap)
 
 
@@ -268,8 +279,10 @@ def lm_logits(model: LMModel, cfg: ArchConfig, tokens: torch.Tensor,
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     # CE via logsumexp: no second (B,S,V) log-softmax buffer
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels[..., None].long())[..., 0]
+    # (B, S, 1) throughout: DTensor's gather from vocab-sharded logits is
+    # masked-partial, which a select of the last dimension would break
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    picked = logits.gather(-1, labels[..., None].long())
     return (lse - picked).mean()
 
 

@@ -28,31 +28,123 @@ def _blk(last: int) -> int:
     return min(QBLOCK, max(1, last))
 
 
+def _span(off: int, n: int, last: int) -> tuple[int, int, int, int]:
+    """Columns [off, off + n) of a last axis of ``last`` in blocks of
+    ``_blk(last)`` -> (first block, blocks touched, zeros before, zeros
+    after) that pad the span to whole blocks."""
+    b = _blk(last)
+    lo, hi = off // b, -(-(off + n) // b)
+    return lo, hi - lo, off - lo * b, hi * b - off - n
+
+
+def _quantize_span(x: torch.Tensor, off: int, last: int) -> torch.Tensor:
+    """Columns [off, off + x.shape[-1]) of a global last axis of ``last``
+    -> their absmax / 127 for every block of the global axis (0 for the
+    blocks they do not touch): the scale where no other span shares a
+    block, else this span's part of its maximum."""
+    n = x.shape[-1]
+    lo, nb, left, right = _span(off, n, last)
+    blocks = F.pad(x, (left, right)).reshape(*x.shape[:-1], nb, _blk(last))
+    part = blocks.abs().amax(-1) / 127.0  # (..., nb)
+    scale = x.new_zeros((*x.shape[:-1], -(-last // _blk(last))), dtype=torch.float32)
+    scale[..., lo:lo + nb] = part
+    return scale
+
+
+def _divide_span(x: torch.Tensor, scale: torch.Tensor, off: int, last: int) -> torch.Tensor:
+    n = x.shape[-1]
+    lo, nb, left, right = _span(off, n, last)
+    blocks = F.pad(x, (left, right)).reshape(*x.shape[:-1], nb, _blk(last))
+    q = torch.round(blocks / torch.clamp(scale[..., lo:lo + nb, None], min=1e-12))
+    return q.to(torch.int8).reshape(*x.shape[:-1], nb * _blk(last))[..., left:left + n]
+
+
+def _dequantize_span(q: torch.Tensor, scale: torch.Tensor, off: int, last: int) -> torch.Tensor:
+    n = q.shape[-1]
+    lo, nb, left, right = _span(off, n, last)
+    blocks = F.pad(q, (left, right)).float().reshape(*q.shape[:-1], nb, _blk(last))
+    out = blocks * scale[..., lo:lo + nb, None]
+    return out.reshape(*q.shape[:-1], nb * _blk(last))[..., left:left + n]
+
+
+def _last_axis_block(x) -> tuple[int, int]:
+    """(offset, length) of this rank's block of a DTensor's last axis: each
+    mesh dimension that shards it splits the block before it as
+    ``torch.chunk`` does, outer dimension first (plain integers, so that
+    it runs under ``FakeTensorMode`` too)."""
+    last, coord = x.dim() - 1, x.device_mesh.get_coordinate()
+    off, n = 0, int(x.shape[-1])
+    for d, pl in enumerate(x.placements):
+        if pl.is_shard(last):
+            blk = -(-n // x.device_mesh.size(d))
+            start = min(coord[d] * blk, n)
+            off, n = off + start, min(n, start + blk) - start
+    return off, n
+
+
+def _scale_placements(x, partial: bool) -> tuple:
+    """A moment's scale: the parameter's placements on every axis but the
+    last; on a mesh dimension that splits the last axis, replicated (or
+    partial, pending the maximum over the blocks the ranks share)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    last = x.dim() - 1
+    return tuple((Partial("max") if partial else Replicate()) if pl.is_shard(last) else pl
+                 for pl in x.placements)
+
+
+def _quantize_dtensor(x) -> dict:
+    """``quantize_blockwise`` of a DTensor, with global semantics: the blocks
+    run along the global last axis, wherever the shards cut it; 'q' takes
+    ``x``'s placements and 'scale' ``_scale_placements``' (the reference's
+    ``_opt_axes_like``).  A block that two ranks' shards share gets the
+    maximum of their absmaxes (one all-reduce over the mesh dimensions
+    that split the last axis)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh, last = x.device_mesh, x.shape[-1]
+    off, _ = _last_axis_block(x)
+    local = x.to_local()
+    gshape = (*x.shape[:-1], -(-last // _blk(last)))
+    stride = tuple(math.prod(gshape[d + 1:]) for d in range(len(gshape)))
+    scale = DTensor.from_local(_quantize_span(local, off, last), mesh,
+                               _scale_placements(x, partial=True), shape=gshape, stride=stride)
+    scale = scale.redistribute(mesh, _scale_placements(x, partial=False))
+    q = _divide_span(local, scale.to_local(), off, last)
+    return {"q": DTensor.from_local(q, mesh, x.placements, shape=x.shape, stride=x.stride()),
+            "scale": scale}
+
+
 def quantize_blockwise(x: torch.Tensor) -> dict[str, torch.Tensor]:
     """x (..., L) -> {'q': int8 (..., L), 'scale': f32 (..., ceil(L/B))},
     bit for bit the reference's: absmax / 127 per block, then x / max(scale,
-    1e-12) rounded half to even."""
+    1e-12) rounded half to even.  A DTensor gives DTensors
+    (``_quantize_dtensor``)."""
+    from torch.distributed.tensor import DTensor
+
     if x.dim() == 0:
         x = x.reshape(1)
+    if isinstance(x, DTensor):
+        return _quantize_dtensor(x)
     last = x.shape[-1]
-    b = _blk(last)
-    pad = (-last) % b
-    blocks = F.pad(x, (0, pad)).reshape(*x.shape[:-1], -1, b)
-    scale = blocks.abs().amax(-1) / 127.0  # (..., nblk)
-    q = torch.round(blocks / torch.clamp(scale[..., None], min=1e-12)).to(torch.int8)
-    q = q.reshape(*x.shape[:-1], last + pad)[..., :last]
-    return {"q": q, "scale": scale.float()}
+    scale = _quantize_span(x, 0, last)
+    return {"q": _divide_span(x, scale, 0, last), "scale": scale}
 
 
 def dequantize_blockwise(qs: dict[str, torch.Tensor], shape: tuple[int, ...]) -> torch.Tensor:
+    """The fp32 moment of shape ``shape``; DTensor values give a DTensor laid
+    out as 'q'."""
+    from torch.distributed.tensor import DTensor
+
+    q = qs["q"]
     if len(shape) == 0:
-        return (qs["q"].float() * qs["scale"]).reshape(())
-    last = shape[-1]
-    b = _blk(last)
-    pad = (-last) % b
-    blocks = F.pad(qs["q"], (0, pad)).float().reshape(*shape[:-1], -1, b)
-    out = blocks * qs["scale"][..., None]
-    return out.reshape(*shape[:-1], last + pad)[..., :last]
+        return (q.float() * qs["scale"]).reshape(())
+    if isinstance(q, DTensor):
+        off, _ = _last_axis_block(q)
+        out = _dequantize_span(q.to_local(), qs["scale"].to_local(), off, shape[-1])
+        return DTensor.from_local(out, q.device_mesh, q.placements, shape=q.shape,
+                                  stride=q.stride())
+    return _dequantize_span(q, qs["scale"], 0, shape[-1])
 
 
 # ------------------------------------------------------------- schedules
@@ -76,8 +168,8 @@ def init_adam(params: list[torch.Tensor], cfg: OptimizerConfig) -> AdamState:
     if cfg.moment_dtype not in ("fp32", "int8"):
         raise ValueError(f"unknown moment_dtype {cfg.moment_dtype!r}")
     if cfg.moment_dtype == "int8":
-        def mk(p):
-            return quantize_blockwise(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
+        def mk(p):  # a DTensor parameter's moments are DTensors laid out as it is
+            return quantize_blockwise(torch.zeros_like(p, dtype=torch.float32))
     else:
         def mk(p):
             return torch.zeros_like(p, dtype=torch.float32)

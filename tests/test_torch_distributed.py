@@ -169,14 +169,15 @@ def _checks(rank: int, d: dict, out_dir: str) -> dict:
         from repro_torch.models import transformer as tf
         from repro_torch.train import make_train_step
 
-        if case == "dsv3":
+        if case.startswith("dsv3"):
             rc = reduce_config(get_arch("deepseek-v3-671b")[0])
         else:
             rc = reduce_config(get_arch("gemma2-2b")[0]).replace(**TRAIN)
         cell = build_cell(rc, ShapeSpec(name="t", kind="train", seq_len=TRAIN_S,
                                         global_batch=TRAIN_B))
-        # fp32 moments: the int8 ones are not laid out on a mesh yet (ROADMAP)
-        opt_cfg = dataclasses.replace(cell.opt_cfg, moment_dtype="fp32")
+        # fp32 moments, and the cell's own int8 moments (deepseek-v3's)
+        opt_cfg = dataclasses.replace(cell.opt_cfg, moment_dtype="int8" if case == "dsv3_int8"
+                                      else "fp32")
         step = cell.step if case == "bf16" else make_train_step(
             lambda m, b: tf.lm_loss(m, rc, b, compute_dtype=torch.float32, remat="dots"),
             opt_cfg)
@@ -195,10 +196,56 @@ def _checks(rank: int, d: dict, out_dir: str) -> dict:
             moe_a2a.moe_ffn_a2a = a2a
         out["a2a_calls"] = calls[0]
         out["moe_layers"] = sum(name.endswith("ffn.router") for name in out["leaves"])
+        if case == "dsv3_int8":  # the moments' layout as the plan lays it out
+            from repro_torch.common.sharding import sharding_for_shape
+            from repro_torch.launch.dryrun import _opt_axes_like, opt_specs_like
+
+            specs = opt_specs_like(cell.param_specs, opt_cfg)
+            axes = _opt_axes_like(cell.param_axes, specs)
+            out["planned"] = {
+                name: {k: [str(p) for p in sharding_for_shape(ax[k], tuple(sp[k].shape), grid)]
+                       for k in ("q", "scale")}
+                for name, ax, sp in zip(sorted(cell.param_specs), axes.m, specs.m)}
         return out
     check("train_bf16", lambda: train("bf16"))
     check("train_fp32", lambda: train("fp32"))
     check("train_dsv3", lambda: train("dsv3"))
+    check("train_dsv3_int8", lambda: train("dsv3_int8"))
+
+    def int8_moments():
+        """Two int8 AdamW updates of given gradients on the mesh against the
+        same updates in one process, for three layouts: the fault's smallest
+        input, a (4, 8) parameter split over data's 2 ranks; a last axis of
+        1,792 split 448 a rank over model's 4 (blocks of 256 cut by the
+        shards); and one of 1,000 split 250 a rank."""
+        from torch.distributed.tensor import Replicate
+
+        from repro_torch.common.config import OptimizerConfig
+        from repro_torch.train.optimizer import adam_update, init_adam
+
+        # no clipping: the global norm sums the shards in another order
+        cfg = OptimizerConfig(moment_dtype="int8", warmup_steps=0, grad_clip=0.0)
+        gen = torch.Generator().manual_seed(5)
+        out = {}
+        for name, shape, pl in (("rows", (4, 8), (Shard(0), Replicate())),
+                                ("last448", (3, 1792), (Replicate(), Shard(1))),
+                                ("last250", (2, 1000), (Shard(0), Shard(1)))):
+            p0 = torch.randn(shape, generator=gen)
+            gs = [torch.randn(shape, generator=gen) for _ in range(2)]
+            plain, mesh_p = p0.clone(), distribute_tensor(p0.clone(), grid, pl)
+            st, st_mesh = init_adam([plain], cfg), init_adam([mesh_p], cfg)
+            for g in gs:  # two steps: the second dequantizes the first's moments
+                adam_update([g], st, [plain], cfg)
+                adam_update([distribute_tensor(g, grid, pl)], st_mesh, [mesh_p], cfg)
+            out[name] = {
+                "param_equal": torch.equal(mesh_p.full_tensor(), plain),
+                "moments_equal": all(
+                    torch.equal(getattr(st_mesh, k)[0][f].full_tensor(), getattr(st, k)[0][f])
+                    for k in ("m", "v") for f in ("q", "scale")),
+                "placements": [[str(p) for p in st_mesh.m[0][f].placements]
+                               for f in ("q", "scale")]}
+        return out
+    check("int8_moments", int8_moments)
 
     def placement():
         from repro_torch.common.sharding import (abstract_like, logical_to_sharding,
@@ -500,6 +547,45 @@ def test_dtensor_train_step_deepseek_v3_through_the_all_to_all(runs):
         assert v["grad_diff"] <= rel * v["grad_max"], (name, v)
     _params_within(got, 0.999)
     _sharded(got)
+
+
+def test_dtensor_train_step_deepseek_v3_int8_moments(runs):
+    """The same step with deepseek-v3's own int8 AdamW moments on the mesh:
+    'q' and 'scale' are DTensors laid out as ``_opt_axes_like`` plans them,
+    and the step equals the one-process int8 step to the fp32-moment case's
+    tolerances; each leaf's first moment (dequantized) within 2e-2 of its
+    largest element, the gradients' own bf16 tolerance."""
+    got = _got(runs, "train_dsv3_int8")
+    assert got["moe_layers"] > 0 and got["a2a_calls"] >= got["moe_layers"], got["a2a_calls"]
+    _close(got, "loss", 1e-5)
+    _close(got, "grad_norm", 1e-5)
+    for name, v in got["leaves"].items():
+        rel = 2e-2 if v["dtype"] == "bfloat16" else 1e-5
+        assert v["grad_diff"] <= rel * v["grad_max"], (name, v)
+        assert v["m_diff"] <= 2e-2 * v["m_max"], (name, v)
+        assert v["m_placements"] == got["planned"][name], name
+    # and some leaf's last axis is split: its scale is replicated where q is not
+    assert any(v["m_placements"]["scale"] != v["m_placements"]["q"]
+               for v in got["leaves"].values())
+    _params_within(got, 0.999)
+    _sharded(got)
+
+
+@pytest.mark.parametrize("layout", ["rows", "last448", "last250"])
+def test_int8_adam_moments_on_a_mesh_equal_one_process(runs, layout):
+    """Two int8 AdamW updates of given gradients, on the mesh and in one
+    process, are bit for bit equal: parameter, 'q' and 'scale' of both
+    moments.  Blocks of 256 run along the global last axis, also where the
+    shards cut them (448 or 250 columns a rank); 'q' takes the parameter's
+    placements and 'scale' is replicated on the mesh dimensions that split
+    the last axis."""
+    got = _got(runs, "int8_moments")[layout]
+    assert got["param_equal"] and got["moments_equal"], got
+    q_pl, scale_pl = got["placements"]
+    want_q = {"rows": ["S(0)", "R"], "last448": ["R", "S(1)"], "last250": ["S(0)", "S(1)"]}
+    want_scale = {"rows": ["S(0)", "R"], "last448": ["R", "R"], "last250": ["S(0)", "R"]}
+    short = lambda pl: [p.replace("Shard(dim=", "S(").replace("Replicate()", "R") for p in pl]
+    assert short(q_pl) == want_q[layout] and short(scale_pl) == want_scale[layout], got
 
 
 # ------------------------------------------------------------ placements

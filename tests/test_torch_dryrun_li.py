@@ -302,16 +302,38 @@ def _port_grid(arch: str):
     return out
 
 
+def _with_row_sharded_tables(arch: str, want: dict) -> dict:
+    """The reference's per-rank shards with the port's one departure: an
+    embedding table whose vocabulary the model axis (16) does not divide
+    is row-sharded as ``torch.chunk`` splits it (rank 0 holds ceil(V / 16)
+    rows) where the reference replicates it (``sharding.UNEVEN``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell
+
+    cfg, shapes, _ = get_arch(arch)
+    cell = build_cell(cfg, next(s for s in shapes if s.name == GRID[arch]))
+    out = dict(want)
+    for name, axes in cell.param_axes.items():
+        if axes[0] != "table_vocab":
+            continue
+        v, dim = cell.param_specs[name].shape
+        if v % 16 and v >= 16:
+            rows = -(-v // 16)
+            assert want[name] == [[v, dim], v * dim * 4], name  # the reference replicates it
+            out[name] = [[rows, dim], rows * dim * 4]
+    return out
+
+
 @pytest.mark.parametrize("arch", list(GRID))
 def test_grid_cell_param_shards_equal_reference(runs, arch):
     got, want = _port_grid(arch)["params"], runs[2]["grid"][arch]["params"]
-    assert got == want
+    assert got == _with_row_sharded_tables(arch, want)
 
 
 @pytest.mark.parametrize("arch", list(GRID))
 def test_grid_cell_optimizer_shards_equal_reference(runs, arch):
     got, want = _port_grid(arch), runs[2]["grid"][arch]
     for part in ("m", "v"):
-        assert got[part] == want[part], part
+        assert got[part] == _with_row_sharded_tables(arch, want[part]), part
     if arch.startswith("deepseek-v3"):  # int8 moments: 'q' mirrors the param, 'scale' drops
         assert any(n.endswith(".scale") for n in got["m"])

@@ -393,6 +393,19 @@ def test_pfor_streams_match_reference_decoders():
         assert np.array_equal(g, ref_undgaps(ref_optpfd_decode(w, len(x))))
 
 
+def test_decode_stream_equals_reference():
+    """``decode_stream`` (one stream through ``decode_lists``) gives the
+    reference's ids bit for bit, dtype included."""
+    from repro.index.compress import encode_postings as ref_encode
+    from repro_torch.kernels.pfor.ops import decode_stream
+
+    lists = _optpfd_lists(np.random.default_rng(8))
+    for x in lists:
+        w = ref_encode(x, "optpfd")
+        got, want = decode_stream(w, len(x), device="cpu"), ref_decode_stream(w, len(x))
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
 def test_pfor_batch_of_lists_and_overflow():
     from repro_torch.index.compress import encode_postings, optpfd_encode, undgaps
 
