@@ -16,8 +16,9 @@ card's name and power limit first, then one JSON line per phase:
   A      the main path at Robust scale: corpus, inverted index, 300 training
          steps of the membership model, zero-false-negative thresholds, then
          128 conjunctive queries through ``BooleanEngine.query_batch`` at one
-         and four shards (Algorithm 3 candidates on the bitset and membership
-         kernels, exact verification against the compressed tier-2 store,
+         and four shards (Algorithm 3 candidates on the masked membership
+         launch, which scores only each slot's live blocks, and the bitset
+         kernel, exact verification against the compressed tier-2 store,
          optpfd lists decoded on the pfor kernel, a batch's lists in one
          launch), asserted equal to brute force; wall-clock seconds per
          phase, and per batch the decode accounting: lists decoded, calls
@@ -63,9 +64,14 @@ card's name and power limit first, then one JSON line per phase:
   C      each kernel against its plain PyTorch version on the card, on the
          largest inputs phases A, B and R handed it: the difference, the
          device time (CUDA-graph replay) and the time of calls issued one
-         by one, and the bound from its bytes and operations; a second row
-         for membership at the shapes most of its launches saw (the K=4
-         shard), for fused_topk on the tile with the most true candidates,
+         by one, and the bound from its bytes and operations; membership
+         (Algorithm 1's dense launch) and membership_masked (Algorithm 3's
+         live blocks only: its words equal the dense launch's there, word for
+         word, zero elsewhere; the bound counts the live pairs) each at A's
+         K=1 block batch and at the shape most masked launches saw (the K=4
+         shard), the dense launch's rows led by phase W's (case
+         ``W_exhaustive_step``: the only shape the path launches it at);
+         a second row for fused_topk on the tile with the most true candidates,
          and for pfor and plm_decode on one list of about 100,000 ids
          (``case`` tells the rows apart); bitset is Algorithm 3's fused
          block step (``block_candidates``) at A's K=1 shape, bm25_score
@@ -116,8 +122,9 @@ card's name and power limit first, then one JSON line per phase:
   A_block
          Algorithm 3's candidate step on one of A's K=1 batches, after C
          (its calls are all at that shape): its time (``block_query_ms``),
-         launches and device memory allocated per call (one membership and one bitset launch and less than a
-         (Q*T, words) tensor, asserted where the package has the fused
+         launches and device memory allocated per call (one masked membership
+         launch, no dense one, one bitset launch and less than a (Q*T, words)
+         tensor, asserted where the package has the fused
          ``block_candidates``)
   C_dense
          phase C's dense_topk rows and the dense passes of phases A to S
@@ -167,15 +174,21 @@ card's name and power limit first, then one JSON line per phase:
          3,138,816-doc x 128 bf16 shard and a 60,000-term shard at the shapes
          ``run()`` plans (the allocated bytes asserted equal to its per-rank
          argument bytes); ``exhaustive_step`` on 256 queries x 8 terms (the
-         valid slots scored on membership, ANDed over the terms on bitset),
+         valid slots scored on the dense membership launch, which reads the
+         bf16 table in place, ANDed over the terms on bitset),
          its words against the plain versions on the first 65,536 docs and
          on a random 1% of the words, word for word outside NUMERIC_MARGIN of
          tau; ``block_step`` on 64 queries x 64 candidate blocks of 1,024 docs
          (the block AND on bitset, against ``bitset_and_popcount_ref``; the
          candidates' hits against the exhaustive words' bits); ms (CUDA
          events, the first call apart), the device time by kernel of one
-         exhaustive call (torch.profiler), peak bytes, the bound; its
-         launches join the kernels line
+         exhaustive call (torch.profiler), peak bytes (absolute, and over
+         what the card held before the step), the bound; its
+         launches join the kernels line, and its membership call alone
+         (row 1c: its words against the plain version on every doc and
+         against the launch on the table widened to fp32, word for word;
+         device ms from the profile, eager, plain and torch.matmul ms, the
+         bound) leads that line's membership rows
   X      the mesh world, last: 4 ranks spawned on the card with gloo (a
          world of several ranks on one card cannot run NCCL), every
          collective through host memory, bytes counted: X1 the collective
@@ -2089,8 +2102,9 @@ def block_step(algorithms, kernels: dict, keep: dict) -> dict:
     beside its kernels' own times: its launches and the device memory it
     allocates in one call, then its time (CUDA events).  Launches made
     here are taken back off the counters.  A package whose block step is
-    the fused ``block_candidates`` must make one membership and one bitset
-    launch and allocate less than a (Q*T, words) tensor."""
+    the fused ``block_candidates`` must make one masked membership launch,
+    no dense one, and one bitset launch, and allocate less than a (Q*T,
+    words) tensor."""
     import torch
 
     state, q = keep["state"], keep["queries"]
@@ -2112,10 +2126,11 @@ def block_step(algorithms, kernels: dict, keep: dict) -> dict:
            "block_query_ms": ms, "launches_per_call": {n: c for n, c in launched.items() if c},
            "allocated_bytes_per_call": peak, "qt_words_bytes": 4 * Q * T * words}
     log(f"[A] block step: {out}")
+    want = {"membership_masked": 1, "membership": 0, "bitset": 1}
     if entry == "block_candidates" and (
-            launched["membership"] != 1 or launched["bitset"] != 1 or peak >= 4 * Q * T * words):
-        raise AssertionError(f"Algorithm 3's block step is not one membership and one bitset "
-                             f"launch without a (Q*T, words) tensor: {out}")
+            any(launched[n] != c for n, c in want.items()) or peak >= 4 * Q * T * words):
+        raise AssertionError(f"Algorithm 3's block step is not {want} launches without a "
+                             f"(Q*T, words) tensor: {out}")
     return out
 
 
@@ -2253,8 +2268,15 @@ def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
                    "differing_bits": n_differ, "bits_within_margin": n_near,
                    "margin": NUMERIC_MARGIN})
 
-    membership_row(rec.inputs["membership"], "largest")
-    membership_row(rec.second["membership"][0], "most_launched_shape")
+    # rows 1 and 1b: the dense launch on the masked launch's inputs (A's K=1
+    # block batch and the K=4 shard shape most of its launches saw); the path
+    # launches the dense entry only in phase W, whose row (1c) leads the
+    # kernels line
+    largest, most = rec.inputs["membership_masked"], rec.second["membership_masked"][0]
+    membership_row(largest, "largest")
+    membership_row(most, "most_launched_shape")
+    masked_row(largest, rec.kwargs["membership_masked"]["live"], row, "largest")
+    masked_row(most, rec.second["membership_masked"][1]["live"], row, "most_launched_shape")
 
     args = rec.inputs["bitset"]
     got, want = block_candidates(*args), block_candidates_ref(*args)
@@ -2323,6 +2345,62 @@ def phase_c(rec: Recorder, launch_counts: dict, keep: dict) -> list[dict]:
     if "mlp_two_tier" in rec.second:
         mlp_two_tier_row(*rec.second["mlp_two_tier"], row, "most_candidates")
     return rows
+
+
+def masked_row(inputs, live, row, case: str) -> None:
+    """The masked membership launch (Algorithm 3's rows) on the live-block
+    masks a block batch gave it: its words equal the dense launch's in the
+    live words, word for word (the same arithmetic), and are zero in the
+    others; outside the margin of tau they equal its plain version's.  The
+    bound counts the live pairs' FMAs (2 operations each) and the bytes of
+    the slot rows, the live docs' rows, the rows of words and the block
+    words read; the library column is ``torch.matmul`` of every pair (fp32,
+    logits only), as the dense row's."""
+    import torch
+
+    from repro_torch.core.learned_bloom import NUMERIC_MARGIN
+    from repro_torch.kernels.membership.kernel import membership_bitmask
+    from repro_torch.kernels.membership.ref import (live_words, membership_bitmask_ref,
+                                                    membership_logits_ref)
+
+    qe, de, tau, bias = inputs
+    (S, E), D = qe.shape, de.shape[0]
+    got = membership_bitmask(qe, de, tau, bias, live=live)
+    alive = live_words(live, got.shape[1])
+    dense = membership_bitmask(qe, de, tau, bias)
+    if not torch.equal(got, torch.where(alive, dense, 0)):
+        raise AssertionError(f"membership_masked ({case}): its live words differ from the dense "
+                             f"launch's, or a dead word is not zero")
+    want = membership_bitmask_ref(qe, de, tau, bias, live)
+    logits = membership_logits_ref(qe, de, bias)
+    gap = (logits - tau[:, None]).abs()
+    near = gap <= NUMERIC_MARGIN * (1 + tau.abs()[:, None])
+    differ = bits_of(got ^ want, D)
+    outside = int((differ & ~near).sum())
+    if outside:
+        raise AssertionError(f"membership_masked ({case}): {outside} bits differ outside the "
+                             f"margin")
+    n_differ = int(differ.sum())
+    err = float(gap[differ].max()) if n_differ else 0.0
+    del logits, gap, near, differ, dense, want
+    live_words_n = int(alive.sum())
+    live_pairs = int(alive.repeat_interleave(32, dim=1)[:, :D].sum())
+    live_docs = int(alive.any(dim=0).repeat_interleave(32)[:D].sum())
+    table, terms = live.table, live.terms
+    del alive
+    row("membership_masked", "src/repro/kernels/membership/kernel.py:41",
+        lambda: membership_bitmask(qe, de, tau, bias, live=live),
+        lambda: membership_bitmask_ref(qe, de, tau, bias, live),
+        err, 4 * (S * E + live_docs * E + S + S * got.shape[1]
+                  + int((terms >= 0).sum()) * table.shape[1] + terms.numel() + S),
+        2 * live_pairs * E, library=lambda: torch.matmul(qe, de.T), source="membership",
+        extra={"case": case, "shape": {"S": S, "D": D, "E": E, "Q": int(terms.shape[0]),
+                                       "T": int(terms.shape[1]),
+                                       "block_size": live.block_size},
+               "live_pairs": live_pairs, "all_pairs": S * D, "live_share": live_pairs / (S * D),
+               "live_words": live_words_n, "live_docs": live_docs,
+               "library": "torch.matmul, fp32, logits of every pair",
+               "differing_bits": n_differ, "margin": NUMERIC_MARGIN})
 
 
 GELU_OPS = 9  # x*x, *x, the fma (2), *sqrt(2/pi), tanh (as one), 1+, 0.5*x, the product
@@ -2751,6 +2829,7 @@ W_QUERIES = 256  # one rank's share of serve_queries' 4,096 (the 16-way data axi
 W_BLOCK_QUERIES = 64  # one rank's share of serve_block's 1,024
 W_CHECK_DOCS = 65_536  # the plain versions' first docs
 W_CHECK_SHARE = 0.01  # and this share of the words, drawn at random
+W_CHECK_CHUNK = 2 ** 17  # docs a chunk of row 1c's check on every doc (1 GiB of logits)
 
 
 def _w_plain_words(te, de_rows, tau, valid):
@@ -2782,6 +2861,89 @@ def _w_plain_words(te, de_rows, tau, valid):
     for i in range(1, t):
         near = near | full[:, i]
     return words, near
+
+
+def _profiled_ms(profile: dict | None, kernel: str) -> float | None:
+    """Device ms of the named kernel in a ``_device_breakdown`` profile;
+    None where the profiler saw no device activity."""
+    if profile is None:
+        return None
+    hits = [k["ms"] for k in profile["top"] if f"{kernel}_kernel" in k["kernel"]]
+    if len(hits) != 1:
+        raise AssertionError(f"{kernel}: {len(hits)} profile rows in {profile['top']}")
+    return hits[0]
+
+
+def _w_membership_row(te, de, tau, step_ms: float) -> dict:
+    """Row 1c, the kernels line's ``membership`` row: the dense launch as
+    ``exhaustive_step`` makes it (the valid slots' rows, the bf16 doc table
+    read in place).  Its words against the plain version on every doc, in
+    W_CHECK_CHUNK doc chunks (outside NUMERIC_MARGIN (1 + |tau|) of tau
+    they must agree), and against the launch on the table widened to fp32,
+    word for word (the widening is exact).  ``ms`` is the kernel's device
+    time in the step's profile (``step_ms``; where the profiler saw nothing,
+    ``eager_ms``) and ``eager_ms`` CUDA events over three calls one by one
+    (the launch gaps are below 0.1% of a 37 ms call); the plain version and ``torch.matmul`` of
+    the same product in fp32 (logits only) run in W_LIB_CHUNKS doc chunks
+    of the widened table (25.7 GB of logits whole).  The bound: the slot
+    rows, the bf16 table, the thresholds and the words moved once, 2 S D E
+    operations.  These launches are no part of the path's count."""
+    import torch
+
+    from repro_torch.core.learned_bloom import NUMERIC_MARGIN
+    from repro_torch.kernels.membership.kernel import KERNEL as MEMBERSHIP, membership_bitmask
+    from repro_torch.kernels.membership.ref import (membership_bitmask_ref,
+                                                    membership_logits_ref, pack_bool_words)
+
+    counted = MEMBERSHIP.launches
+    (S, E), D = te.shape, de.shape[0]
+    got = membership_bitmask(te, de, tau, 0.0)
+    n_differ = n_near = 0
+    err = 0.0
+    for c0 in range(0, D, W_CHECK_CHUNK):
+        logits = membership_logits_ref(te, de[c0:c0 + W_CHECK_CHUNK], 0.0)
+        gap = (logits - tau[:, None]).abs()
+        near = gap <= NUMERIC_MARGIN * (1 + tau.abs()[:, None])
+        want = pack_bool_words(logits >= tau[:, None])
+        differ = bits_of(got[:, c0 // 32:c0 // 32 + want.shape[1]] ^ want, logits.shape[1])
+        outside = int((differ & ~near).sum())
+        if outside:
+            raise AssertionError(f"W membership: {outside} bits differ outside the margin "
+                                 f"in docs {c0}..")
+        n_differ += int(differ.sum())
+        n_near += int(near.sum())
+        if differ.any():
+            err = max(err, float(gap[differ].max()))
+        del logits, gap, near, want, differ
+    de32 = de.float()
+    if not torch.equal(got, membership_bitmask(te, de32, tau, 0.0)):
+        raise AssertionError("W membership: the bf16 table's words differ from the widened "
+                             "fp32 table's")
+    eager_ms, _ = _event_ms(lambda: membership_bitmask(te, de, tau, 0.0), 1, 3)
+    MEMBERSHIP.launches = counted
+    chunks = de32.split(-(-D // W_LIB_CHUNKS))
+    library_ms, _ = _event_ms(lambda: [tuple((te @ c.T).shape) for c in chunks], 1, 3)
+    plain_ms, _ = _event_ms(lambda: [tuple(membership_bitmask_ref(te, c, tau, 0.0).shape)
+                                     for c in chunks], 0, 1)
+    del de32, chunks
+    b_bytes = (4 * S * E + 2 * D * E + 4 * S + 4 * S * got.shape[1]) / HBM_BYTES_PER_S * 1e3
+    b_ops = 2 * S * D * E / FP32_FLOPS * 1e3
+    return {"name": "membership", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/membership.cu",
+            "replaces": "src/repro/kernels/membership/kernel.py:41", "max_abs_err": err,
+            "ms": eager_ms if step_ms is None else step_ms, "plain_ms": plain_ms,
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": library_ms,
+            "eager_ms": eager_ms, "plain_eager_ms": plain_ms, "plain_timing": "eager",
+            "case": "W_exhaustive_step",
+            "shape": {"Q": S, "D": D, "E": E, "doc_dtype": str(de.dtype).split(".")[-1]},
+            "timing": ("ms: eager_ms, the profiler saw no device time" if step_ms is None
+                       else "ms: torch.profiler device time in one step")
+                      + f"; eager_ms, plain_ms, library_ms: CUDA events, the last two in "
+                        f"{W_LIB_CHUNKS} doc chunks",
+            "library": "torch.matmul, fp32, logits only", "differing_bits": n_differ,
+            "bits_within_margin": n_near, "margin": NUMERIC_MARGIN,
+            "bf16_words_equal_fp32": True}
 
 
 def phase_w(dev) -> dict:
@@ -2819,6 +2981,8 @@ def phase_w(dev) -> dict:
                 for n in exh}
     seconds = {"setup": time.perf_counter() - t0}
 
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     first_ms, words = _event_ms(lambda: li.exhaustive_step(params, queries), 0, 1)
     peak = torch.cuda.max_memory_allocated()
@@ -2849,22 +3013,9 @@ def phase_w(dev) -> dict:
                         "differing_bits_within_margin": int(_popcount((got ^ want) & near)),
                         "hits": int(_popcount(got))}
     seconds["plain_checks"] = time.perf_counter() - t1
-    # row 1c: the step's membership call alone (eager), torch.matmul of the
-    # same fp32 product (logits only) and the plain version, both in
-    # W_LIB_CHUNKS doc chunks; these launches are no part of the path's count
-    from repro_torch.kernels.membership.kernel import KERNEL as MEMBERSHIP, membership_bitmask
-    from repro_torch.kernels.membership.ref import membership_bitmask_ref
-
-    counted = MEMBERSHIP.launches
-    de32 = params["doc_embed"].float()
-    tau32 = tau.float().contiguous()
-    eager_ms, _ = _event_ms(lambda: membership_bitmask(te.contiguous(), de32, tau32, 0.0), 1, 3)
-    MEMBERSHIP.launches = counted
-    chunks = de32.split(n_docs // W_LIB_CHUNKS)
-    library_ms, _ = _event_ms(lambda: [tuple((te @ c.T).shape) for c in chunks], 1, 3)
-    plain_ms, _ = _event_ms(lambda: [tuple(membership_bitmask_ref(te, c, tau32, 0.0).shape)
-                                     for c in chunks], 0, 1)
-    del de32, chunks
+    membership = _w_membership_row(te.contiguous(), params["doc_embed"],
+                                   tau.float().contiguous(), _profiled_ms(profile, "membership"))
+    seconds["membership_row"] = time.perf_counter() - t1 - seconds["plain_checks"]
     hits = int(_popcount(words))
     flop = 2 * int(valid.sum()) * n_docs * e
     bound = {"ops_ms": flop / FP32_FLOPS * 1e3,
@@ -2915,15 +3066,14 @@ def phase_w(dev) -> dict:
                "rank's 60,000-term shard, so no cross-rank gather",
         "serve_queries": {"docs": n_docs, "queries": q_exh, "slots": int(valid.sum()),
                           "words": n_words, "ms": ms, "first_call_ms": first_ms,
-                          "peak_bytes": peak, "profile": profile,
+                          "peak_bytes": peak, "peak_over_base_bytes": peak - base,
+                          "profile": profile,
                           "argument_bytes": plan["serve_queries"]["argument_bytes"],
                           "hits": hits, "fp32_flop": flop, "tflop_s": flop / ms / 1e9,
                           "bound_ms": max(bound.values()),
                           "bound_by": "operations" if bound["ops_ms"] >= bound["bytes_ms"]
                           else "bytes", "checks": checks,
-                          "membership": {"eager_ms": eager_ms, "library_ms": library_ms,
-                                         "library": f"torch.matmul, fp32, {W_LIB_CHUNKS} doc "
-                                                    f"chunks", "plain_ms": plain_ms}},
+                          "membership": membership},
         "serve_block": {"queries": W_BLOCK_QUERIES, "candidates": int(cand.shape[1]),
                         "ms": block_ms, "peak_bytes": block_peak,
                         "argument_bytes": plan["serve_block"]["argument_bytes"],
@@ -3192,7 +3342,7 @@ def _x_kernel_launches() -> int:
     import importlib
 
     total = 0
-    for mod, attrs in (("membership", ("KERNEL",)), ("bitset", ("KERNEL",)),
+    for mod, attrs in (("membership", ("KERNEL", "MASKED")), ("bitset", ("KERNEL",)),
                        ("guided_search", ("KERNEL",)), ("plm_decode", ("KERNEL",)),
                        ("pfor", ("KERNEL",)), ("bm25_score", ("KERNEL",)),
                        ("fused_query", ("KERNEL",)), ("two_tier", ("KERNEL",)),
@@ -3555,6 +3705,7 @@ def main() -> int:
     from repro_torch.kernels.guided_search import ops as guided_ops
     from repro_torch.kernels.guided_search.kernel import KERNEL as GUIDED
     from repro_torch.kernels.membership.kernel import KERNEL as MEMBERSHIP
+    from repro_torch.kernels.membership.kernel import MASKED as MEMBERSHIP_MASKED
     from repro_torch.kernels.plm_decode import ops as decode_ops
     from repro_torch.kernels.plm_decode.kernel import KERNEL as DECODE
     from repro_torch.kernels.pfor import ops as pfor_ops
@@ -3565,8 +3716,9 @@ def main() -> int:
     from repro_torch.kernels.fused_query import ops as fused_ops
     from repro_torch.kernels.fused_query.kernel import KERNEL as FUSED
 
-    kernels = {"membership": MEMBERSHIP, "bitset": BITSET, "guided_search": GUIDED,
-               "plm_decode": DECODE, "pfor": PFOR, "bm25_score": BM25, "fused_topk": FUSED}
+    kernels = {"membership": MEMBERSHIP, "membership_masked": MEMBERSHIP_MASKED,
+               "bitset": BITSET, "guided_search": GUIDED, "plm_decode": DECODE, "pfor": PFOR,
+               "bm25_score": BM25, "fused_topk": FUSED}
     if hasattr(dense, "KERNEL"):  # a package whose dense pass is a kernel
         kernels["dense_topk"] = dense.KERNEL
     if "S" in phases:  # a package with Algorithm 2's kernel
@@ -3587,7 +3739,9 @@ def main() -> int:
 
     rec = Recorder()
     if "C" in phases:
-        rec.wrap(algorithms, "membership_bitmask", "membership", shape_frequency())
+        rec.wrap(algorithms, "membership_bitmask",
+                 lambda kw: "membership" if kw.get("live") is None else "membership_masked",
+                 shape_frequency())
         rec.wrap(algorithms, "block_candidates", "bitset")
         rec.wrap(guided_ops, "probe_batch", "guided_search")
         rec.wrap(decode_ops, "decode_batch", "plm_decode")
@@ -3639,6 +3793,8 @@ def _run_phases(args, phases, dev, kernels, rec, clock, counts, passes, keep, p_
                 k.launches = 0
             dense.launches = 0
             result = run()
+            if name == "W":  # row 1c leads the kernels line's membership rows
+                keep["w_membership"] = result["serve_queries"]["membership"]
             counts[name] = launches()
             result["launches"] = counts[name]
             result["dense_passes"] = passes[name] = dense.launches
@@ -3647,17 +3803,20 @@ def _run_phases(args, phases, dev, kernels, rec, clock, counts, passes, keep, p_
         if "store" in keep:  # phase S's store, which phase M serves from
             shutil.rmtree(keep["store"], ignore_errors=True)
     total = {n: sum(c[n] for c in counts.values()) for n in kernels}
-    missing = [n for n, c in total.items() if c == 0]
+    # Algorithm 3 (block) scores on membership_masked, Algorithm 1 (W's
+    # exhaustive step) on membership
+    missing = [n for n, c in total.items()
+               if c == 0 and not (n == "membership" and "W" not in phases)]
     if missing and {"A", "B", "R"} <= phases:
         raise AssertionError(f"kernels never launched on phases A, B, R and S: {missing}")
-    for phase, names in (("A", ("membership", "bitset", "pfor")),
+    for phase, names in (("A", ("membership_masked", "bitset", "pfor")),
                          ("B", ("guided_search", "plm_decode")),
                          ("R", ("pfor", "bm25_score", "fused_topk", "dense_topk")),
-                         ("S", ("membership", "bitset", "pfor", "bm25_score", "two_tier")),
-                         ("Q", ("membership", "bitset", "bm25_score")),
+                         ("S", ("membership_masked", "bitset", "pfor", "bm25_score", "two_tier")),
+                         ("Q", ("membership_masked", "bitset", "bm25_score")),
                          ("M", ("mlp_membership", "mlp_membership_masked", "mlp_two_tier",
                                 "bitset", "pfor")),
-                         ("K", ("membership", "bitset")),
+                         ("K", ("membership_masked", "bitset")),
                          ("W", ("membership", "bitset"))):
         for n in names:
             if phase in counts and n in counts[phase] and counts[phase][n] == 0:
@@ -3666,6 +3825,8 @@ def _run_phases(args, phases, dev, kernels, rec, clock, counts, passes, keep, p_
     if "D" in phases:
         emit(phase_d(dev, keep))
     rows = phase_c(rec, total, keep) if "C" in phases else None
+    if rows is not None and "w_membership" in keep:
+        rows.insert(0, {**keep["w_membership"], "launches": total["membership"]})
     if "A" in phases:
         # after phase C, which holds membership at its most launched shape:
         # the Recorder sees these calls, all at phase A's K=1 shape

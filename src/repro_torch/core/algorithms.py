@@ -17,17 +17,18 @@ them against the exact tier-2 store.  Invalid (-1) terms act as all-ones
 and an all-pad query matches nothing.
 
 On a CUDA device Algorithm 3 makes two launches: the f(t, ·) scan of every
-valid (query, term) slot on one ``membership`` launch, then the block AND,
-the AND over each query's terms and the block mask on one ``bitset``
-launch (``block_candidates``).  Algorithm 2 is one ``two_tier`` launch
+valid (query, term) slot on one masked ``membership`` launch, which scores
+only the blocks that survive each slot's query's block AND (``LiveBlocks``)
+and leaves the other words zero, then the block AND, the AND over each
+query's terms and the block mask on one ``bitset`` launch
+(``block_candidates``).  Algorithm 1 scores every doc on one dense
+``membership`` launch.  Algorithm 2 is one ``two_tier`` launch
 (``two_tier_candidates``): the tier-1 union and its f_hat test, with the
 membership kernel's dot product, so its candidates are Algorithm 1's ANDed
 with the union, bit for bit.  A model with an MLP head scores on the
-``mlp_membership`` kernels instead (``score_slots``): Algorithm 1's rows
-on one dense launch; Algorithm 3's on one masked launch that scores only
-the blocks surviving each slot's query's block AND (``LiveBlocks``), then
-the same ``bitset`` launch; Algorithm 2 on one ``mlp_two_tier`` launch that
-scores only the union of each query's tier-1 lists, in the dense launch's
+``mlp_membership`` kernels instead (``score_slots``), with the same dense
+and masked split; Algorithm 2 on one ``mlp_two_tier`` launch that scores
+only the union of each query's tier-1 lists, in the dense launch's
 arithmetic, so its candidates too are Algorithm 1's ANDed with the union.
 On the CPU the same wrappers run their plain versions.  The (n_terms, k)
 tier-1 table reaches the device at the first two-tier call, not when the
@@ -47,9 +48,8 @@ from repro_torch.index.build import InvertedIndex, block_lists, truncate_index
 from repro_torch.kernels.bitset.kernel import block_candidates
 from repro_torch.kernels.cuda import staging
 from repro_torch.kernels.membership.kernel import membership_bitmask
-from repro_torch.kernels.membership.ref import LANE
+from repro_torch.kernels.membership.ref import LANE, LiveBlocks
 from repro_torch.kernels.mlp_membership.kernel import mlp_membership, mlp_two_tier
-from repro_torch.kernels.mlp_membership.ref import LiveBlocks
 from repro_torch.kernels.two_tier.kernel import two_tier_candidates
 from repro_torch.obs import trace
 
@@ -132,17 +132,18 @@ def build_engine(
 def score_slots(model: MembershipModel, terms: torch.Tensor, tau: torch.Tensor,
                 live: LiveBlocks | None = None) -> torch.Tensor:
     """(S,) int64 term ids and their (S,) thresholds -> (S, words) packed
-    f_hat rows: one ``membership`` launch for a dot-product model (every
-    doc), one ``mlp_membership`` launch (its doc side computed once per
-    model, ``MembershipModel.doc_side``) for a model with a head, which,
-    given ``live``, scores only the blocks that survive each slot's query's
-    block AND and leaves the other words zero."""
+    f_hat rows: one ``membership`` launch for a dot-product model, one
+    ``mlp_membership`` launch (its doc side computed once per model,
+    ``MembershipModel.doc_side``) for a model with a head.  Without
+    ``live`` every doc is scored; given it, only the blocks that survive
+    each slot's query's block AND, and the other words are zero."""
     n_docs = model.doc_embed.weight.shape[0]
     if model.mlp is None:
-        with trace.span("kernel.membership", slots=len(terms), docs=n_docs):
+        with trace.span("kernel.membership", slots=len(terms), docs=n_docs,
+                        masked=live is not None):
             return membership_bitmask(model.term_embed.weight[terms].contiguous(),
                                       model.doc_embed.weight.detach(), tau.contiguous(),
-                                      float(model.bias))
+                                      float(model.bias), live=live)
     bd, later, dims = model.doc_side()
     a = model.term_side(terms).contiguous()
     with trace.span("kernel.mlp_membership", slots=len(terms), docs=n_docs,
@@ -260,18 +261,17 @@ def block_query(state: EngineState, queries: np.ndarray) -> torch.Tensor:
     terms, kept only in blocks that survive the block-bitmap AND.
 
     One upload of the (Q, T) term ids, their slots in the compact row
-    table and the valid slots' term ids and queries; one ``membership``
-    launch over the valid slots (or, with a head, one masked
-    ``mlp_membership`` launch that scores only their live blocks); one
-    ``block_candidates`` launch for the rest."""
+    table and the valid slots' term ids and queries; one masked
+    ``membership`` launch (with a head, ``mlp_membership``) that scores
+    the valid slots in their live blocks only; one ``block_candidates``
+    launch for the rest."""
     Q, T = queries.shape
     dev = state.device
     terms2d, slots2d, slot_terms, slot_query = _slot_upload(queries, dev)
     words = -(-state.n_docs // LANE)
     if len(slot_terms):
         terms = slot_terms.long()
-        live = (LiveBlocks(state.block_bitmaps, terms2d, slot_query, state.block_size)
-                if state.model.mlp is not None else None)
+        live = LiveBlocks(state.block_bitmaps, terms2d, slot_query, state.block_size)
         rows = score_slots(state.model, terms, state.tau[terms], live=live)
     else:
         rows = torch.zeros((0, words), dtype=torch.int32, device=dev)

@@ -73,7 +73,8 @@
 // - Dense: the items are every (tile, 16 consecutive slots).  Masked: a
 //   first kernel ANDs each query's block words from the shard's table, a
 //   second lists, per tile, the slots whose query keeps one of the tile's
-//   blocks and cuts the list into items of 16 (an atomic counter sizes the
+//   blocks and cuts the list into items of 16 (both csrc/live_items.cuh,
+//   which the masked membership launch shares; an atomic counter sizes the
 //   list on the card, so a CUDA-graph replay rebuilds it); the slots of
 //   one item may belong to different queries.  No CTA or warp spends time
 //   on a dead (slot, tile); inside a live tile, a word whose block is dead
@@ -99,7 +100,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "live_items.cuh"
+
 namespace {
+
+using live::block_live;
 
 constexpr int MAX_LAYERS = 4;   // layers after the first
 constexpr int MAX_WIDTH = 256;  // hidden widths after the first layer (deep path)
@@ -183,67 +188,6 @@ __device__ __forceinline__ void stage_last_layer(float* w_s, const float* __rest
                                                  int H4) {
   for (int i = threadIdx.x; i < H4 + 4; i += blockDim.x)
     w_s[i] = i < H ? W[i] : (i == H4 ? W[H] : 0.f);
-}
-
-// bit b of a query's block AND
-__device__ __forceinline__ bool block_live(const uint32_t* __restrict__ row, int b) {
-  return (row[b >> 5] >> (b & 31)) & 1u;
-}
-
-// ---------------------------------------------------------------- masks
-// anded[q][j] = AND of the query's valid terms' block words (0 for a
-// query with none)
-__global__ void block_and_kernel(const uint32_t* __restrict__ table, int Wb,
-                                 const int32_t* __restrict__ terms, int Q, int T,
-                                 uint32_t* __restrict__ anded) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < Q * Wb; i += gridDim.x * blockDim.x) {
-    const int q = i / Wb, j = i % Wb;
-    uint32_t acc = FULL;
-    bool any = false;
-    for (int t = 0; t < T; ++t) {
-      const int term = terms[(size_t)q * T + t];
-      if (term >= 0) {
-        acc &= table[(size_t)term * Wb + j];
-        any = true;
-      }
-    }
-    anded[i] = any ? acc : 0u;
-  }
-}
-
-// One CTA a tile: its live slots (those whose query keeps a block of the
-// tile) into tile_slots[tile][...], then items of at most BS of them
-// appended to ``items`` (x = tile, y = first position, z = count).
-__global__ void __launch_bounds__(THREADS)
-live_items_kernel(const uint32_t* __restrict__ anded, int Wb, const int32_t* __restrict__ slot_query,
-                  int S, int words, int block_words, int* __restrict__ tile_slots,
-                  int4* __restrict__ items, int* __restrict__ n_items) {
-  __shared__ int s_count;
-  const int tile = blockIdx.x, lane = threadIdx.x & 31;
-  const int w0 = tile * (BD / 32), w1 = min(w0 + BD / 32, words) - 1;
-  const int b0 = w0 / block_words, b1 = w1 / block_words;
-  if (threadIdx.x == 0) s_count = 0;
-  __syncthreads();
-  for (int base = 0; base < S; base += THREADS) {  // the same trip count in every thread
-    const int s = base + threadIdx.x;
-    bool live = false;
-    if (s < S) {
-      const uint32_t* row = anded + (size_t)slot_query[s] * Wb;
-      for (int b = b0; b <= b1 && !live; ++b) live = block_live(row, b);
-    }
-    const unsigned m = __ballot_sync(FULL, live);
-    int pos = 0;
-    if (lane == 0 && m) pos = atomicAdd(&s_count, __popc(m));
-    pos = __shfl_sync(FULL, pos, 0);
-    if (live) tile_slots[(size_t)tile * S + pos + __popc(m & ((1u << lane) - 1u))] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int count = s_count, chunks = (count + BS - 1) / BS;
-    const int first = chunks ? atomicAdd(n_items, chunks) : 0;
-    for (int c = 0; c < chunks; ++c)
-      items[first + c] = make_int4(tile, c * BS, min(BS, count - c * BS), 0);
-  }
 }
 
 // ---------------------------------------------------------------- shallow rows
@@ -679,15 +623,15 @@ extern "C" int mlp_masked_launch(const float* A, const float* Bd, const float* W
   if (err != cudaSuccess) return (int)err;
   const int and_grid = std::min((Q * Wb + THREADS - 1) / THREADS, 1024);
   if (and_grid > 0)
-    block_and_kernel<<<and_grid, THREADS, 0, stream>>>(table, Wb, terms, Q, T, anded);
+    live::block_and_kernel<<<and_grid, THREADS, 0, stream>>>(table, Wb, terms, Q, T, anded);
   if (n_later > 1)
     return (int)launch_deep(A, Bd, W, n_weights, dims, tau, bias, out, logits, S, D, words, anded,
                             slot_query, Wb, block_words, stream);
   err = cudaMemsetAsync(n_items, 0, sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (D + BD - 1) / BD;
-  live_items_kernel<<<n_tiles, THREADS, 0, stream>>>(anded, Wb, slot_query, S, words, block_words,
-                                                     tile_slots, items, n_items);
+  live::live_items_kernel<BS, BD><<<n_tiles, THREADS, 0, stream>>>(
+      anded, Wb, slot_query, S, words, block_words, tile_slots, items, n_items);
   return (int)launch_rows<true>(A, Bd, W, tau, bias, out, logits, S, D, H1, words, items, n_items,
                                 tile_slots, anded, slot_query, Wb, block_words, stream);
 }

@@ -44,8 +44,10 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header."""
     lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return not lib.exists() or lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build_all() -> dict[str, str]:

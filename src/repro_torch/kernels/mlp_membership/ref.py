@@ -17,40 +17,15 @@ NUMERIC_MARGIN of tau.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.membership.ref import LANE, pack_bool_words
+from repro_torch.kernels.membership.ref import LANE, LiveBlocks, live_words, pack_bool_words
 from repro_torch.kernels.two_tier.ref import query_union
 
 TILE_FLOATS = 1 << 26  # (S, tile, H1) floats of one tile's pairing: 256 MB
-
-
-class LiveBlocks(NamedTuple):
-    """Algorithm 3's live-block mask of a batch's slots: a slot's row is
-    needed only in the blocks that survive its query's block AND."""
-
-    table: torch.Tensor  # (n_terms, Wb) int32 block bitmaps, bit b = block b
-    terms: torch.Tensor  # (Q, T) int32 term ids, -1 = pad
-    slot_query: torch.Tensor  # (S,) int32 query of each slot
-    block_size: int  # docs a block, a multiple of 32
-
-
-def live_words(live: LiveBlocks, words: int) -> torch.Tensor:
-    """-> (S, words) bool: the word lies in a block that survives the block
-    AND of the slot's query (valid terms only; a query with none keeps no
-    block)."""
-    valid = live.terms >= 0
-    rows = torch.where(valid[..., None], live.table[live.terms.clamp(min=0).long()], -1)
-    anded = rows[:, 0].clone()
-    for t in range(1, rows.shape[1]):
-        anded &= rows[:, t]
-    anded = torch.where(valid.any(dim=1, keepdim=True), anded, torch.zeros_like(anded))
-    blk = torch.arange(words, device=anded.device) * LANE // live.block_size
-    alive = ((anded[:, blk // 32] >> (blk % 32).to(torch.int32)) & 1).bool()  # (Q, words)
-    return alive[live.slot_query.long()]
 
 
 def unpack_layers(later: torch.Tensor, dims: Sequence[int]) -> list[tuple[torch.Tensor, torch.Tensor]]:

@@ -92,7 +92,8 @@ def exhaustive_step(params: Mapping[str, torch.Tensor], queries: torch.Tensor) -
     valid, q, slot = _slots(queries)
     te = params["term_embed"][q[valid]].float()  # (R, E) the valid slots
     tau = params["tau"][q[valid]].float()
-    rows = membership_bitmask(te.contiguous(), de.float(), tau.contiguous(), 0.0)  # (R, D/32)
+    # the bf16 doc table as it is stored: the kernel widens it on the way in
+    rows = membership_bitmask(te.contiguous(), de, tau.contiguous(), 0.0)  # (R, D/32)
     words = rows.shape[1]
     # the AND over T on the bitset kernel: one all-ones block row keeps every block
     wb = -(-words // BLOCK_SIZE)

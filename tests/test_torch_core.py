@@ -190,15 +190,25 @@ def test_candidate_masks_match_reference(tiny, algorithm):
 
 
 @pytest.mark.parametrize("block_size", [32, 128])
-def test_block_step_matches_reference_block_query(tiny, block_size):
-    """Algorithm 3 through the fused block step (one membership call, one
-    block_candidates call) at two more block sizes, 400 docs (off a word
-    edge), an all-pad query (3) and a one-term query (4): within the margin
-    of the reference's block_query, zero false negatives, and bit for bit
-    the composition it replaces (Algorithm 1's AND over the terms, masked by
-    the expanded bitset_and_popcount of the block bitmaps)."""
+def test_block_step_matches_reference_block_query(tiny, block_size, monkeypatch):
+    """Algorithm 3 through the fused block step (one masked membership call,
+    which scores only each slot's live blocks, and one block_candidates
+    call; no dense membership call) at two more block sizes, 400 docs (off
+    a word edge), an all-pad query (3) and a one-term query (4): within the
+    margin of the reference's block_query, zero false negatives, and bit
+    for bit the composition it replaces (Algorithm 1's AND over the terms,
+    from one dense membership call, masked by the expanded
+    bitset_and_popcount of the block bitmaps)."""
     from repro_torch.kernels.bitset.ref import bitset_and_popcount_ref
 
+    calls = {"dense": 0, "masked": 0}
+    scored = alg.membership_bitmask
+
+    def counted(*args, live=None):
+        calls["masked" if live is not None else "dense"] += 1
+        return scored(*args, live=live)
+
+    monkeypatch.setattr(alg, "membership_bitmask", counted)
     corpus, _, params_np = tiny
     inv = build_inverted_index(corpus)
     model = params_from_jax(params_np, device="cpu")
@@ -208,6 +218,7 @@ def test_block_step_matches_reference_block_query(tiny, block_size):
                                      truncation_k=16, block_size=block_size)
     q = _queries(corpus)
     words = alg.run_queries(state, q, "block").numpy().view(np.uint32)
+    assert calls == {"dense": 0, "masked": 1}
     got = np.unpackbits(words.view(np.uint8), axis=-1, bitorder="little")
     assert not got[:, inv.n_docs:].any()
     got = got[:, : inv.n_docs]
@@ -227,6 +238,7 @@ def test_block_step_matches_reference_block_query(tiny, block_size):
     wb = torch.arange(words.shape[1]) * 32 // block_size
     expand = -((inter[:, wb // 32] >> (wb % 32).to(torch.int32)) & 1)
     composed = (alg.exhaustive_query(state, q) & expand).numpy().view(np.uint32)
+    assert calls == {"dense": 1, "masked": 1}
     assert np.array_equal(words, composed)
 
 

@@ -13,7 +13,9 @@ equal;
 membership, mlp_membership and two_tier bits may differ from their plain
 versions only where the logit lies within NUMERIC_MARGIN * (1 + |tau|) of
 tau, since the float32 products sum in different orders; two_tier equals membership's
-candidates ANDed with the tier-1 union exactly (the same sequential FMAs).
+candidates ANDed with the tier-1 union exactly (the same sequential FMAs), and
+so do the masked membership launch's words the dense launch's in live blocks
+and a bf16 doc table's words those of the table widened to float32.
 
 ``pfor_blocks``, ``pfor_lists``, ``plm_batch``, ``fused_tiles`` and
 ``block_step`` make the inputs that tests/test_torch_kernels.py and
@@ -37,8 +39,8 @@ from repro_torch.kernels.bitset.kernel import block_candidates
 from repro_torch.kernels.bitset.ref import block_candidates_ref
 from repro_torch.kernels.guided_search.kernel import probe_batch
 from repro_torch.kernels.guided_search.ref import probe_ref
-from repro_torch.kernels.membership.kernel import membership_bitmask
-from repro_torch.kernels.membership.ref import membership_bitmask_ref
+from repro_torch.kernels.membership.kernel import MASKED as MEMBERSHIP_MASKED, membership_bitmask
+from repro_torch.kernels.membership.ref import live_words, membership_bitmask_ref
 from repro_torch.kernels.mlp_membership.kernel import KERNEL as MLP, MASKED as MLP_MASKED
 from repro_torch.kernels.mlp_membership.kernel import TWO_TIER as MLP_TWO_TIER
 from repro_torch.kernels.mlp_membership.kernel import mlp_membership, mlp_two_tier
@@ -1078,3 +1080,114 @@ def test_mlp_two_tier_kernel_matches_plain_on_card(dims):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(replayed, got)
+
+
+# ------------------------------------------------- membership: masked and bf16
+def _membership_inputs(rng, S, D, E, dev, bf16=False):
+    """Slot rows, doc rows (bf16 when asked), the fp32 logits of the table as
+    the kernel reads it, and thresholds that pass about half of the docs."""
+    q = _t((rng.standard_normal((S, E)) / np.sqrt(E)).astype(np.float32)).to(dev)
+    d = _t(rng.standard_normal((D, E)).astype(np.float32)).to(dev)
+    if bf16:
+        d = d.to(torch.bfloat16)
+    logits = q @ d.float().T + 0.05
+    tau = torch.quantile(logits[:, : min(D, 4096)], 0.5, dim=1).contiguous()
+    return q, d, logits, tau
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,E,block_size,density,bf16", [
+    (132000, 128, 1024, 0.75, False), (5000, 48, 32, 0.5, False), (5000, 64, 96, 0.0, False),
+    (4097, 128, 96, 1.0, True), (3000, 50, 64, 0.5, False), (20000, 128, 1024, 0.5, True)])
+def test_membership_masked_kernel_matches_plain_on_card(D, E, block_size, density, bf16):
+    """The masked launch (Algorithm 3's rows) against its plain version and
+    the dense launch: its words equal the dense launch's in live blocks,
+    word for word (the same arithmetic), and are zero in dead ones; outside
+    the margin of tau they equal the plain masked version's.  All-dead and
+    all-live masks, blocks smaller than a 256-doc tile and not dividing it,
+    E off the 16-byte piece (padded by the wrapper), a bf16 table; one
+    launch a call, and a CUDA-graph replay rebuilds the item list."""
+    dev = _card()
+    rng = np.random.default_rng(D + block_size + E)
+    table, terms, slot_query, S = _live_batch(rng, dev, D, block_size, density=density)
+    q, d, logits, tau = _membership_inputs(rng, S, D, E, dev, bf16)
+    live = LiveBlocks(table, terms, slot_query, block_size)
+    before = MEMBERSHIP_MASKED.launches
+    got = membership_bitmask(q, d, tau, 0.05, live=live)
+    assert MEMBERSHIP_MASKED.launches == before + 1
+    alive = live_words(live, got.shape[1])
+    dense = membership_bitmask(q, d, tau, 0.05)
+    assert torch.equal(got, torch.where(alive, dense, 0))
+    want = membership_bitmask_ref(q, d, tau, 0.05, live)
+    assert _differ_outside(got, want, logits, tau, D) == 0
+    if density == 0.0:
+        assert not bool(alive.any()) and not bool(got.any())
+    elif density == 1.0:
+        assert bool(alive.all())
+    else:
+        assert bool(got[alive].any())
+    for out in _replays(lambda: membership_bitmask(q, d, tau, 0.05, live=live)):
+        assert torch.equal(out, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,E", [(398, 132000, 128), (65, 4097, 48), (130, 300, 200),
+                                   (63, 4097, 50), (1, 31, 16)])
+def test_membership_bf16_table_equals_widened_on_card(S, D, E):
+    """A bf16 doc table is widened exactly on its way to the FMAs: its words
+    are those of the same table converted to float32, word for word, and
+    within the margin of the plain version's."""
+    dev = _card()
+    q, d, logits, tau = _membership_inputs(np.random.default_rng(S + D + E), S, D, E, dev, True)
+    got = membership_bitmask(q, d, tau, 0.05)
+    assert torch.equal(got, membership_bitmask(q, d.float(), tau, 0.05))
+    assert _differ_outside(got, membership_bitmask_ref(q, d, tau, 0.05), logits, tau, D) == 0
+    assert bool(got.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", [32, 96, 1024])
+def test_block_and_two_tier_are_exhaustive_masked_on_card(block_size):
+    """The identities the kernels' one arithmetic gives, at the port's width
+    (E = 128): Algorithm 3's candidates (one masked membership launch, one
+    bitset launch, no dense membership launch) equal Algorithm 1's ANDed
+    with the expanded block AND, and Algorithm 2's equal Algorithm 1's
+    ANDed with the tier-1 union, word for word."""
+    from repro_torch.common.config import CorpusConfig
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.learned_bloom import fit_thresholds
+    from repro_torch.core.membership import params_from_jax
+    from repro_torch.data.corpus import synthesize_corpus
+    from repro_torch.data.queries import sample_queries
+    from repro_torch.index.build import build_inverted_index
+    from repro_torch.kernels.bitset.kernel import KERNEL as BITSET
+    from repro_torch.kernels.membership.kernel import KERNEL as MEMBERSHIP
+    from repro_torch.kernels.membership.ref import pack_bool_words
+
+    dev = _card()
+    corpus = synthesize_corpus(CorpusConfig(n_docs=5000, n_terms=3000, avg_doc_len=60, seed=6))
+    inv = build_inverted_index(corpus)
+    rng = np.random.default_rng(block_size)
+    params = {"term_embed": {"table": (rng.standard_normal((3000, 128)) * 0.1).astype(np.float32)},
+              "doc_embed": {"table": (rng.standard_normal((5000, 128)) * 0.1).astype(np.float32)},
+              "bias": np.float32(0.1)}
+    lb = fit_thresholds(params_from_jax(params, device=dev), inv)
+    state = alg.build_engine(lb.model, lb.tau, inv, truncation_k=40, block_size=block_size)
+    q = np.pad(sample_queries(corpus, 100, seed=7), ((0, 0), (0, 2)), constant_values=-1)
+    q[0] = -1
+    counts = (MEMBERSHIP.launches, MEMBERSHIP_MASKED.launches, BITSET.launches)
+    got = alg.run_queries(state, q, "block")
+    assert (MEMBERSHIP.launches, MEMBERSHIP_MASKED.launches, BITSET.launches) == (
+        counts[0], counts[1] + 1, counts[2] + 1)
+    exhaustive = alg.run_queries(state, q, "exhaustive")
+    qt = _t(q).to(dev).long()
+    inter = state.block_bitmaps[qt.clamp(min=0)]
+    inter = torch.where((qt >= 0)[..., None], inter, -1)
+    anded = inter[:, 0]
+    for t in range(1, inter.shape[1]):
+        anded = anded & inter[:, t]
+    wb = torch.arange(got.shape[1], device=dev) * 32 // block_size
+    expand = -((anded[:, wb // 32] >> (wb % 32).to(torch.int32)) & 1)
+    assert torch.equal(got, exhaustive & expand) and bool(got.any()) and not bool(got[0].any())
+    union = pack_bool_words(tier1_union(state.tier1, state.tier1_len, _t(q).to(dev), 5000))
+    assert torch.equal(alg.run_queries(state, q, "two_tier"), exhaustive & union)

@@ -118,8 +118,8 @@ def test_membership_ragged_matches_reference_ops():
 
 @pytest.mark.parametrize("n_q,e", [(65, 96), (63, 16)])
 def test_membership_ragged_rows_match_reference_ops(n_q, e):
-    """Q around the kernel's 32- and 16-row query warps, E off its 16-dim
-    stage."""
+    """Q around the kernel's 16-row interleave of slot rows and 128-slot
+    items, E off its 32-dim stage."""
     got = _ragged_membership(np.random.default_rng(n_q + e), n_q, e, scale=0.3)
     assert 0 < np.unpackbits(got.view(np.uint8)).sum() < n_q * 1111  # both verdicts occur
 
