@@ -205,8 +205,14 @@ card's name and power limit first, then one JSON line per phase:
          tokens, at the config's capacity factor and again at 0.5, which
          drops slots, every output checked after the world exits against
          ``moe_a2a_ref`` in this process (its own routing; 1e-5 + 1e-4
-         relative); seconds of each part, host bytes, dropped shares, peak
-         bytes.  With 4 cards the
+         relative); X5 one full-width attention layer each of gemma2-2b
+         (global and local), phi4-mini (``seq`` mode) and deepseek-v2-lite
+         (MLA) on a (data 1, model 4) mesh, 2 x 4,096 tokens, fp32, forward
+         and backward, its scores split over ``model`` as the reference
+         splits them, against the same layer in one process on the card
+         (output and every gradient within 1e-5 + 1e-4 relative), each
+         rank's peak bytes beside the one process's; seconds of each part,
+         host bytes, dropped shares, peak bytes.  With 4 cards the
          world runs again on NCCL, one rank a card, with a DTensor train step
          of reduced gemma2-2b on a (2, 2) mesh; on one card the line says it
          did not run.  No kernel of the repo launches (asserted in every rank)
@@ -3085,10 +3091,13 @@ def phase_w(dev) -> dict:
 
 
 # ------------------------------------------------------------ phases P and T
-# P(a): the three hardest cells of the grid on the 16x16 mesh; P(b): cut
-# cells on a one-rank mesh against the same step run for real on the card
+# P(a): the three hardest cells of the grid on the 16x16 mesh, and gemma2-2b's
+# prefill_32k, whose rank's share must fit the card (attention's scores split
+# over ``model`` as the reference splits them); P(b): cut cells on a one-rank
+# mesh against the same step run for real on the card
 P_CELLS = (("deepseek-v3-671b", "train_4k"), ("dlrm-mlperf", "train_batch"),
-           ("meshgraphnet", "ogb_products"))
+           ("meshgraphnet", "ogb_products"), ("gemma2-2b", "prefill_32k"))
+P_FITS = (("gemma2-2b", "prefill_32k"),)  # a rank's peak under the card's memory
 P_PEAK_TOL = 0.20
 P_SEED = 43
 P_TIMEOUT_S = 900  # the dry runs' processes, counted from the run's start
@@ -3163,7 +3172,7 @@ def _p_fake_cuts(out: Path) -> int:
 def p_start(src: Path) -> list:
     """Phase P's dry runs, started as processes of their own when the run
     begins (they need host cores, not the card, and take minutes): P(a)'s
-    three cells through ``python -m repro_torch.launch.dryrun`` and P(b)'s
+    cells through ``python -m repro_torch.launch.dryrun`` and P(b)'s
     cut cells through ``--p-fake``; ``phase_p`` collects them."""
     out = ROOT / "build" / "phase_p"
     shutil.rmtree(out, ignore_errors=True)
@@ -3194,12 +3203,14 @@ def p_stop(procs: list) -> None:
 def phase_p(dev, procs: list) -> dict:
     """Phase P: the grid dry-run on the card's machine (fake tensors: no card
     memory).  (a) ``dryrun_cell`` on the 16x16 mesh for the three hardest
-    cells, each ``ok``; (b) the dry run's body on a one-rank mesh against
-    the same cut cell run for real here: FLOPs equal exactly, peaks within
-    20%.  A dry run that fails, or reports ``error``, fails the phase."""
+    cells and gemma2-2b's prefill_32k, each ``ok``, the last one's peak a
+    rank under the card's memory; (b) the dry run's body on a one-rank
+    mesh against the same cut cell run for real here: FLOPs equal exactly,
+    peaks within 20%.  A dry run that fails, or reports ``error``, fails the phase."""
     import torch
 
-    out: dict = {"phase": "P", "a": {}, "b": {}}
+    out: dict = {"phase": "P", "a": {}, "b": {},
+                 "card_bytes": torch.cuda.get_device_properties(0).total_memory}
     t_all = time.perf_counter()
     done = {}
     for name, path, t0, proc in procs:
@@ -3222,6 +3233,11 @@ def phase_p(dev, procs: list) -> dict:
             "largest_collectives": [{k: e[k] for k in ("kind", "bytes", "op", "where",
                                                        "backward", "calls")}
                                     for e in r["largest_collectives"]]}
+        log(f"[P] (a) {arch} x {shape}: peak {r['peak_bytes']:,} bytes a rank, the card "
+            f"{out['card_bytes']:,}")
+        if (arch, shape) in P_FITS and not r["peak_bytes"] < out["card_bytes"]:
+            raise AssertionError(f"P(a): {arch} x {shape} plans {r['peak_bytes']} bytes a rank, "
+                                 f"over the card's {out['card_bytes']}")
     fakes = done["b"][0]
     for name, cell in _p_cut_cells():
         _free()
@@ -3298,6 +3314,11 @@ X_CAR = 64 * 2**20  # compressed all-reduce: fp32 elements a rank
 X_PIPE = (4, 7168, 8, 512)  # stages, width, microbatches, rows a microbatch
 X_MOE = (2, 4096)  # batch (train_4k's 256 cut to 2), sequence
 X_DROP_CF = 0.5  # X4's second run: a capacity factor that drops slots
+X_ATTN = (2, 4096)  # X5: batch, sequence of each attention layer
+X_ATTN_LAYERS = (("gemma2-2b global", "gemma2-2b", False), ("gemma2-2b local", "gemma2-2b", True),
+                 ("phi4-mini seq", "phi4-mini-3.8b", False),
+                 ("deepseek-v2-lite MLA", "deepseek-v2-lite-16b", False))
+X_TOL = (1e-5, 1e-4)  # X4's and X5's: absolute, relative
 
 
 def _x_tokens(d: int, dev):
@@ -3355,7 +3376,7 @@ def _x_kernel_launches() -> int:
 
 
 def _x_rank(rank: int, world: int, out_dir: str, backend: str) -> None:
-    """One rank of phase X's world: X1-X4 (and, on NCCL, the DTensor train
+    """One rank of phase X's world: X1-X5 (and, on NCCL, the DTensor train
     step), its numbers written to ``x_rank<r>.json``, X4's output by rank 0."""
     import math
 
@@ -3500,11 +3521,120 @@ def _x_rank(rank: int, world: int, out_dir: str, backend: str) -> None:
     del params, x, y, y_drop
     torch.cuda.empty_cache()
 
+    res["X5"] = _x_attention(rank, dev, backend)
     if backend == "nccl":
         res["train"] = _x_train_step(rank, dev)
     res["kernel_launches"] = _x_kernel_launches()
     with open(os.path.join(out_dir, f"x_rank{rank}.json"), "w") as f:
         json.dump(res, f)
+
+
+def _x_over(got, want) -> int:
+    """Elements of ``got`` beyond ``X_TOL`` of ``want``."""
+    atol, rtol = X_TOL
+    return int(((got - want).abs() > atol + rtol * want.abs()).sum())
+
+
+def _x_attention(rank: int, dev, backend: str) -> dict:
+    """X5: one full-width attention layer of each of ``X_ATTN_LAYERS`` on a
+    (data 1, model 4) mesh, 2 x 4,096 tokens, fp32, forward and backward
+    (the gradient of y . cot summed over the width, averaged over the
+    tokens), the scores split over ``model`` as the reference splits them
+    (``spec_for_shape``: gemma2-2b's 8 heads and deepseek-v2-lite's 16 by
+    head, phi4-mini's ``seq`` mode by query position).  Rank 0 then runs the
+    same layer in one process on this card and counts the output and
+    gradient elements beyond ``X_TOL``; every rank reports its peak bytes
+    over the call, absolute and over what it held before the call.  On gloo DTensor's collectives go through host memory
+    (``comm.host_collectives``)."""
+    from contextlib import nullcontext
+
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.common.sharding import concrete_mesh, mesh_context, sharding_for_shape
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.comm import HOST, host_collectives
+    from repro_torch.models import attention as attn
+
+    mesh = concrete_mesh((1, X_RANKS), ("data", "model"))
+    via_host = host_collectives if backend == "gloo" else nullcontext
+    b, s = X_ATTN
+    out = {}
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            yield from (leaves(v, f"{prefix}{k}.") if isinstance(v, dict) else [(prefix + k, v)])
+
+    def rebuild(flat):
+        tree: dict = {}
+        for n, t in flat.items():
+            head, _, leaf = n.rpartition(".")
+            (tree.setdefault(head, {}) if head else tree)[leaf] = t
+        return tree
+
+    for name, arch, local in X_ATTN_LAYERS:
+        cfg = get_arch(arch)[0]
+        init, fn = ((attn.init_mla, attn.mla_attention) if cfg.use_mla
+                    else (attn.init_gqa, attn.gqa_attention))
+
+        def call(params, x, cot, window, fn=fn, cfg=cfg):
+            y, _ = fn(params, cfg, x, torch.arange(s, dtype=torch.int32, device=dev)[None, :],
+                      window=window)
+            (y * cot).sum(-1).mean().backward()
+            return y
+
+        gen = torch.Generator(device=dev).manual_seed(X_SEED + 5)
+        params, axes = init(gen, cfg, device=dev)
+        params, axes = dict(leaves(params)), dict(leaves(axes))
+        for n, w in params.items():  # the norms' zero scales drawn too
+            if n.endswith("scale"):
+                w.normal_(0.0, 0.3, generator=gen)
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+        cot = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+        window = cfg.window_size if local else None
+
+        def place(t, ax):
+            return distribute_tensor(t, mesh, sharding_for_shape(ax, tuple(t.shape), mesh),
+                                     src_data_rank=None)
+
+        on_mesh = {n: place(w, axes[n]).requires_grad_() for n, w in params.items()}
+        x_m = place(x, ("batch", None, None)).requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        HOST.reset()
+        t0 = time.perf_counter()
+        with mesh_context(mesh), via_host():
+            y = call(rebuild(on_mesh), x_m, place(cot, ("batch", None, None)), window)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            row = {"s": time.perf_counter() - t0, "peak_bytes": peak,
+                   "peak_over_base_bytes": peak - base, "host_bytes": HOST.bytes}
+            got = {"y": y.detach().full_tensor(), "x": x_m.grad.full_tensor(),
+                   **{n: w.grad.full_tensor() for n, w in on_mesh.items()}}
+        del y, on_mesh, x_m
+        if rank == 0:  # the same layer in one process on this card
+            one = {n: w.clone().requires_grad_() for n, w in params.items()}
+            x_1 = x.clone().requires_grad_()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            y = call(rebuild(one), x_1, cot, window)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            row.update({"one_process_s": time.perf_counter() - t0,
+                        "one_process_peak_bytes": peak,
+                        "one_process_peak_over_base_bytes": peak - base})
+            want = {"y": y.detach(), "x": x_1.grad, **{n: w.grad for n, w in one.items()}}
+            row["over"] = {k: _x_over(got[k], want[k]) for k in want}
+            row["max_abs_err"] = {k: float((got[k] - want[k]).abs().max()) for k in want}
+            row["max_abs"] = {k: float(want[k].abs().max()) for k in want}
+            del y, one, x_1, want
+        out[name] = row
+        del got, params, x, cot
+        torch.cuda.empty_cache()
+    return out
 
 
 def _x_train_step(rank: int, dev) -> dict:
@@ -3548,6 +3678,11 @@ def _x_world(backend: str, out_dir: Path) -> list[dict]:
             raise AssertionError(f"X3 ({backend}) rank {r['rank']}: {x3}")
         if r["kernel_launches"]:
             raise AssertionError(f"X ({backend}) rank {r['rank']} launched the repo's kernels")
+        for name, row in r["X5"].items():
+            if any(row.get("over", {}).values()):
+                raise AssertionError(f"X5 ({backend}) {name}: elements beyond {X_TOL} of one "
+                                     f"process: {row['over']} (max abs err "
+                                     f"{row['max_abs_err']})")
         if "train" in r:
             tr = r["train"]
             for k in ("loss", "grad_norm"):
@@ -3612,7 +3747,8 @@ def phase_x(dev) -> dict:
     worst = {k: max(r[k][f] for r in ranks) for k, f in
              (("X1", "ag_rel_err"), ("X2", "rel_err"), ("X3", "max_abs_err"))}
     result = {
-        "phase": "X", "world": X_RANKS, "backend": "gloo", "passed": ["X1", "X2", "X3", "X4"],
+        "phase": "X", "world": X_RANKS, "backend": "gloo",
+        "passed": ["X1", "X2", "X3", "X4", "X5"],
         "transport": "one card: gloo moves CUDA tensors through host memory (copied out and "
                      "back by the comm helpers); times are the host transport's, not the card's",
         "X1": {"shape": ranks[0]["X1"]["shape"], "worst_rel_err": worst["X1"],
@@ -3634,6 +3770,14 @@ def phase_x(dev) -> dict:
                "host_bytes": [r["X4"]["host_bytes"] for r in ranks],
                "weight_bytes": [r["X4"]["weight_bytes"] for r in ranks],
                "peak_bytes": [r["X4"]["peak_bytes"] for r in ranks], **moe_check},
+        "X5": {"tokens": list(X_ATTN), "mesh": [1, X_RANKS], "tolerance": list(X_TOL),
+               "layers": {name: {**ranks[0]["X5"][name],
+                                 "s": [r["X5"][name]["s"] for r in ranks],
+                                 "peak_bytes": [r["X5"][name]["peak_bytes"] for r in ranks],
+                                 "peak_over_base_bytes": [r["X5"][name]["peak_over_base_bytes"]
+                                                          for r in ranks],
+                                 "host_bytes": [r["X5"][name]["host_bytes"] for r in ranks]}
+                          for name, *_ in X_ATTN_LAYERS}},
         "kernel_launches": 0,
     }
     if torch.cuda.device_count() >= X_RANKS:
@@ -3646,7 +3790,8 @@ def phase_x(dev) -> dict:
             "X3_worst_grad_rel_err": max(r["X3"]["grad_rel_err"] for r in nccl),
             "X4_s": [r["X4"]["s"] for r in nccl], "X1_ag_s": [r["X1"]["ag_s"] for r in nccl],
             "X2_s": [r["X2"]["s"] for r in nccl], "X3_s": [r["X3"]["s"] for r in nccl],
-            "train": nccl[0]["train"], "X4": _x_check_moe(dev, out_dir)}
+            "train": nccl[0]["train"], "X4": _x_check_moe(dev, out_dir),
+            "X5": nccl[0]["X5"]}
         shutil.rmtree(out_dir, ignore_errors=True)
     else:
         result["nccl"] = (f"not run: {torch.cuda.device_count()} card(s); the NCCL world "

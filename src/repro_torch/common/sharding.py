@@ -382,41 +382,102 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def local_blocks(fn: Callable, inputs: Sequence[tuple[Any, Spec]], out_spec: Spec = (),
+                 *, partial_out: bool = False):
+    """``fn`` of each rank's blocks: every ``(tensor, spec)`` of ``inputs``
+    gives this rank's block of the tensor under ``spec`` (one entry a
+    dimension: the mesh axes that split it, or None), and ``fn``'s result,
+    this rank's block of the output, is laid out by ``out_spec`` (or, with
+    ``partial_out``, is a whole-shaped sum of every rank's part: partial
+    over the mesh axes that split the inputs).  Off a mesh (no DTensor
+    among the inputs), ``fn`` of the tensors.
+
+    A dimension of size n split r ways gives blocks of n / r where r
+    divides n; where n divides r (fewer elements than ranks: MQA's one kv
+    head when the query heads split r ways) rank i takes element
+    i * n // r, the one its share of the work reads; any other split
+    raises.  The mesh axes that split any input split the work: an input
+    replicated over one of them gets a gradient partial over it (each
+    rank's part of the sum), a split one its block's gradient, and DTensor
+    reduces each to the input's own layout.
+
+    The blocks are local tensors (``redistribute`` -> ``to_local`` ->
+    ``DTensor.from_local``): DTensor never sees ``fn``'s ops, so a product
+    over flattened dimensions that the mesh splits on both sides (attention's
+    (batch, heads), the experts' (batch, slots)) never reaches its rules,
+    which vary between torch versions and crawl on strided shards.  Every
+    split must be even."""
+    tensors = [x for x, _ in inputs]
+    lead = next((x for x in tensors if is_dtensor(x)), None)
+    if lead is None:
+        return fn(*tensors)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = lead.device_mesh
+    names = list(mesh.mesh_dim_names)
+    work = {a for _, spec in inputs for e in spec if e is not None for a in _axes(e)}
+    every = (Replicate(),) * mesh.ndim
+
+    def block(x, spec):
+        blocks, takes = list(spec) + [None] * (x.dim() - len(spec)), []
+        for d, entry in enumerate(blocks):
+            if entry is None:
+                continue
+            n, r = int(x.shape[d]), axis_size(entry, mesh)
+            if r % n == 0 and n % r:  # fewer elements than ranks: each takes its one
+                takes.append((d, axis_index(entry, mesh) * n // r))
+                blocks[d] = None
+            elif n % r:
+                raise ValueError(f"dim {d} of size {n} splits {r} ways ({spec}): "
+                                 "neither in blocks nor an element a rank")
+        pl = placements(blocks, mesh)
+        grad = tuple(Partial() if isinstance(p, Replicate) and a in work else p
+                     for a, p in zip(names, pl))
+        dt = x if is_dtensor(x) else DTensor.from_local(x, mesh, every)
+        b = dt.redistribute(mesh, pl).to_local(grad_placements=grad)
+        for d, i in takes:
+            b = b.narrow(d, i, 1)
+        return b
+
+    out = fn(*(block(x, spec) for x, spec in inputs)).contiguous()
+    if partial_out:
+        summed = tuple(Partial() if a in work else Replicate() for a in names)
+        return DTensor.from_local(out, mesh, summed, shape=out.shape, stride=out.stride())
+    spec = tuple(out_spec) + (None,) * (out.dim() - len(out_spec))
+    shape = tuple(n * (axis_size(e, mesh) if e is not None else 1) for n, e in zip(out.shape, spec))
+    return DTensor.from_local(out, mesh, placements(spec, mesh), shape=shape,
+                              stride=tuple(math.prod(shape[d + 1:]) for d in range(len(shape))))
+
+
 def local_rows(fn: Callable, rows: Sequence[torch.Tensor], whole: Sequence[torch.Tensor] = (),
                *, partial_out: bool = False):
-    """``fn(*rows, *whole)`` computed on each rank's rows: the ``rows``
-    tensors (split alike along dim 0, however many mesh dimensions split
-    it) give their blocks, the ``whole`` tensors (weights, a gathered
-    table) are replicated first, and the result is laid out as the rows
-    (or, with ``partial_out``, is a whole-shaped sum of every rank's part:
-    partial over the mesh dimensions that split the rows).  Off a mesh,
-    ``fn(*rows, *whole)``.  Data parallelism over rows on the tensors'
-    local blocks: DTensor's rules, which vary between torch versions (a row
-    dimension split by two mesh dimensions, a bias added to a partial sum,
-    an index update), are not consulted.  Gradients by the same layouts:
-    the whole tensors' are partial over the row-splitting mesh dimensions
-    and reduced to their own layouts by DTensor."""
+    """``local_blocks`` along dim 0 alone: ``fn(*rows, *whole)`` on each
+    rank's rows, the ``rows`` tensors split alike along dim 0 (however many
+    mesh dimensions split the first DTensor among them), the ``whole``
+    tensors (weights, a gathered table) taken whole, and the result laid
+    out as the rows (or, with ``partial_out``, partial over the mesh
+    dimensions that split them).  Data parallelism over rows: DTensor's
+    rules (a row dimension split by two mesh dimensions, a bias added to a
+    partial sum, an index update) are not consulted."""
     lead = next((x for x in rows if is_dtensor(x)), None)
     if lead is None:
         return fn(*rows, *whole)
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    axes = tuple(a for a, p in zip(lead.device_mesh.mesh_dim_names, lead.placements)
+                 if p.is_shard(0)) or None
+    return local_blocks(fn, [(x, (axes,)) for x in rows] + [(w, ()) for w in whole], (axes,),
+                        partial_out=partial_out)
 
-    mesh = lead.device_mesh
-    split = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in lead.placements)
-    summed = tuple(Partial() if p.is_shard(0) else Replicate() for p in split)
-    every = (Replicate(),) * mesh.ndim
 
-    def as_dt(x):
-        return x if is_dtensor(x) else DTensor.from_local(x, mesh, every)
-
-    blocks = [as_dt(x).redistribute(mesh, split).to_local(grad_placements=split) for x in rows]
-    wholes = [as_dt(w).redistribute(mesh, every).to_local(grad_placements=summed) for w in whole]
-    out = fn(*blocks, *wholes).contiguous()
-    if partial_out:
-        return DTensor.from_local(out, mesh, summed, shape=out.shape, stride=out.stride())
-    shape = (lead.shape[0], *out.shape[1:])
-    return DTensor.from_local(out, mesh, split, shape=shape,
-                              stride=tuple(math.prod(shape[d + 1:]) for d in range(len(shape))))
+def _chunk_of(n: int, dims: Sequence[int], mesh) -> tuple[int, int]:
+    """(start, size) of this rank's block of a dimension of ``n`` split over
+    the mesh dimensions ``dims``, outer first, as ``torch.chunk`` splits (the
+    first ranks take ceil(n / ranks), the last ones fewer)."""
+    start, coord = 0, mesh.get_coordinate()
+    for d in dims:
+        blk = -(-n // mesh.size(d))
+        first = min(coord[d] * blk, n)
+        start, n = start + first, min(n, first + blk) - first
+    return start, n
 
 
 class _BlockRows(torch.autograd.Function):
@@ -465,12 +526,7 @@ def take_rows(table, ids: torch.Tensor):
         ids = DTensor.from_local(ids, mesh, (Replicate(),) * mesh.ndim)
     id_pl = tuple(Replicate() if d in rows else p for d, p in enumerate(ids.placements))
     ids = ids.redistribute(mesh, id_pl)
-    r0, n = 0, int(table.shape[0])
-    coord = mesh.get_coordinate()
-    for d in rows:
-        blk = -(-n // mesh.size(d))
-        start = min(coord[d] * blk, n)
-        r0, n = r0 + start, min(n, start + blk) - start
+    r0, n = _chunk_of(int(table.shape[0]), rows, mesh)
     dim = int(table.shape[1])
     shape = (*ids.shape, dim)
     stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
@@ -484,6 +540,35 @@ def take_rows(table, ids: torch.Tensor):
     return DTensor.from_local(out, mesh, tuple(Partial() if d in rows else p
                                                for d, p in enumerate(id_pl)),
                               shape=shape, stride=stride)
+
+
+def take_last(x, idx: torch.Tensor):
+    """``x.gather(-1, idx[..., None])`` of a DTensor ``x`` whose last
+    dimension may be split (vocab-sharded logits), without moving ``x``:
+    each rank reads the ids that fall in its block of the last dimension
+    (zeros for the others), so the result is partial (a sum) over the mesh
+    dimensions that split it, laid out as ``x``'s other dimensions
+    elsewhere, and ``x``'s gradient is its own block's.  DTensor's gather
+    would gather ``x``'s last dimension whole, and its backward makes zeros
+    of ``x``'s global shape on every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, last = x.device_mesh, x.dim() - 1
+    split = [d for d, p in enumerate(x.placements) if p.is_shard(last)]
+    rest = tuple(Replicate() if d in split else p for d, p in enumerate(x.placements))
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, (Replicate(),) * mesh.ndim)
+    shape = (*idx.shape, 1)
+    idx = idx.redistribute(mesh, rest).to_local()
+    v0, n = _chunk_of(int(x.shape[last]), split, mesh)
+    block = x.to_local(grad_placements=x.placements)
+    at = idx.long()[..., None] - v0
+    out = torch.where((at >= 0) & (at < n), block.gather(-1, at.clamp(0, max(n - 1, 0))),
+                      torch.zeros((), dtype=block.dtype, device=block.device))
+    return DTensor.from_local(out, mesh, tuple(Partial() if d in split else p
+                                               for d, p in enumerate(rest)),
+                              shape=shape, stride=tuple(math.prod(shape[i + 1:])
+                                                        for i in range(len(shape))))
 
 
 def _block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:

@@ -302,6 +302,38 @@ def all_gather(x: torch.Tensor, axis: str | Sequence[str], dim: int = 0, mesh=No
     return _AllGather.apply(x, group, len(ranks), dim)
 
 
+def host_collectives():
+    """A dispatch mode under which DTensor's functional collectives of a CUDA
+    tensor, but the all-reduce, run on a host copy and come back (the host
+    transport for DTensor on a gloo world on one card: gloo's
+    ``all_gather_into_tensor`` of a CUDA tensor faults), the bytes added to
+    ``HOST.bytes``.  Use it as ``with host_collectives():`` around DTensor
+    work on such a world; DTensor-level ops pass through to DTensor, whose
+    local collectives come back through the mode."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    c10d = torch.ops._c10d_functional
+    moved = {c10d.all_gather_into_tensor.default, c10d.reduce_scatter_tensor.default,
+             c10d.all_to_all_single.default}
+
+    class HostCollectives(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            if func not in moved or not args[0].is_cuda:
+                return func(*args, **kwargs)
+            x = args[0]
+            HOST.bytes += x.numel() * x.element_size()
+            HOST.calls += 1
+            y = c10d.wait_tensor.default(func(x.detach().cpu(), *args[1:], **kwargs))
+            HOST.bytes += y.numel() * y.element_size()
+            return y.to(x.device)  # complete: its wait_tensor finds no work and returns it
+
+    return HostCollectives()
+
+
 def _entry(rank: int, fn: Callable, world: int, backend: str, store: str, timeout_s: float,
            args: tuple) -> None:
     dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world,

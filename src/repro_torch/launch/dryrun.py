@@ -3,6 +3,9 @@ of the production mesh, with no world and no card memory.
 
   python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k [--multi-pod]
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out results.json] [--jobs 8]
+  python -m repro_torch.launch.dryrun --compare REF.json PORT.json [PORT.json ...]
+  (``--compare``: the reference's ``--all --out`` results beside the port's,
+  per cell: its argument + output + temp bytes, each port peak and ratio.)
   (``--device cpu`` builds a CPU mesh of fake CPU tensors; the default is
   fake ``cuda`` tensors, which needs a CUDA runtime but no card memory.)
 
@@ -563,6 +566,26 @@ def run_all(arch_ids, *, multi_pod: bool, out_path: str | None, device: str = "c
     return results
 
 
+def compare(ref: list[dict], *ports: list[dict]) -> list[dict]:
+    """Each ``ok`` cell of the reference's ``--all`` results beside the
+    port's: the reference's per-device plan (XLA's argument + output + temp
+    bytes) and each port run's ``peak_bytes`` with its ratio to that plan."""
+    by_cell = [{(r["arch"], r["shape"]): r for r in p} for p in ports]
+    rows = []
+    for r in ref:
+        if r["status"] != "ok":
+            continue
+        plan = sum(r["memory"][k] for k in ("argument_bytes", "output_bytes", "temp_bytes"))
+        row = {"arch": r["arch"], "shape": r["shape"], "reference_bytes": plan, "port": []}
+        for cells in by_cell:
+            got = cells.get((r["arch"], r["shape"]), {})
+            peak = got.get("peak_bytes")
+            row["port"].append({"peak_bytes": peak,
+                                "ratio": None if peak is None else round(peak / plan, 2)})
+        rows.append(row)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None)
@@ -572,7 +595,17 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda", help="fake tensors' device: cuda or cpu")
     ap.add_argument("--jobs", type=int, default=1, help="cells at a time (--all)")
+    ap.add_argument("--compare", nargs="+", metavar="JSON",
+                    help="REF PORT [PORT ...]: the reference's --all results beside the "
+                         "port's, per cell (no run)")
     args = ap.parse_args(argv)
+    if args.compare:
+        ref, *ports = [json.load(open(f)) for f in args.compare]
+        for row in compare(ref, *ports):
+            print(f"{row['arch']} {row['shape']} {row['reference_bytes']:,} " + " ".join(
+                f"{p['peak_bytes']:,} ({p['ratio']}x)" if p["peak_bytes"] is not None else "-"
+                for p in row["port"]))
+        return
     if args.all:
         results = run_all(ARCH_IDS, multi_pod=args.multi_pod, out_path=args.out,
                           device=args.device, jobs=args.jobs)

@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.common import nn
 from repro_torch.common.config import ArchConfig
-from repro_torch.common.sharding import constrain, is_dtensor, local_rows, pin
+from repro_torch.common.sharding import (axis_size, constrain, is_dtensor, local_blocks, pin,
+                                         spec_for_shape)
 
 NEG_INF = -2.0e38
 
@@ -71,20 +72,51 @@ def _flat(y: torch.Tensor) -> torch.Tensor:
     return constrain(y, "batch", *(None,) * (y.dim() - 1))
 
 
-def _per_rank_rows(fn, *xs: torch.Tensor) -> torch.Tensor:
-    """``fn`` of tensors whose rows (dim 0, the batch) are independent, as
-    attention's core is: ``sharding.local_rows`` over the batch, a tensor
-    with one row (a mask shared by the batch) taken whole.  DTensor never
-    sees the products' flattened (batch, heads) dimensions, which it
-    cannot split under a 3-D mesh."""
-    rows = [i for i, x in enumerate(xs) if x.shape[0] > 1 or x is xs[0]]
-    whole = [i for i in range(len(xs)) if i not in rows]
+def _score_layout(x: torch.Tensor, logical: tuple, shape: tuple):
+    """The reference's layout of the (B, H, Sq, Sk) fp32 scores on ``x``'s
+    mesh -> (spec, this rank's share of ``shape``): ``spec_for_shape`` of
+    the logical axes (``("batch", "heads", "seq_sharded", None)``, or
+    ``("batch", None, "seq_sharded", None)`` in ``attn_shard="seq"`` mode),
+    so ``model`` takes the heads where it divides them, the query positions
+    where it does not, and neither for a decode step's one query.  (None,
+    None) off a mesh."""
+    if not is_dtensor(x):
+        return None, None
+    mesh = x.device_mesh
+    spec = spec_for_shape(logical, shape, mesh)
+    return spec, tuple(n // (axis_size(e, mesh) if e is not None else 1)
+                       for n, e in zip(shape, spec))
 
-    def run(*args):
-        by = dict(zip(rows + whole, args))
-        return fn(*(by[i] for i in range(len(xs))))
 
-    return local_rows(run, [xs[i] for i in rows], [xs[i] for i in whole])
+def _own_share(scores: torch.Tensor, share: tuple | None) -> torch.Tensor:
+    """``scores``, checked to be this rank's share and nothing more: a mesh
+    path never computes whole scores where the reference splits them."""
+    if share is not None and tuple(scores.shape) != share:
+        raise RuntimeError(f"score block {tuple(scores.shape)} is not this rank's share {share}")
+    return scores
+
+
+def _attend(core, spec, q_like, kv_like, rows, q_pos, k_pos) -> torch.Tensor:
+    """``core(*q_like, *kv_like, *rows, q_pos, k_pos)`` on each rank's share
+    of the scores laid out by ``spec`` (batch, heads, query positions,
+    keys): the (B, Sq, H, .) ``q_like`` tensors and the (B or 1, Sq)
+    positions take their batch rows, query positions and heads; the (B,
+    Sk, Hkv, .) ``kv_like`` tensors their batch rows and the kv heads of
+    their query heads (a rank's q heads h read kv head h // n_rep, one kv
+    head shared by several ranks where ``model`` splits the q heads more
+    finely); the (B, Sk, .) ``rows`` and the (B or 1, Sk) key positions
+    their batch rows, keys whole.  The output (B, Sq, H, .) is laid out as
+    the query.  Off a mesh, ``core`` of the whole tensors."""
+    if spec is None:
+        return core(*q_like, *kv_like, *rows, q_pos, k_pos)
+    bax, hax, sax, _ = spec
+    b = q_like[0].shape[0]
+    q_spec = (bax, sax, hax, None)
+    return local_blocks(core, [(x, q_spec) for x in q_like]
+                        + [(x, (bax, None, hax, None)) for x in kv_like]
+                        + [(x, (bax,)) for x in rows]
+                        + [(q_pos, (bax if q_pos.shape[0] == b else None, sax)),
+                           (k_pos, (bax if k_pos.shape[0] == b else None, None))], q_spec)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -153,8 +185,7 @@ def gqa_attention(
     cache: KVCache | None = None,
 ) -> tuple[torch.Tensor, KVCache | None]:
     dtype = x.dtype
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    n_rep = hq // hkv
+    hq, hd = cfg.n_heads, cfg.resolved_head_dim
     seq_mode = cfg.attn_shard == "seq"
     q_ax = ("batch", "seq_sharded", "heads", None) if seq_mode else ("batch", None, "heads", None)
     kv_ax = ("batch", None, "kv_heads", None)
@@ -171,7 +202,7 @@ def gqa_attention(
         # local-layer PREFILL: attend in-sequence (mask enforces the window),
         # then write only the last min(S_cache, S) tokens — their ring slots
         # are unique, so the scatter is well-defined.
-        mask = causal_mask(q_pos, q_pos, window)[:, None, :, :]
+        k_pos = q_pos
         k_use, v_use = k, v
         s_cache = cache.k.shape[1]
         tail = min(s_cache, sq)
@@ -191,22 +222,26 @@ def gqa_attention(
         _scatter_cache(cache.k, k, slot)
         _scatter_cache(cache.v, v, slot)
         new_cache = cache
-        mask = causal_mask(q_pos, k_pos, window)[:, None, :, :]
         k_use, v_use = cache.k, cache.v
     else:
         new_cache = None
-        mask = causal_mask(q_pos, q_pos, window)[:, None, :, :]
+        k_pos = q_pos
         k_use, v_use = k, v
 
     scale = 1.0 / math.sqrt(hd)
+    shape = (x.shape[0], hq, sq, k_use.shape[1])
+    spec, share = _score_layout(q, ("batch", None, "seq_sharded", None) if seq_mode
+                                else ("batch", "heads", "seq_sharded", None), shape)
 
-    def core(q, k_use, v_use, mask):
+    def core(q, k_use, v_use, q_pos, k_pos):  # a rank's share (the whole off a mesh)
+        mask = causal_mask(q_pos, k_pos, window)[:, None, :, :]
+        n_rep = q.shape[2] // k_use.shape[2]  # of this share's heads
         scores = _gqa_scores(q, k_use, n_rep) * scale  # (B,Hq,Sq,Sk) fp32
-        scores = nn.softcap(scores, cfg.attn_softcap)
+        scores = nn.softcap(_own_share(scores, share), cfg.attn_softcap)
         probs = torch.softmax(scores + mask, dim=-1).to(dtype)
         return _gqa_out(probs, v_use, n_rep)  # (B,Sq,Hq,hd)
 
-    out = constrain(_per_rank_rows(core, q, k_use, v_use, mask), *q_ax)
+    out = constrain(_attend(core, spec, (q,), (k_use, v_use), (), q_pos, k_pos), *q_ax)
     return _unproj(out, params["wo"]), new_cache
 
 
@@ -373,13 +408,15 @@ def mla_attention(
 
     scale = 1.0 / math.sqrt(nope + rope)
     pv = torch.promote_types(dtype, v.dtype)
+    shape = (b, cfg.n_heads, x.shape[1], k_nope.shape[1])
+    spec, share = _score_layout(q_nope, ("batch", "heads", "seq_sharded", None), shape)
 
-    def core(q_nope, q_rope, k_nope, kr_use, v, mask):
+    def core(q_nope, q_rope, k_nope, v, kr_use, q_pos, k_pos):  # a rank's share
         sc = torch.einsum("bshk,bthk->bhst", q_nope.float(), k_nope.float())
         sc = sc + torch.einsum("bshk,btk->bhst", q_rope.float(), kr_use.float())
-        probs = torch.softmax(sc * scale + mask, dim=-1).to(dtype)
+        mask = causal_mask(q_pos, k_pos)[:, None, :, :]
+        probs = torch.softmax(_own_share(sc, share) * scale + mask, dim=-1).to(dtype)
         return torch.einsum("bhst,bthv->bshv", probs.to(pv), v)
 
-    mask = causal_mask(q_pos, k_pos)[:, None, :, :]
-    out = _per_rank_rows(core, q_nope, q_rope, k_nope, kr_use, v, mask)
+    out = _attend(core, spec, (q_nope, q_rope), (k_nope, v), (kr_use,), q_pos, k_pos)
     return _unproj(out, params["wo"]), new_cache

@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from repro_torch.common import nn
 from repro_torch.common.config import ArchConfig
 from repro_torch.common.device import init_generator, resolve_device
-from repro_torch.common.sharding import constrain, is_dtensor, take_rows
+from repro_torch.common.sharding import constrain, is_dtensor, mesh_size, take_last, take_rows
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.train.steps import _save_dots
@@ -278,12 +278,17 @@ def lm_logits(model: LMModel, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    # CE via logsumexp: no second (B,S,V) log-softmax buffer
-    # (B, S, 1) throughout: DTensor's gather from vocab-sharded logits is
-    # masked-partial, which a select of the last dimension would break
-    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
-    picked = logits.gather(-1, labels[..., None].long())
-    return (lse - picked).mean()
+    # CE via logsumexp: no second (B,S,V) log-softmax buffer; (B, S, 1)
+    # throughout
+    if not is_dtensor(logits) or mesh_size(logits.device_mesh) <= 1:
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        return (lse - logits.gather(-1, labels[..., None].long())).mean()
+    # on a mesh each rank reduces and picks from its own vocab block (DTensor's
+    # logsumexp and gather would gather the vocab whole): the max and the sum
+    # of exponentials reduce over the ranks, the picked logit is partial
+    top = logits.detach().amax(dim=-1, keepdim=True)
+    lse = top + torch.log(torch.exp(logits - top).sum(dim=-1, keepdim=True))
+    return (lse - take_last(logits, labels)).mean()
 
 
 def lm_loss(model: LMModel, cfg: ArchConfig, batch: Mapping[str, torch.Tensor],

@@ -34,7 +34,9 @@ full = D.get_arch
 D.get_arch = lambda a: (reduce_config(full(a)[0]),) + tuple(full(a)[1:])
 out = {s: D.dryrun_cell("gemma2-2b", s) for s in ("train_4k", "prefill_32k")}
 print(json.dumps({s: {"keys": sorted(r), "memory_keys": sorted(r["memory"]),
-                      "argument_bytes": r["memory"]["argument_bytes"]} for s, r in out.items()}))
+                      **{k: r["memory"][k] for k in ("argument_bytes", "output_bytes",
+                                                     "temp_bytes")}}
+                  for s, r in out.items()}))
 """
 
 
@@ -97,6 +99,21 @@ def test_argument_bytes_equal_the_reference(runs, shape):
     the int32 step counter) and its ``prefill_32k`` cell."""
     got, ref = runs
     assert got[("gemma2-2b", shape)]["memory"]["argument_bytes"] == ref[shape]["argument_bytes"]
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_peak_within_three_times_the_reference_plan(runs, shape):
+    """Per-rank peak of reduced gemma2-2b at most 3x the reference's XLA
+    plan (argument + output + temp bytes): the port splits attention's
+    fp32 scores over ``model`` as the reference does (here by query
+    position: 4 heads do not split 16 ways), where a rank once computed
+    every query's scores of its sequences (5.9x and 44.8x)."""
+    got, ref = runs
+    plan = sum(ref[shape][k] for k in ("argument_bytes", "output_bytes", "temp_bytes"))
+    peak = got[("gemma2-2b", shape)]["peak_bytes"]
+    print(f"{shape}: port peak {peak:,} bytes a rank, reference plan {plan:,} "
+          f"({peak / plan:.2f}x)")  # shown with pytest -s
+    assert peak <= 3 * plan, (peak, plan)
 
 
 def test_kinds_and_train_outputs(runs):
@@ -203,3 +220,18 @@ def test_one_rank_flops_equal_flop_counter_on_the_real_step():
                 cell.step(model, batch["tokens"])
         assert res["flops_per_device"] == real.get_total_flops(), (arch, shape.kind)
         assert res["flops_per_device"] > 0 or arch == "fm"  # FM's step has no product
+
+
+def test_compare_sets_each_port_peak_beside_the_reference_plan():
+    """``--compare``: the reference's argument + output + temp bytes of each
+    ``ok`` cell beside each port run's peak and ratio (a cell a run lacks
+    gets None; skipped cells drop out)."""
+    from repro_torch.launch import dryrun
+
+    mem = {"argument_bytes": 100, "output_bytes": 20, "temp_bytes": 80}
+    ref = [{"arch": "a", "shape": "s", "status": "ok", "memory": mem},
+           {"arch": "a", "shape": "t", "status": "skipped"}]
+    rows = dryrun.compare(ref, [{"arch": "a", "shape": "s", "peak_bytes": 300}], [])
+    assert rows == [{"arch": "a", "shape": "s", "reference_bytes": 200,
+                     "port": [{"peak_bytes": 300, "ratio": 1.5},
+                              {"peak_bytes": None, "ratio": None}]}]
