@@ -189,6 +189,16 @@ card's name and power limit first, then one JSON line per phase:
          against the launch on the table widened to fp32, word for word;
          device ms from the profile, eager, plain and torch.matmul ms, the
          bound) leads that line's membership rows
+  P      the grid dry-run (``launch/dryrun.py``, fake tensors, no card
+         memory), its processes started with the run, collected after E:
+         (a) on the 16x16 mesh deepseek-v3 ``train_4k``, dlrm-mlperf
+         ``train_batch``, meshgraphnet ``ogb_products``, gemma2-2b
+         ``prefill_32k`` (a rank's peak under the card's memory) and bst and
+         mind ``retrieval_cand`` and mind ``train_batch`` (a rank's peak
+         within 2x the reference's plan, held as constants), each ``ok``;
+         (b) phase L's gemma2-2b cuts and FM ``train_batch`` on a one-rank
+         mesh against the same step on the card: FLOPs equal, peaks within
+         20%.  T: ``launch/train_lm.py`` at its defaults
   X      the mesh world, last: 4 ranks spawned on the card with gloo (a
          world of several ranks on one card cannot run NCCL), every
          collective through host memory, bytes counted: X1 the collective
@@ -211,8 +221,20 @@ card's name and power limit first, then one JSON line per phase:
          and backward, its scores split over ``model`` as the reference
          splits them, against the same layer in one process on the card
          (output and every gradient within 1e-5 + 1e-4 relative), each
-         rank's peak bytes beside the one process's; seconds of each part,
-         host bytes, dropped shares, peak bytes.  With 4 cards the
+         rank's peak bytes beside the one process's; X6 MIND's train step
+         (a 1,000,000 x 64 table, 65,536 histories of 50), MIND's retrieval
+         over 1,000,000 candidates and BST's over 262,144 (a cut: one
+         process over 1,000,000 takes 42.5 GB, and the ranks share the card)
+         at full width on the same mesh, fp32, the candidates and the item
+         tables' rows split over ``model`` (each rank looks up, encodes and
+         scores its own candidates; the table's gradient is each rank's
+         block), against one process on the card: scores within 1e-5 + 1e-4
+         relative, the top-100 ids equal where neighbouring scores stand
+         clear of that and none below the 100th by more, the loss within
+         1e-5 relative and every gradient within 1e-5 of its largest
+         element, each rank's peak bytes over what it held and its host
+         bytes; seconds of each part, host bytes, dropped shares, peak
+         bytes.  With 4 cards the
          world runs again on NCCL, one rank a card, with a DTensor train step
          of reduced gemma2-2b on a (2, 2) mesh; on one card the line says it
          did not run.  No kernel of the repo launches (asserted in every rank)
@@ -3091,13 +3113,22 @@ def phase_w(dev) -> dict:
 
 
 # ------------------------------------------------------------ phases P and T
-# P(a): the three hardest cells of the grid on the 16x16 mesh, and gemma2-2b's
+# P(a): the three hardest cells of the grid on the 16x16 mesh, gemma2-2b's
 # prefill_32k, whose rank's share must fit the card (attention's scores split
-# over ``model`` as the reference splits them); P(b): cut cells on a one-rank
+# over ``model`` as the reference splits them), and the recsys cells whose
+# candidates and table rows split over ``model``; P(b): cut cells on a one-rank
 # mesh against the same step run for real on the card
 P_CELLS = (("deepseek-v3-671b", "train_4k"), ("dlrm-mlperf", "train_batch"),
-           ("meshgraphnet", "ogb_products"), ("gemma2-2b", "prefill_32k"))
+           ("meshgraphnet", "ogb_products"), ("gemma2-2b", "prefill_32k"),
+           ("bst", "retrieval_cand"), ("mind", "retrieval_cand"), ("mind", "train_batch"))
 P_FITS = (("gemma2-2b", "prefill_32k"),)  # a rank's peak under the card's memory
+# the reference's plan of a rank (XLA's argument + output + temp bytes on the
+# 16x16 mesh, from `JAX_PLATFORMS=cpu python -m repro.launch.dryrun --arch A
+# --shape S`): the cells whose rows and candidates split over ``model`` must
+# plan a rank's peak within P_PLAN_RATIO of it
+P_PLANS = {("bst", "retrieval_cand"): 1_592_024_372, ("mind", "retrieval_cand"): 48_293_800,
+           ("mind", "train_batch"): 560_673_828}
+P_PLAN_RATIO = 2.0
 P_PEAK_TOL = 0.20
 P_SEED = 43
 P_TIMEOUT_S = 900  # the dry runs' processes, counted from the run's start
@@ -3203,10 +3234,12 @@ def p_stop(procs: list) -> None:
 def phase_p(dev, procs: list) -> dict:
     """Phase P: the grid dry-run on the card's machine (fake tensors: no card
     memory).  (a) ``dryrun_cell`` on the 16x16 mesh for the three hardest
-    cells and gemma2-2b's prefill_32k, each ``ok``, the last one's peak a
-    rank under the card's memory; (b) the dry run's body on a one-rank
-    mesh against the same cut cell run for real here: FLOPs equal exactly,
-    peaks within 20%.  A dry run that fails, or reports ``error``, fails the phase."""
+    cells, gemma2-2b's prefill_32k and the recsys cells of ``P_PLANS``,
+    each ``ok``, gemma2-2b's peak a rank under the card's memory, the
+    recsys cells' within ``P_PLAN_RATIO`` of the reference's plan; (b)
+    the dry run's body on a one-rank mesh against the same cut cell run
+    for real here: FLOPs equal exactly, peaks within 20%.  A dry run that
+    fails, or reports ``error``, fails the phase."""
     import torch
 
     out: dict = {"phase": "P", "a": {}, "b": {},
@@ -3238,6 +3271,13 @@ def phase_p(dev, procs: list) -> dict:
         if (arch, shape) in P_FITS and not r["peak_bytes"] < out["card_bytes"]:
             raise AssertionError(f"P(a): {arch} x {shape} plans {r['peak_bytes']} bytes a rank, "
                                  f"over the card's {out['card_bytes']}")
+        plan = P_PLANS.get((arch, shape))
+        if plan is not None:
+            ratio = r["peak_bytes"] / plan
+            out["a"][f"{arch}/{shape}"].update({"reference_plan_bytes": plan, "ratio": ratio})
+            if ratio > P_PLAN_RATIO:
+                raise AssertionError(f"P(a): {arch} x {shape} plans {r['peak_bytes']} bytes a "
+                                     f"rank, {ratio:.2f}x the reference's {plan}")
     fakes = done["b"][0]
     for name, cell in _p_cut_cells():
         _free()
@@ -3318,7 +3358,13 @@ X_ATTN = (2, 4096)  # X5: batch, sequence of each attention layer
 X_ATTN_LAYERS = (("gemma2-2b global", "gemma2-2b", False), ("gemma2-2b local", "gemma2-2b", True),
                  ("phi4-mini seq", "phi4-mini-3.8b", False),
                  ("deepseek-v2-lite MLA", "deepseek-v2-lite-16b", False))
-X_TOL = (1e-5, 1e-4)  # X4's and X5's: absolute, relative
+X_TOL = (1e-5, 1e-4)  # X4's, X5's and X6's: absolute, relative
+# X6: (name, arch, kind, batch or candidates) at full width on a (data 1,
+# model 4) mesh; BST's 1,000,000 retrieval candidates cut to 262,144 (one
+# process over 1,000,000 alone takes 42.5 GB, and the ranks share the card)
+X_RECSYS = (("mind train_batch", "mind", "train", 65_536),
+            ("mind retrieval_cand", "mind", "retrieval", 1_000_000),
+            ("bst retrieval_cand", "bst", "retrieval", 262_144))
 
 
 def _x_tokens(d: int, dev):
@@ -3522,6 +3568,7 @@ def _x_rank(rank: int, world: int, out_dir: str, backend: str) -> None:
     torch.cuda.empty_cache()
 
     res["X5"] = _x_attention(rank, dev, backend)
+    res["X6"] = _x_recsys(rank, dev, backend)
     if backend == "nccl":
         res["train"] = _x_train_step(rank, dev)
     res["kernel_launches"] = _x_kernel_launches()
@@ -3637,6 +3684,125 @@ def _x_attention(rank: int, dev, backend: str) -> dict:
     return out
 
 
+def _x_recsys(rank: int, dev, backend: str) -> dict:
+    """X6: ``X_RECSYS`` at full width on a (data 1, model 4) mesh, fp32,
+    the item table's rows and the candidates split over ``model`` (each
+    rank looks up, encodes and scores its own candidates; MIND's train
+    step sums its table's gradient into each rank's block).  Rank 0 then
+    runs the same case in one process on this card: the scores within
+    ``X_TOL``, the top-100 ids equal wherever neighbouring scores differ
+    by more than that, the loss within 1e-5 relative and every gradient
+    within 1e-5 of its largest element.  Every rank reports its peak bytes
+    over what it held before the case and its host bytes."""
+    from contextlib import nullcontext
+
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.common.sharding import (concrete_mesh, is_dtensor, mesh_context,
+                                             shard_module, sharding_for_shape)
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.comm import HOST, host_collectives
+    from repro_torch.launch.steps import recsys_cell
+    from repro_torch.models import recsys
+    from repro_torch.models.moe import top_k_lowest_index
+
+    mesh = concrete_mesh((1, X_RANKS), ("data", "model"))
+    via_host = host_collectives if backend == "gloo" else nullcontext
+    atol, rtol = X_TOL
+    out = {}
+    for name, arch, kind, n in X_RECSYS:
+        cfg = get_arch(arch)[0]
+        v = cfg.vocab_sizes[0]
+        gen = torch.Generator(device=dev).manual_seed(X_SEED + 6)
+
+        def ids(*shape):
+            return torch.randint(0, v, shape, generator=gen, device=dev, dtype=torch.int32)
+
+        if kind == "train":
+            batch = {"hist": ids(n, cfg.hist_len), "target": ids(n),
+                     "label": torch.randint(0, 2, (n,), generator=gen, device=dev).float()}
+            axes = {"hist": ("batch", None), "target": ("batch",), "label": ("batch",)}
+        else:
+            batch = {"hist": ids(1, cfg.hist_len), "candidates": ids(n)}
+            axes = {"hist": ("batch", None), "candidates": ("candidates",)}
+            cell = recsys_cell(cfg, ShapeSpec(name=name, kind=kind, global_batch=1,
+                                              n_candidates=n))
+
+        def run(model, batch, kind=kind, cfg=cfg, arch=arch):
+            if kind == "train":
+                loss = recsys.recsys_loss(model, cfg, batch)
+                loss.backward()
+                return {"loss": loss.detach(),
+                        **{p_name: p.grad for p_name, p in model.named_parameters()}}
+            with torch.no_grad():
+                rest = {"hist": batch["hist"]}
+                return {"scores": recsys.RETRIEVAL[arch](model, cfg, rest, batch["candidates"]),
+                        "ids": cell.step(model, batch)[1]}
+
+        model, p_axes = recsys.INIT[arch](X_SEED, cfg, device=dev)
+        shard_module(model, p_axes, mesh, src_data_rank=None)
+        placed = {k: distribute_tensor(t, mesh, sharding_for_shape(axes[k], tuple(t.shape), mesh),
+                                       src_data_rank=None) for k, t in batch.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        HOST.reset()
+        t0 = time.perf_counter()
+        with mesh_context(mesh), via_host():
+            res = run(model, placed)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            row = {"s": time.perf_counter() - t0, "peak_bytes": peak,
+                   "peak_over_base_bytes": peak - base, "host_bytes": HOST.bytes}
+            if kind == "retrieval":
+                row["score_block"] = list(res["scores"].to_local().shape)
+            got = {k: t.full_tensor() if is_dtensor(t) else t for k, t in res.items()}
+        del model, placed, res
+        torch.cuda.empty_cache()
+        if rank == 0:  # the same case in one process on this card
+            one = recsys.INIT[arch](X_SEED, cfg, device=dev)[0]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            want = run(one, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            row.update({"one_process_s": time.perf_counter() - t0,
+                        "one_process_peak_bytes": peak,
+                        "one_process_peak_over_base_bytes": peak - base})
+            if kind == "train":
+                row["loss"] = [float(got["loss"]), float(want["loss"])]
+                row["loss_rel_err"] = abs(row["loss"][0] - row["loss"][1]) / abs(row["loss"][1])
+                row["grad_err_over_max"] = {
+                    k: float((got[k] - want[k]).abs().max() / want[k].abs().max())
+                    for k in want if k != "loss"}
+            else:
+                s1 = want["scores"]
+                row["over"] = _x_over(got["scores"], s1)
+                row["max_abs_err"] = float((got["scores"] - s1).abs().max())
+                row["max_abs"] = float(s1.abs().max())
+                # the top 100 where each score stands clear of its neighbours
+                top, _ = top_k_lowest_index(s1, 101)
+                gap = top[:-1] - top[1:]
+                tol = atol + rtol * top[:-1].abs()
+                clear = (gap > tol) & (torch.cat([gap.new_full((1,), float("inf")),
+                                                  gap[:-1]]) > tol)
+                row["top_differ"] = int(((got["ids"] != want["ids"]) & clear).sum())
+                row["top_clear"] = int(clear.sum())
+                # ids the mesh ranks in its top 100 whose one-process score is
+                # below the 100th by more than the tolerance
+                row["top_outside"] = int((s1[got["ids"].long()] < top[99] - atol
+                                          - rtol * top[99].abs()).sum())
+            del one, want
+        out[name] = row
+        del got, batch
+        torch.cuda.empty_cache()
+    return out
+
+
 def _x_train_step(rank: int, dev) -> dict:
     """Reduced gemma2-2b, one AdamW step (fp32 compute) on a (2, 2) DTensor
     mesh by the production rules, against the one-process step on this card."""
@@ -3683,6 +3849,19 @@ def _x_world(backend: str, out_dir: Path) -> list[dict]:
                 raise AssertionError(f"X5 ({backend}) {name}: elements beyond {X_TOL} of one "
                                      f"process: {row['over']} (max abs err "
                                      f"{row['max_abs_err']})")
+        for name, row in r["X6"].items() if r["rank"] == 0 else ():  # rank 0 compares
+            if "loss" in row:
+                worst = max(row["grad_err_over_max"].values())
+                if row["loss_rel_err"] > 1e-5 or worst > 1e-5:
+                    raise AssertionError(f"X6 ({backend}) {name}: loss rel err "
+                                         f"{row['loss_rel_err']}, gradients "
+                                         f"{row['grad_err_over_max']} of their largest")
+            elif row["over"] or row["top_differ"] or row["top_outside"]:
+                raise AssertionError(f"X6 ({backend}) {name}: {row['over']} scores beyond "
+                                     f"{X_TOL} of one process (max abs err "
+                                     f"{row['max_abs_err']}), {row['top_differ']} top-100 ids "
+                                     f"differ where the scores stand clear, "
+                                     f"{row['top_outside']} below the 100th")
         if "train" in r:
             tr = r["train"]
             for k in ("loss", "grad_norm"):
@@ -3748,7 +3927,7 @@ def phase_x(dev) -> dict:
              (("X1", "ag_rel_err"), ("X2", "rel_err"), ("X3", "max_abs_err"))}
     result = {
         "phase": "X", "world": X_RANKS, "backend": "gloo",
-        "passed": ["X1", "X2", "X3", "X4", "X5"],
+        "passed": ["X1", "X2", "X3", "X4", "X5", "X6"],
         "transport": "one card: gloo moves CUDA tensors through host memory (copied out and "
                      "back by the comm helpers); times are the host transport's, not the card's",
         "X1": {"shape": ranks[0]["X1"]["shape"], "worst_rel_err": worst["X1"],
@@ -3778,6 +3957,13 @@ def phase_x(dev) -> dict:
                                                           for r in ranks],
                                  "host_bytes": [r["X5"][name]["host_bytes"] for r in ranks]}
                           for name, *_ in X_ATTN_LAYERS}},
+        "X6": {"mesh": [1, X_RANKS], "tolerance": list(X_TOL),
+               "cut": "bst retrieval_cand's 1,000,000 candidates cut to 262,144",
+               "cases": {name: {**ranks[0]["X6"][name],
+                                **{k: [r["X6"][name][k] for r in ranks]
+                                   for k in ("s", "peak_bytes", "peak_over_base_bytes",
+                                             "host_bytes")}}
+                         for name, *_ in X_RECSYS}},
         "kernel_launches": 0,
     }
     if torch.cuda.device_count() >= X_RANKS:
@@ -3791,7 +3977,7 @@ def phase_x(dev) -> dict:
             "X4_s": [r["X4"]["s"] for r in nccl], "X1_ag_s": [r["X1"]["ag_s"] for r in nccl],
             "X2_s": [r["X2"]["s"] for r in nccl], "X3_s": [r["X3"]["s"] for r in nccl],
             "train": nccl[0]["train"], "X4": _x_check_moe(dev, out_dir),
-            "X5": nccl[0]["X5"]}
+            "X5": nccl[0]["X5"], "X6": nccl[0]["X6"]}
         shutil.rmtree(out_dir, ignore_errors=True)
     else:
         result["nccl"] = (f"not run: {torch.cuda.device_count()} card(s); the NCCL world "

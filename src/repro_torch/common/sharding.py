@@ -480,66 +480,174 @@ def _chunk_of(n: int, dims: Sequence[int], mesh) -> tuple[int, int]:
     return start, n
 
 
-class _BlockRows(torch.autograd.Function):
-    """Rows of this rank's block of a table at block-relative ids (zeros for
-    ids outside the block).  The backward sums every rank's rows, in the
-    global order of the ids: the gradient of the whole batch gathered over
-    the mesh (``gather``), each id's row added in turn as one process adds
-    them, so the block's gradient is the one-process gradient's rows."""
+def _rows_at(block: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """Rows of ``block`` at block-relative ids, zeros for ids outside it."""
+    n = block.shape[0]
+    mine = ((at >= 0) & (at < n)).to(block.dtype)[..., None]
+    return block[at.clamp(0, max(n - 1, 0))] * mine
+
+
+def _add_rows(grad: torch.Tensor, at: torch.Tensor, g: torch.Tensor) -> None:
+    """Scatter-add ``g``'s rows into ``grad`` (the block's n rows and a spare
+    one) at block-relative ids; ids outside the block go to the spare row."""
+    n = grad.shape[0] - 1
+    idx = torch.where((at >= 0) & (at < n), at, n)
+    grad.index_put_((idx.reshape(-1),), g.reshape(-1, g.shape[-1]).to(grad.dtype),
+                    accumulate=True)
+
+
+def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """A rows' gradient is summed in fp32 at least (a bf16 table's rounded
+    once at the end), so that a sum split over ranks and one process's
+    differ by fp32 rounding alone."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+class _Rows(torch.autograd.Function):
+    """``table[ids]`` of a whole table, its gradient summed as
+    ``_BlockRows`` sums it on a mesh (in ``_sum_dtype``)."""
 
     @staticmethod
-    def forward(ctx, block, at, at_all, gather):
-        n = block.shape[0]
-        ctx.save_for_backward(at_all)
-        ctx.n, ctx.gather = n, gather
-        mine = ((at >= 0) & (at < n)).to(block.dtype)[..., None]
-        return block[at.clamp(0, max(n - 1, 0))] * mine
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n = table.shape[0]
+        return table[ids]
 
     @staticmethod
     def backward(ctx, g):
-        (at_all,) = ctx.saved_tensors
-        n = ctx.n
-        g_all = ctx.gather(g)
-        mine = ((at_all >= 0) & (at_all < n)).to(g_all.dtype)[..., None]
-        grad = torch.zeros((n, g_all.shape[-1]), dtype=g_all.dtype, device=g_all.device)
-        grad.index_put_((at_all.clamp(0, max(n - 1, 0)).reshape(-1),),
-                        (g_all * mine).reshape(-1, g_all.shape[-1]), accumulate=True)
-        return grad, None, None, None
+        (ids,) = ctx.saved_tensors
+        grad = torch.zeros((ctx.n + 1, g.shape[-1]), dtype=_sum_dtype(g.dtype), device=g.device)
+        _add_rows(grad, ids, g)
+        return grad[:ctx.n].to(g.dtype), None
+
+
+class _BlockRows(torch.autograd.Function):
+    """Rows of this rank's block of a table (rows ``r0`` on) at ``ids``,
+    zeros for ids outside the block.
+
+    With ``exchange`` (the process group of a mesh dimension that splits
+    both the rows and the ids' dimension 0, and its size r), every rank of
+    that group gathers the group's ids (integers), and in r chunks looks up
+    its rows of each rank's share and reduce-scatters them back: the result
+    is this rank's ids' rows, summed over that dimension, and no partial
+    buffer is larger than the rank's share.  The backward is the mirror:
+    the rows' gradients gathered chunk by chunk.
+
+    The backward scatter-adds the gradient rows of the ids that fall in the
+    block into a block-sized gradient, then sums it in place over ``reduce``
+    (the groups of the mesh dimensions that split the ids and not the rows,
+    over which the table is replicated).  No tensor of the whole batch's
+    rows is built.  The sum is in fp32 at least (``_sum_dtype``) and in
+    another order than one process's, so the block's gradient equals the
+    one-process gradient's rows (``_Rows``) within fp32 rounding, not bit
+    for bit."""
+
+    @staticmethod
+    def forward(ctx, block, ids, r0, exchange, reduce):
+        ctx.r0, ctx.n, ctx.exchange, ctx.reduce = r0, block.shape[0], exchange, reduce
+        if exchange is None:
+            ctx.save_for_backward(ids)
+            return _rows_at(block, ids - r0)
+        from repro_torch.distributed.comm import all_gather_raw, reduce_scatter_raw
+
+        group, r = exchange
+        every = all_gather_raw(ids, group, r, 0)  # (r * m, ...): the group's ids
+        ctx.save_for_backward(every)
+        out = [reduce_scatter_raw(_rows_at(block, at - r0), group, r)
+               for at in _exchange_chunks(every, r)]
+        return torch.cat(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.distributed.comm import all_gather_raw, psum_
+
+        (ids,) = ctx.saved_tensors
+        grad = torch.zeros((ctx.n + 1, g.shape[-1]), dtype=_sum_dtype(g.dtype), device=g.device)
+        if ctx.exchange is None:
+            _add_rows(grad, ids - ctx.r0, g)
+        else:
+            group, r = ctx.exchange
+            at = _exchange_chunks(ids, r)
+            lo = 0
+            for a in at:
+                hi = lo + a.shape[0] // r
+                _add_rows(grad, a - ctx.r0, all_gather_raw(g[lo:hi], group, r, 0))
+                lo = hi
+        grad = grad[:ctx.n]
+        for group in ctx.reduce:
+            psum_(grad, group)
+        return grad.to(g.dtype), None, None, None, None
+
+
+def _exchange_chunks(every: torch.Tensor, r: int) -> list[torch.Tensor]:
+    """The gathered ids of ``r`` ranks (``every``, each rank's m in turn) in
+    min(r, m) chunks, chunk j holding slice j of each rank's m ids: the ids
+    whose rows one reduce-scatter returns, slice j to each rank."""
+    m = every.shape[0] // r
+    per = every.reshape(r, m, *every.shape[1:])
+    return [c.reshape(-1, *every.shape[1:]) for c in per.tensor_split(max(min(r, m), 1), dim=1)]
 
 
 def take_rows(table, ids: torch.Tensor):
     """``table[ids]`` (ids in range) of a DTensor table whose rows may be
-    sharded, without moving the table: each rank reads the ids that fall in
-    its rows (zeros for the others), so the result is partial (a sum) over
-    the mesh dimensions that split the rows, laid out as ``ids`` elsewhere.
-    The table's gradient stays row-sharded and is the one-process
-    gradient's (``_BlockRows``): the rows' gradients are gathered, where
-    ``ids`` are sharded, instead of the table.  DTensor's own rules would
-    gather the whole table (indexing) or sum a gradient of the whole table
-    (``F.embedding``).  The table is split by rows or replicated on each
-    mesh dimension, as its logical axes (rows, None) lay it out."""
+    sharded, without moving the table (of a plain table, ``_Rows``: the
+    same gradient sum in one process).  The table is split by rows or
+    replicated on each mesh dimension, as its logical axes (rows, None) lay
+    it out.  On each mesh dimension that splits the rows:
+      * where the ids are whole, each rank reads the ids that fall in its
+        rows (zeros for the others): the result is partial (a sum) there;
+      * where the ids' dimension 0 is split evenly too (retrieval's
+        candidates), the ids stay split: each rank's result is its own
+        ids' rows, laid out as the ids (``_BlockRows``' exchange; at most
+        one such dimension).
+    Elsewhere the result is laid out as ``ids``.  Any other layout (ids
+    split on another dimension, or unevenly, where the rows are split;
+    partial ids; a table split otherwise) raises.
+
+    The table's gradient stays row-sharded: each rank scatter-adds the
+    gradient rows of its ids into its block and sums the block over the
+    mesh dimensions that split the ids alone (an all-reduce of the block,
+    where the reference sums into the table's shard), in fp32 at least.
+    It equals the one-process gradient within fp32 rounding (the sum order
+    differs).
+    DTensor's own rules would gather the whole table (indexing) or sum a
+    gradient of the whole table (``F.embedding``)."""
+    if not is_dtensor(table):
+        return _Rows.apply(table, ids)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = table.device_mesh
+    if not all(p.is_shard(0) or p.is_replicate() for p in table.placements):
+        raise ValueError(f"take_rows: a table split as {table.placements}, not by rows")
     rows = [d for d, p in enumerate(table.placements) if p.is_shard(0)]
     if not isinstance(ids, DTensor):
         ids = DTensor.from_local(ids, mesh, (Replicate(),) * mesh.ndim)
-    id_pl = tuple(Replicate() if d in rows else p for d, p in enumerate(ids.placements))
-    ids = ids.redistribute(mesh, id_pl)
-    r0, n = _chunk_of(int(table.shape[0]), rows, mesh)
+    if any(p.is_partial() for p in ids.placements):
+        raise ValueError(f"take_rows: partial ids {ids.placements}")
+    # a split over one rank is none (DTensor cannot view a dimension it
+    # splits, even one rank's: a history of one on a mesh of data 1)
+    id_pl = tuple(Replicate() if mesh.size(d) == 1 else p for d, p in enumerate(ids.placements))
+    split = [d for d in rows if not id_pl[d].is_replicate()]
+    exchange = None
+    if split:
+        d = split[0]
+        if (len(split) > 1 or not id_pl[d].is_shard(0) or ids.dim() == 0
+                or int(ids.shape[0]) % math.prod(int(mesh.size(e)) for e, p in
+                                                 enumerate(id_pl) if p.is_shard(0))):
+            raise ValueError(f"take_rows: ids laid out {ids.placements} on a table split "
+                             f"{table.placements} (ids {tuple(ids.shape)}): only dimension 0, "
+                             "evenly, on one mesh dimension that splits the rows")
+        exchange = (mesh.get_group(d), int(mesh.size(d)))
+    reduce = [mesh.get_group(d) for d, p in enumerate(id_pl) if p.is_shard() and d not in rows]
+    r0, _ = _chunk_of(int(table.shape[0]), rows, mesh)
     dim = int(table.shape[1])
     shape = (*ids.shape, dim)
-    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-
-    def gather(g: torch.Tensor) -> torch.Tensor:  # the rows' gradient, the whole batch's
-        return DTensor.from_local(g, mesh, id_pl, shape=shape, stride=stride).full_tensor()
-
     local = table.to_local(grad_placements=tuple(Shard(0) if d in rows else Replicate()
                                                  for d in range(mesh.ndim)))
-    out = _BlockRows.apply(local, ids.to_local() - r0, ids.full_tensor() - r0, gather)
-    return DTensor.from_local(out, mesh, tuple(Partial() if d in rows else p
-                                               for d, p in enumerate(id_pl)),
-                              shape=shape, stride=stride)
+    out = _BlockRows.apply(local, ids.to_local(), r0, exchange, reduce)
+    placed = tuple(Partial() if d in rows and d not in split else p for d, p in enumerate(id_pl))
+    return DTensor.from_local(out, mesh, placed, shape=shape,
+                              stride=tuple(math.prod(shape[i + 1:]) for i in range(len(shape))))
 
 
 def take_last(x, idx: torch.Tensor):

@@ -133,11 +133,35 @@ def _all_to_all_raw(x: torch.Tensor, group) -> torch.Tensor:
     return _back(out, x)
 
 
-def _all_gather_raw(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+def all_gather_raw(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` over ``group`` (of ``n`` ranks), concatenated on
+    ``dim`` in group order (no gradient)."""
     buf = _out(x, group)
     parts = [torch.empty_like(buf) for _ in range(n)]
     dist.all_gather(parts, buf, group=group)
     return _back(torch.cat(parts, dim=dim), x)
+
+
+def reduce_scatter_raw(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``, block i of dim 0 to
+    position i (no gradient)."""
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of size {x.shape[0]} does not split {n} ways")
+    buf = _out(x, group)
+    out = buf.new_empty((buf.shape[0] // n, *buf.shape[1:]))
+    dist.reduce_scatter_tensor(out, buf, group=group)
+    return _back(out, x)
+
+
+def psum_(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` (contiguous) over ``group`` in place (no gradient)."""
+    if x.is_cuda and _host(group):
+        buf = _out(x, group)
+        dist.all_reduce(buf, group=group)
+        x.copy_(_back(buf, x))
+    else:
+        dist.all_reduce(x, group=group)
+    return x
 
 
 def _psum_raw(x: torch.Tensor, group) -> torch.Tensor:
@@ -195,7 +219,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n, dim):
         ctx.comm = (group, n, dim, x.shape[dim])
-        return _all_gather_raw(x, group, n, dim)
+        return all_gather_raw(x, group, n, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -221,7 +245,7 @@ class _Assemble(torch.autograd.Function):
         ctx.comm = (gathers, scale, [])
         for group, n, dim in gathers:
             ctx.comm[2].append(y.shape[dim])
-            y = _all_gather_raw(y, group, n, dim)
+            y = all_gather_raw(y, group, n, dim)
         return y
 
     @staticmethod

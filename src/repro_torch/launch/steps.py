@@ -30,7 +30,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.common.config import ArchConfig, OptimizerConfig, ShapeSpec, TrainConfig
-from repro_torch.common.sharding import is_dtensor, sharding_for_shape
+from repro_torch.common.sharding import constrain, is_dtensor, sharding_for_shape
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import sampler as sampler_mod
@@ -311,6 +311,8 @@ def recsys_cell(cfg: ArchConfig, shape: ShapeSpec) -> CellBundle:
         cand = batch["candidates"]
         rest = {k: v for k, v in batch.items() if k != "candidates"}
         scores = rec_mod.RETRIEVAL[cfg.name](model, cfg, rest, cand)
+        # on a mesh each rank's candidates' scores, gathered (C fp32) before the sort
+        scores = constrain(scores, None)
         return top_k_lowest_index(scores, 100)  # lax.top_k: ties to the lower index
 
     return CellBundle(cfg, shape, "retrieval", step, init_fn, param_specs, axes, sp, ax)

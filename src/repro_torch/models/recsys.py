@@ -201,35 +201,58 @@ def init_bst(seed, cfg: ArchConfig, dtype=torch.float32, *, device="cuda"):
     return _model(params, axes)
 
 
-def _bst_encode(params, cfg: ArchConfig, items: torch.Tensor) -> torch.Tensor:
-    """items (B, L+1) -> transformer output (B, (L+1)·D)."""
-    d = cfg.embed_dim
-    attn = params["attn"]
-    x = take(params["item_table"], items) + params["pos_table"][None]
-    h = nn.layernorm(params["ln1"], x)
-    q = torch.einsum("bsd,dhk->bshk", h, attn["wq"])
-    k = torch.einsum("bsd,dhk->bshk", h, attn["wk"])
-    v = torch.einsum("bsd,dhk->bshk", h, attn["wv"])
-    p = torch.softmax(torch.einsum("bshk,bthk->bhst", q, k) / math.sqrt(d // cfg.n_heads), dim=-1)
+def _bst_attention(cfg: ArchConfig, h: torch.Tensor, wq, wk, wv, wo) -> torch.Tensor:
+    """One self-attention block on h (B, L+1, D) -> (B, L+1, D)."""
+    q = torch.einsum("bsd,dhk->bshk", h, wq)
+    k = torch.einsum("bsd,dhk->bshk", h, wk)
+    v = torch.einsum("bsd,dhk->bshk", h, wv)
+    scale = math.sqrt(cfg.embed_dim // cfg.n_heads)
+    p = torch.softmax(torch.einsum("bshk,bthk->bhst", q, k) / scale, dim=-1)
     o = torch.einsum("bhst,bthk->bshk", p, v)
     del p  # (B, H, S, S): over 1M retrieval candidates the largest tensor, 14 GB
-    x = x + torch.einsum("bshk,hkd->bsd", o, attn["wo"])
+    return torch.einsum("bshk,hkd->bsd", o, wo)
+
+
+def _bst_encode(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """x (B, L+1, D), the items' rows plus their positions -> transformer
+    output (B, (L+1)·D); on a mesh, on each rank's rows."""
+    attn = params["attn"]
+    h = nn.layernorm(params["ln1"], x)
+    x = x + local_rows(lambda hb, *w: _bst_attention(cfg, hb, *w), (h,),
+                       (attn["wq"], attn["wk"], attn["wv"], attn["wo"]))
     h = nn.layernorm(params["ln2"], x)
     x = x + nn.mlp(params["ffn"], h, act=F.leaky_relu)
     return x.reshape(x.shape[0], -1)
 
 
+def _bst_head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    return nn.mlp(params["mlp"], _bst_encode(params, cfg, x), act=F.leaky_relu)[..., 0]
+
+
 def bst_forward(params, cfg: ArchConfig, batch) -> torch.Tensor:
     items = torch.cat([batch["hist"], batch["target"][:, None]], dim=1)
-    flat = _bst_encode(params, cfg, items)
-    return nn.mlp(params["mlp"], flat, act=F.leaky_relu)[..., 0]
+    return _bst_head(params, cfg, take(params["item_table"], items) + params["pos_table"][None])
+
+
+def _bst_items(cand: torch.Tensor, hist: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """cand (C, D), hist (L, D), pos (L+1, D) -> (C, L+1, D): the one
+    history before each candidate, plus the positions."""
+    items = torch.cat([hist[None].expand(cand.shape[0], *hist.shape), cand[:, None]], dim=1)
+    return items + pos[None]
 
 
 def bst_retrieval(params, cfg: ArchConfig, batch, candidates: torch.Tensor) -> torch.Tensor:
-    """1 user history x C candidates: target slot varies over candidates."""
-    c = candidates.shape[0]
-    hist = batch["hist"][:1].expand(c, batch["hist"].shape[1])
-    return bst_forward(params, cfg, {"hist": hist, "target": candidates})
+    """1 user history x C candidates: target slot varies over candidates.
+    On a mesh each rank encodes its own candidates (split as they are),
+    the one history whole."""
+    if not is_dtensor(candidates):
+        c = candidates.shape[0]
+        hist = batch["hist"][:1].expand(c, batch["hist"].shape[1])
+        return bst_forward(params, cfg, {"hist": hist, "target": candidates})
+    table = params["item_table"]
+    x = local_rows(_bst_items, (take(table, candidates),),
+                   (take(table, batch["hist"][:1])[0], params["pos_table"]))
+    return _bst_head(params, cfg, x)
 
 
 # ------------------------------------------------------------------ MIND
@@ -253,12 +276,11 @@ def _squash(x: torch.Tensor) -> torch.Tensor:
     return (n2 / (1.0 + n2)) * x / torch.sqrt(n2 + 1e-9)
 
 
-def mind_interests(params, cfg: ArchConfig, hist: torch.Tensor) -> torch.Tensor:
-    """Behavior→Interest dynamic routing: (B, L) ids -> (B, J, D) capsules."""
-    e = take(params["item_table"], hist)  # (B, L, D)
-    eh = e @ params["s_map"]  # (B, L, D)
+def _mind_routing(cfg: ArchConfig, eh: torch.Tensor, hist: torch.Tensor,
+                  b_init: torch.Tensor) -> torch.Tensor:
+    """The routing of (B, L, D) mapped behaviour rows eh of (B, L) ids -> (B, J, D)."""
     mask = (hist >= 0).to(eh.dtype)
-    b_log = params["b_init"][None].expand(e.shape[0], *params["b_init"].shape)
+    b_log = b_init[None].expand(eh.shape[0], *b_init.shape)
     u = None
     for _ in range(cfg.capsule_iters):
         w = torch.softmax(b_log, dim=1)  # over interests
@@ -269,19 +291,36 @@ def mind_interests(params, cfg: ArchConfig, hist: torch.Tensor) -> torch.Tensor:
     return u
 
 
+def mind_interests(params, cfg: ArchConfig, hist: torch.Tensor) -> torch.Tensor:
+    """Behavior→Interest dynamic routing: (B, L) ids -> (B, J, D) capsules;
+    on a mesh, on each rank's rows."""
+    eh = take(params["item_table"], hist) @ params["s_map"]  # (B, L, D)
+    return local_rows(lambda ehb, hb, b_init: _mind_routing(cfg, ehb, hb, b_init),
+                      (eh, hist), (params["b_init"],))
+
+
+def _mind_target_scores(u: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """u (B, J, D), t (B, D) -> max_j u_j · t, (B,)."""
+    return torch.einsum("bjd,bd->bj", u, t).amax(dim=-1)
+
+
 def mind_forward(params, cfg: ArchConfig, batch) -> torch.Tensor:
     """Label-aware: score = max_j u_j · target (serving form, MIND §4)."""
     u = mind_interests(params, cfg, batch["hist"])  # (B, J, D)
     t = take(params["item_table"], batch["target"])  # (B, D)
-    scores = torch.einsum("bjd,bd->bj", u, t)
-    return scores.amax(dim=-1)
+    return local_rows(_mind_target_scores, (u, t))
+
+
+def _mind_scores(cand: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """cand (C, D), u (J, D) -> max_j u_j · cand, (C,)."""
+    return torch.einsum("jd,cd->cj", u, cand).amax(dim=-1)
 
 
 def mind_retrieval(params, cfg: ArchConfig, batch, candidates: torch.Tensor) -> torch.Tensor:
+    """On a mesh each rank scores its own candidates (split as they are)."""
     u = mind_interests(params, cfg, batch["hist"][:1])  # (1, J, D)
-    cand = take(params["item_table"], candidates)  # (C, D)
-    scores = torch.einsum("jd,cd->cj", u[0], cand)
-    return scores.amax(dim=-1)
+    cand = take(params["item_table"], candidates)  # (C, D), laid out as the candidates
+    return local_rows(_mind_scores, (cand,), (u[0],))
 
 
 # ------------------------------------------------------------------ losses

@@ -246,8 +246,7 @@ def _embed_in(model: LMModel, cfg: ArchConfig, tokens: torch.Tensor, compute_dty
               scale: bool = True) -> torch.Tensor:
     # rows gathered, then cast: the values of the reference's cast-then-take
     table = model.embed["table"]
-    x = (take_rows(table, tokens.long()) if is_dtensor(table)
-         else table[tokens.long()]).to(compute_dtype)
+    x = take_rows(table, tokens.long()).to(compute_dtype)
     if scale and cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype, device=x.device)
     return x

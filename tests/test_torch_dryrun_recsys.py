@@ -1,0 +1,81 @@
+"""The recsys cells whose lookups split the candidates, at full size on the
+fake 16x16 CPU mesh (``repro_torch.launch.dryrun.dryrun_cell``), against
+the reference's ``dryrun_cell`` of the same cells.
+
+BST's and MIND's ``retrieval_cand`` (1,000,000 candidates split over
+``model``, as the item tables' rows are) and MIND's ``train_batch``
+(65,536 histories of 50 items).  The reduced cells have 1,000 candidates
+and cannot show a rank planning every candidate.  One subprocess runs the
+reference's three cells (XLA's plans over 256 host devices) while this
+process runs the port's; each check is its own test case.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SRC = os.path.join(ROOT, "src")
+CELLS = [("bst", "retrieval_cand"), ("mind", "retrieval_cand"), ("mind", "train_batch")]
+
+REF = r"""
+import json, sys
+import repro.launch.dryrun as D
+cells = json.loads(sys.argv[1])
+out = {f"{a}/{s}": D.dryrun_cell(a, s) for a, s in cells}
+print(json.dumps({k: {"status": r["status"], "flops": r["flops_per_device"],
+                      "plan": sum(r["memory"][m] for m in ("argument_bytes", "output_bytes",
+                                                           "temp_bytes"))}
+                  for k, r in out.items()}))
+"""
+
+
+@pytest.fixture(scope="module")
+def runs():
+    from repro_torch.launch import dryrun
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    ref = subprocess.Popen([sys.executable, "-c", REF, json.dumps(CELLS)], env=env, text=True,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        got = {f"{a}/{s}": dryrun.dryrun_cell(a, s, device="cpu") for a, s in CELLS}
+    finally:
+        out, err = ref.communicate(timeout=600)
+    assert ref.returncode == 0, f"reference:\n{err[-4000:]}"
+    return got, json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("cell", ["/".join(c) for c in CELLS])
+def test_peak_within_twice_the_reference_plan(runs, cell):
+    """A rank's planned peak at most 2x the reference's argument + output +
+    temp bytes: the candidates stay split over ``model`` through the
+    lookup (and BST's encode), and the table's gradient is summed into its
+    block (26.19x, 11.53x and 3.35x before)."""
+    got, ref = runs
+    r = got[cell]
+    assert r["status"] == "ok" and ref[cell]["status"] == "ok", r
+    plan = ref[cell]["plan"]
+    print(f"{cell}: port peak {r['peak_bytes']:,} bytes a rank, reference plan {plan:,} "
+          f"({r['peak_bytes'] / plan:.2f}x)")  # shown with pytest -s
+    assert r["peak_bytes"] <= 2 * plan, (r["peak_bytes"], plan)
+
+
+def test_bst_retrieval_flops_are_one_ranks_share(runs):
+    """BST's FLOPs a rank within 2x of the reference's either way: each rank
+    encodes its 62,500 candidates, not all 1,000,000 (15.7x before)."""
+    got, ref = runs
+    port, want = got["bst/retrieval_cand"]["flops_per_device"], ref["bst/retrieval_cand"]["flops"]
+    assert want / 2 <= port <= 2 * want, (port, want)
+
+
+def test_mind_train_gathers_no_batch_of_rows(runs):
+    """MIND's train step gathers no gradient of the whole batch's (65,536,
+    50, 64) rows: the table's gradient is each rank's block, all-reduced."""
+    got, _ = runs
+    r = got["mind/train_batch"]
+    for e in r["largest_collectives"]:
+        assert [65536, 50, 64] not in e["shape"], e
+    assert r["collective_bytes_per_device"].get("all-gather", 0) < 838_860_800
