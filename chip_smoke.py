@@ -3115,12 +3115,15 @@ def phase_w(dev) -> dict:
 # ------------------------------------------------------------ phases P and T
 # P(a): the three hardest cells of the grid on the 16x16 mesh, gemma2-2b's
 # prefill_32k, whose rank's share must fit the card (attention's scores split
-# over ``model`` as the reference splits them), and the recsys cells whose
-# candidates and table rows split over ``model``; P(b): cut cells on a one-rank
+# over ``model`` as the reference splits them), the recsys cells whose
+# candidates and table rows split over ``model``, and the cells whose MLPs run
+# tensor-parallel over ``model``; P(b): cut cells on a one-rank
 # mesh against the same step run for real on the card
 P_CELLS = (("deepseek-v3-671b", "train_4k"), ("dlrm-mlperf", "train_batch"),
            ("meshgraphnet", "ogb_products"), ("gemma2-2b", "prefill_32k"),
-           ("bst", "retrieval_cand"), ("mind", "retrieval_cand"), ("mind", "train_batch"))
+           ("bst", "retrieval_cand"), ("mind", "retrieval_cand"), ("mind", "train_batch"),
+           ("bst", "train_batch"), ("dlrm-mlperf", "serve_bulk"),
+           ("meshgraphnet", "minibatch_lg"))
 P_FITS = (("gemma2-2b", "prefill_32k"),)  # a rank's peak under the card's memory
 # the reference's plan of a rank (XLA's argument + output + temp bytes on the
 # 16x16 mesh, from `JAX_PLATFORMS=cpu python -m repro.launch.dryrun --arch A
@@ -3129,6 +3132,12 @@ P_FITS = (("gemma2-2b", "prefill_32k"),)  # a rank's peak under the card's memor
 P_PLANS = {("bst", "retrieval_cand"): 1_592_024_372, ("mind", "retrieval_cand"): 48_293_800,
            ("mind", "train_batch"): 560_673_828}
 P_PLAN_RATIO = 2.0
+# the reference's FLOPs a rank (XLA's cost_analysis on the 16x16 mesh, the same
+# command): the cells whose MLPs run tensor-parallel over ``model`` must plan
+# at most P_FLOPS_RATIO of them
+P_FLOPS = {("bst", "train_batch"): 5_877_059_584, ("dlrm-mlperf", "serve_bulk"): 5_151_876_608,
+           ("meshgraphnet", "minibatch_lg"): 9_651_743_744}
+P_FLOPS_RATIO = 1.5
 P_PEAK_TOL = 0.20
 P_SEED = 43
 P_TIMEOUT_S = 900  # the dry runs' processes, counted from the run's start
@@ -3234,9 +3243,11 @@ def p_stop(procs: list) -> None:
 def phase_p(dev, procs: list) -> dict:
     """Phase P: the grid dry-run on the card's machine (fake tensors: no card
     memory).  (a) ``dryrun_cell`` on the 16x16 mesh for the three hardest
-    cells, gemma2-2b's prefill_32k and the recsys cells of ``P_PLANS``,
-    each ``ok``, gemma2-2b's peak a rank under the card's memory, the
-    recsys cells' within ``P_PLAN_RATIO`` of the reference's plan; (b)
+    cells, gemma2-2b's prefill_32k, the recsys cells of ``P_PLANS`` and the
+    cells of ``P_FLOPS``, each ``ok``, gemma2-2b's peak a rank under the
+    card's memory, the recsys cells' within ``P_PLAN_RATIO`` of the
+    reference's plan, the ``P_FLOPS`` cells' FLOPs a rank within
+    ``P_FLOPS_RATIO`` of the reference's (their MLPs tensor-parallel); (b)
     the dry run's body on a one-rank mesh against the same cut cell run
     for real here: FLOPs equal exactly, peaks within 20%.  A dry run that
     fails, or reports ``error``, fails the phase."""
@@ -3278,6 +3289,15 @@ def phase_p(dev, procs: list) -> dict:
             if ratio > P_PLAN_RATIO:
                 raise AssertionError(f"P(a): {arch} x {shape} plans {r['peak_bytes']} bytes a "
                                      f"rank, {ratio:.2f}x the reference's {plan}")
+        flops = P_FLOPS.get((arch, shape))
+        if flops is not None:
+            ratio = r["flops_per_device"] / flops
+            out["a"][f"{arch}/{shape}"].update({"reference_flops": flops, "flops_ratio": ratio})
+            log(f"[P] (a) {arch} x {shape}: {r['flops_per_device']:.6g} FLOPs a rank, "
+                f"{ratio:.3f}x the reference's {flops:,}")
+            if ratio > P_FLOPS_RATIO:
+                raise AssertionError(f"P(a): {arch} x {shape} plans {r['flops_per_device']} "
+                                     f"FLOPs a rank, {ratio:.2f}x the reference's {flops}")
     fakes = done["b"][0]
     for name, cell in _p_cut_cells():
         _free()
@@ -3303,9 +3323,17 @@ def phase_p(dev, procs: list) -> dict:
     return out
 
 
+# phase T's depth: train_lm's defaults are 300 steps, a checkpoint every 100;
+# cut to keep the whole run inside its limit as phase X grew (its loss after
+# 300 steps, 6.65, stands far under the uniform 10.37)
+T_STEPS = 100
+T_CHECKPOINT_EVERY = 50
+
+
 def phase_t(dev) -> dict:
-    """Phase T: ``launch/train_lm.py`` at its defaults on the card (gemma2-100m,
-    300 steps of 8 x 128, a checkpoint every 100, 20 steps resumed)."""
+    """Phase T: ``launch/train_lm.py`` on the card at its defaults but the
+    depth (gemma2-100m, ``T_STEPS`` steps of 8 x 128, a checkpoint every
+    ``T_CHECKPOINT_EVERY``, 20 steps resumed)."""
     import math
 
     import torch
@@ -3315,12 +3343,13 @@ def phase_t(dev) -> dict:
     ckpt = ROOT / "build" / "train_lm_ckpt"
     t0 = time.perf_counter()
     try:
-        r = train_lm.run(ckpt_dir=str(ckpt), device=str(dev))
+        r = train_lm.run(ckpt_dir=str(ckpt), device=str(dev), steps=T_STEPS,
+                         checkpoint_every=T_CHECKPOINT_EVERY)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     if next(r["model"].parameters()).device.type != "cuda":
         raise AssertionError("T: the model did not train on the card")
-    if not r["final_loss"] < math.log(32000) or r["resumed_from"] != 300:
+    if not r["final_loss"] < math.log(32000) or r["resumed_from"] != T_STEPS:
         raise AssertionError(f"T: loss {r['final_loss']}, resumed from {r['resumed_from']}")
     ms = sorted(h["ms"] for h in r["history"][1:])
     step_ms = ms[len(ms) // 2]
@@ -3365,6 +3394,18 @@ X_TOL = (1e-5, 1e-4)  # X4's, X5's and X6's: absolute, relative
 X_RECSYS = (("mind train_batch", "mind", "train", 65_536),
             ("mind retrieval_cand", "mind", "retrieval", 1_000_000),
             ("bst retrieval_cand", "bst", "retrieval", 262_144))
+# X7: (arch, shape) of the cells whose MLPs run tensor-parallel over ``model``,
+# at full width and the cells' own batches and graphs on that mesh
+X_TP = (("bst", "train_batch"), ("bst", "serve_bulk"), ("meshgraphnet", "molecule"),
+        ("meshgraphnet", "full_graph_sm"))
+# X7's gradients: each leaf's relative Frobenius error.  Their (leaky) ReLUs'
+# derivative jumps at 0, and a pre-activation within rounding of 0 takes the
+# other branch on the mesh (its sums add in another order), so single
+# elements move by up to a tenth of the leaf's largest at 65,536 rows; with a
+# smooth activation in their place the elements agree to rounding.  A sum
+# missed over the 4 ranks (a quarter of the gradient) or taken twice (double)
+# is far beyond the bound.
+X_TP_GRAD_TOL = 1e-2
 
 
 def _x_tokens(d: int, dev):
@@ -3569,6 +3610,7 @@ def _x_rank(rank: int, world: int, out_dir: str, backend: str) -> None:
 
     res["X5"] = _x_attention(rank, dev, backend)
     res["X6"] = _x_recsys(rank, dev, backend)
+    res["X7"] = _x_mlp_tp(rank, dev, backend)
     if backend == "nccl":
         res["train"] = _x_train_step(rank, dev)
     res["kernel_launches"] = _x_kernel_launches()
@@ -3803,6 +3845,133 @@ def _x_recsys(rank: int, dev, backend: str) -> dict:
     return out
 
 
+def _x_mlp_tp(rank: int, dev, backend: str) -> dict:
+    """X7: ``X_TP`` at full width on a (data 1, model 4) mesh, fp32: the
+    MLPs' hidden units split over ``model`` (BST's FFN and head, every MLP
+    of MeshGraphNet), each rank its block of units or its partial product,
+    summed.  Train cells: the loss and every gradient; serve: the scores.
+    Each case runs twice on the mesh: once for its seconds, peak over what
+    the rank held before and host bytes, once under the dry run's counter
+    below DTensor for a rank's FLOPs and the all-gathers of a whole MLP
+    weight (none may be).  Rank 0 then runs the case in one process on
+    this card (and once more under ``FlopCounterMode``): the scores and the
+    loss within ``X_TOL``, every gradient within ``X_TP_GRAD_TOL`` relative
+    (Frobenius), its worst element reported."""
+    import re
+    from contextlib import nullcontext
+
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.common.sharding import (concrete_mesh, is_dtensor, mesh_context,
+                                             shard_module, sharding_for_shape)
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.comm import HOST, host_collectives
+    from repro_torch.launch.dryrun import _rank_ops_mode
+    from repro_torch.launch.steps import build_cell, gnn_graph_dims
+    from repro_torch.models import gnn, recsys
+
+    mesh = concrete_mesh((1, X_RANKS), ("data", "model"))
+    via_host = host_collectives if backend == "gloo" else nullcontext
+    mlp_weight = re.compile(r"(^|\.)\d+\.[wb]$")
+    out = {}
+    for arch, shape_name in X_TP:
+        cfg, shapes, _ = get_arch(arch)
+        shape = next(s for s in shapes if s.name == shape_name)
+        cell = build_cell(cfg, shape)
+        gen = torch.Generator(device=dev).manual_seed(X_SEED + 7)
+        if cfg.family == "gnn":
+            n, e, d_feat = gnn_graph_dims(shape)
+            graphs = shape.n_graphs or 1
+            batch = _graph_batch(n, e, d_feat, cell.arch, shape.n_nodes * graphs,
+                                 shape.n_edges * graphs, gen, dev)
+        else:
+            batch = _rec_batch(cell.arch, shape.global_batch, gen, dev,
+                               label=cell.kind == "train")
+
+        def run(model, batch, cell=cell):
+            if cell.kind == "serve":
+                with torch.no_grad():
+                    return {"scores": cell.step(model, batch)}
+            if cell.arch.family == "gnn":
+                loss = gnn.mgn_loss(model, cell.arch, batch)
+            else:
+                loss = recsys.recsys_loss(model, cell.arch, batch)
+            loss.backward()
+            return {"loss": loss.detach(),
+                    **{name: p.grad for name, p in model.named_parameters()}}
+
+        model = cell.init_fn(X_SEED, dev)
+        shard_module(model, cell.param_axes, mesh, src_data_rank=None)
+        whole = {tuple(p.shape) for name, p in model.named_parameters() if mlp_weight.search(name)}
+        placed = {k: distribute_tensor(t, mesh, sharding_for_shape(cell.input_axes[k],
+                                                                   tuple(t.shape), mesh),
+                                       src_data_rank=None) for k, t in batch.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        HOST.reset()
+        t0 = time.perf_counter()
+        with mesh_context(mesh), via_host():
+            res = run(model, placed)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            row = {"s": time.perf_counter() - t0, "peak_bytes": peak,
+                   "peak_over_base_bytes": peak - base, "host_bytes": HOST.bytes}
+            got = {k: t.full_tensor() if is_dtensor(t) else t for k, t in res.items()}
+            del res
+            for p in model.parameters():
+                p.grad = None
+            ops = _rank_ops_mode()
+            with ops:
+                run(model, placed)
+        row["flops"] = ops.flops
+        row["collective_bytes"] = dict(ops.collectives)
+        row["whole_weight_gathers"] = sum(
+            e["kind"] == "all-gather" and any(tuple(s) in whole for s in e["shape"])
+            for e in ops.events)
+        del model, placed
+        torch.cuda.empty_cache()
+        if rank == 0:  # the same case in one process on this card
+            one = cell.init_fn(X_SEED, dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            want = run(one, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            row.update({"one_process_s": time.perf_counter() - t0,
+                        "one_process_peak_bytes": peak,
+                        "one_process_peak_over_base_bytes": peak - base})
+            if "loss" in want:
+                row["loss"] = [float(got["loss"]), float(want["loss"])]
+                row["loss_rel_err"] = abs(row["loss"][0] - row["loss"][1]) / abs(row["loss"][1])
+                row["grad_err_over_max"] = {
+                    k: float((got[k] - want[k]).abs().max() / want[k].abs().max())
+                    for k in want if k != "loss"}
+                row["grad_rel_norm_err"] = {
+                    k: float((got[k] - want[k]).norm() / want[k].norm())
+                    for k in want if k != "loss"}
+            else:
+                s1 = want["scores"]
+                row["over"] = _x_over(got["scores"], s1)
+                row["max_abs_err"] = float((got["scores"] - s1).abs().max())
+                row["max_abs"] = float(s1.abs().max())
+            del want
+            for p in one.parameters():
+                p.grad = None
+            with FlopCounterMode(display=False) as fc:
+                run(one, batch)
+            row["one_process_flops"] = fc.get_total_flops()
+            del one
+        out[f"{arch} {shape_name}"] = row
+        del got, batch
+        torch.cuda.empty_cache()
+    return out
+
+
 def _x_train_step(rank: int, dev) -> dict:
     """Reduced gemma2-2b, one AdamW step (fp32 compute) on a (2, 2) DTensor
     mesh by the production rules, against the one-process step on this card."""
@@ -3862,6 +4031,23 @@ def _x_world(backend: str, out_dir: Path) -> list[dict]:
                                      f"{row['max_abs_err']}), {row['top_differ']} top-100 ids "
                                      f"differ where the scores stand clear, "
                                      f"{row['top_outside']} below the 100th")
+        for name, row in r["X7"].items():
+            if row["whole_weight_gathers"]:
+                raise AssertionError(f"X7 ({backend}) {name} rank {r['rank']}: "
+                                     f"{row['whole_weight_gathers']} all-gathers of a whole "
+                                     f"MLP weight")
+            if r["rank"] != 0:
+                continue
+            if "loss" in row:
+                worst = max(row["grad_rel_norm_err"].values())
+                got, want = row["loss"]
+                if abs(got - want) > X_TOL[0] + X_TOL[1] * abs(want) or worst > X_TP_GRAD_TOL:
+                    raise AssertionError(f"X7 ({backend}) {name}: loss {got} vs {want}, "
+                                         f"gradients' relative errors {row['grad_rel_norm_err']}")
+            elif row["over"]:
+                raise AssertionError(f"X7 ({backend}) {name}: {row['over']} scores beyond "
+                                     f"{X_TOL} of one process (max abs err "
+                                     f"{row['max_abs_err']})")
         if "train" in r:
             tr = r["train"]
             for k in ("loss", "grad_norm"):
@@ -3927,7 +4113,7 @@ def phase_x(dev) -> dict:
              (("X1", "ag_rel_err"), ("X2", "rel_err"), ("X3", "max_abs_err"))}
     result = {
         "phase": "X", "world": X_RANKS, "backend": "gloo",
-        "passed": ["X1", "X2", "X3", "X4", "X5", "X6"],
+        "passed": ["X1", "X2", "X3", "X4", "X5", "X6", "X7"],
         "transport": "one card: gloo moves CUDA tensors through host memory (copied out and "
                      "back by the comm helpers); times are the host transport's, not the card's",
         "X1": {"shape": ranks[0]["X1"]["shape"], "worst_rel_err": worst["X1"],
@@ -3964,6 +4150,17 @@ def phase_x(dev) -> dict:
                                    for k in ("s", "peak_bytes", "peak_over_base_bytes",
                                              "host_bytes")}}
                          for name, *_ in X_RECSYS}},
+        "X7": {"mesh": [1, X_RANKS], "tolerance": list(X_TOL),
+               "grad_tolerance": X_TP_GRAD_TOL,
+               "cases": {name: {**{k: v for k, v in ranks[0]["X7"][name].items()
+                                   if not k.startswith("grad_")},
+                                **{f"worst_{k}": max(ranks[0]["X7"][name][k].values())
+                                   for k in ("grad_err_over_max", "grad_rel_norm_err")
+                                   if k in ranks[0]["X7"][name]},
+                                **{k: [r["X7"][name][k] for r in ranks]
+                                   for k in ("s", "flops", "peak_bytes", "peak_over_base_bytes",
+                                             "host_bytes")}}
+                         for name in ranks[0]["X7"]}},
         "kernel_launches": 0,
     }
     if torch.cuda.device_count() >= X_RANKS:
@@ -3977,7 +4174,7 @@ def phase_x(dev) -> dict:
             "X4_s": [r["X4"]["s"] for r in nccl], "X1_ag_s": [r["X1"]["ag_s"] for r in nccl],
             "X2_s": [r["X2"]["s"] for r in nccl], "X3_s": [r["X3"]["s"] for r in nccl],
             "train": nccl[0]["train"], "X4": _x_check_moe(dev, out_dir),
-            "X5": nccl[0]["X5"], "X6": nccl[0]["X6"]}
+            "X5": nccl[0]["X5"], "X6": nccl[0]["X6"], "X7": nccl[0]["X7"]}
         shutil.rmtree(out_dir, ignore_errors=True)
     else:
         result["nccl"] = (f"not run: {torch.cuda.device_count()} card(s); the NCCL world "

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn as tnn
 
-from repro_torch.common.sharding import is_dtensor, local_rows
+from repro_torch.common.sharding import (_axes, axis_size, is_dtensor, local_blocks,
+                                         local_rows, spec_for_shape)
 
 Params = Mapping[str, torch.Tensor]
 
@@ -147,23 +148,81 @@ def mlp_init(gen: torch.Generator | None, dims: Sequence[int], *, dtype=torch.fl
 def mlp(params: Sequence[Params], x: torch.Tensor, *,
         act: Callable[[torch.Tensor], torch.Tensor] = F.relu,
         final_act: Callable[[torch.Tensor], torch.Tensor] | None = None) -> torch.Tensor:
-    if is_dtensor(x):  # on a mesh: each rank's rows through the whole layers
-        keys = [[k for k in ("w", "b") if k in p] for p in params]
-        flat = [p[k] for p, ks in zip(params, keys) for k in ks]
+    if is_dtensor(x):
+        return _mlp_on_mesh(params, x, act, final_act)
+    for i, p in enumerate(params):
+        x = _activated(bias_dense(p, x), i, len(params), act, final_act)
+    return x
 
-        def rows(xb, *ws):
-            it = iter(ws)
-            return mlp([{k: next(it) for k in ks} for ks in keys], xb, act=act,
+
+def _activated(x, i: int, n: int, act, final_act):
+    if i < n - 1:
+        return act(x)
+    return final_act(x) if final_act is not None else x
+
+
+def _mlp_on_mesh(params: Sequence[Params], x, act, final_act):
+    """``mlp`` of a DTensor ``x`` whose rows (dim 0) may be split, with its
+    weights laid out as the reference's ``mlp_init`` lays them out
+    (``mlp_axes``, divisibility-aware: ``spec_for_shape``).
+
+    Where the rows are not split over the mesh axis that holds the hidden
+    units (``model``), the layers run tensor-parallel over it, as XLA runs
+    the reference's: an even layer, weight (None, model), is
+    column-parallel (each rank's rows times its block of units, plus its
+    bias block); an odd layer, weight (model, None), row-parallel (each
+    rank's partial product, summed over ``model``, the bias added once
+    after the sum, then the activation); a layer whose width ``model``
+    does not divide is replicated, as ``spec_for_shape`` replicates its
+    weight.  The sums are all-reduces (``comm.psum_whole``), not
+    reduce-scatters: what follows each one (the next column layer, a
+    replicated last layer, the caller's layernorm or residual over whole
+    rows, or DLRM's interaction) needs every unit on every rank of
+    ``model``; a reduce-scatter over rows would need the all-gather back
+    before the next MLP, the same bytes.  A column layer takes its input
+    through ``comm.pvary``, whose backward sums the input's gradient over
+    ``model``, so every value replicated over ``model`` has its whole
+    gradient on every rank there (``local_blocks(reduced=...)``).  The
+    weights stay in their blocks, forward and backward: a block's gradient
+    is partial over the row axes alone (``pod``/``data``).  The output is
+    laid out as the rows, its last dimension split over ``model`` where
+    the last layer is column-parallel (DLRM's bottom MLP: the caller
+    gathers it).
+
+    Where the rows are split over ``model`` too (retrieval's candidates,
+    the large graphs' nodes and edges), or no layer splits, each rank runs
+    its rows through the whole layers (``local_rows``)."""
+    mesh = x.device_mesh
+    rows = tuple(a for a, p in zip(mesh.mesh_dim_names, x.placements) if p.is_shard(0))
+    specs = [spec_for_shape(ax["w"], tuple(p["w"].shape), mesh)
+             for ax, p in zip(mlp_axes(len(params)), params)]
+    axis = next((e for s in specs for e in s if e is not None), None)  # the hidden units' axis
+    if axis is None or axis_size(axis, mesh) == 1 or set(_axes(axis)) & set(rows):
+        def whole_layers(xb, *ws):
+            return mlp([{"w": w, "b": b} for w, b in zip(ws[0::2], ws[1::2])], xb, act=act,
                        final_act=final_act)
 
-        return local_rows(rows, (x,), flat)
-    for i, p in enumerate(params):
-        x = bias_dense(p, x)
-        if i < len(params) - 1:
-            x = act(x)
-        elif final_act is not None:
-            x = final_act(x)
-    return x
+        return local_rows(whole_layers, (x,), [p[k] for p in params for k in ("w", "b")])
+    from repro_torch.distributed.comm import psum_whole, pvary
+
+    def layers(xb, *ws):
+        for i, ((w_in, w_out), w, b) in enumerate(zip(specs, ws[0::2], ws[1::2])):
+            p = {"w": w, "b": b}
+            if w_out is not None:  # column-parallel: this rank's units
+                xb = bias_dense(p, pvary(xb, axis, mesh))
+            elif w_in is not None:  # row-parallel: the partial products summed, then the bias
+                xb = psum_whole(dense(p, xb), axis, mesh) + b.to(xb.dtype)
+            else:  # replicated
+                xb = bias_dense(p, xb)
+            xb = _activated(xb, i, len(specs), act, final_act)
+        return xb
+
+    row_spec = (rows if len(rows) > 1 else rows[0]) if rows else None
+    inputs = [(x, (row_spec,))]
+    for (w_in, w_out), p in zip(specs, params):
+        inputs += [(p["w"], (w_in, w_out)), (p["b"], (w_out,))]
+    out_spec = (row_spec,) + (None,) * (x.dim() - 2) + (specs[-1][1],)
+    return local_blocks(layers, inputs, out_spec, reduced=_axes(axis))
 
 
 def rmsnorm_init(dim: int, dtype=torch.float32, device: torch.device | None = None

@@ -383,7 +383,7 @@ def is_dtensor(x) -> bool:
 
 
 def local_blocks(fn: Callable, inputs: Sequence[tuple[Any, Spec]], out_spec: Spec = (),
-                 *, partial_out: bool = False):
+                 *, partial_out: bool = False, reduced: Sequence[str] = ()):
     """``fn`` of each rank's blocks: every ``(tensor, spec)`` of ``inputs``
     gives this rank's block of the tensor under ``spec`` (one entry a
     dimension: the mesh axes that split it, or None), and ``fn``'s result,
@@ -399,7 +399,11 @@ def local_blocks(fn: Callable, inputs: Sequence[tuple[Any, Spec]], out_spec: Spe
     raises.  The mesh axes that split any input split the work: an input
     replicated over one of them gets a gradient partial over it (each
     rank's part of the sum), a split one its block's gradient, and DTensor
-    reduces each to the input's own layout.
+    reduces each to the input's own layout.  Over the mesh axes of
+    ``reduced``, ``fn`` makes the sums itself (its collectives: the MLP's
+    row-parallel layers, ``comm.psum_whole``, and ``comm.pvary`` on the
+    way in), so an input replicated there gets its whole gradient, not a
+    partial one.
 
     The blocks are local tensors (``redistribute`` -> ``to_local`` ->
     ``DTensor.from_local``): DTensor never sees ``fn``'s ops, so a product
@@ -431,8 +435,8 @@ def local_blocks(fn: Callable, inputs: Sequence[tuple[Any, Spec]], out_spec: Spe
                 raise ValueError(f"dim {d} of size {n} splits {r} ways ({spec}): "
                                  "neither in blocks nor an element a rank")
         pl = placements(blocks, mesh)
-        grad = tuple(Partial() if isinstance(p, Replicate) and a in work else p
-                     for a, p in zip(names, pl))
+        grad = tuple(Partial() if isinstance(p, Replicate) and a in work and a not in reduced
+                     else p for a, p in zip(names, pl))
         dt = x if is_dtensor(x) else DTensor.from_local(x, mesh, every)
         b = dt.redistribute(mesh, pl).to_local(grad_placements=grad)
         for d, i in takes:

@@ -239,6 +239,16 @@ class _Vary(torch.autograd.Function):
         return _psum_raw(g.contiguous(), ctx.group), None
 
 
+class _PSumWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _psum_raw(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _Assemble(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, gathers, scale):
@@ -265,8 +275,7 @@ def mesh_input(x: torch.Tensor, mesh) -> torch.Tensor:
     """A global tensor as ``shard_map`` takes it in: the identity, whose
     gradient is the sum over the mesh of every rank's contribution (the
     transpose of handing every rank the same value)."""
-    group, _ = group_of(tuple(mesh.mesh_dim_names), mesh)
-    return _Vary.apply(x, group)
+    return pvary(x, tuple(mesh.mesh_dim_names), mesh)
 
 
 def mesh_output(y: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
@@ -316,6 +325,24 @@ def psum(x: torch.Tensor, axis: str | Sequence[str], mesh=None) -> torch.Tensor:
     """Sum of ``x`` over the ranks of ``axis``."""
     group, _ = group_of(axis, mesh)
     return _PSum.apply(x, group)
+
+
+def pvary(x: torch.Tensor, axis: str | Sequence[str], mesh=None) -> torch.Tensor:
+    """The identity, whose gradient is summed over ``axis`` (``lax.pvary``):
+    a value every rank of ``axis`` holds whole, going into work each rank
+    does on its own share, gets back its whole gradient on every rank."""
+    group, _ = group_of(axis, mesh)
+    return _Vary.apply(x, group)
+
+
+def psum_whole(x: torch.Tensor, axis: str | Sequence[str], mesh=None) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axis``, held whole by each of them,
+    whose gradient passes through unchanged (``psum`` under ``shard_map``'s
+    replication types): every rank has the sum's whole gradient, not a
+    contribution to it, as ``pvary`` leaves it.  ``psum`` is the other
+    convention, a rank's gradient its contribution."""
+    group, _ = group_of(axis, mesh)
+    return _PSumWhole.apply(x, group)
 
 
 def all_gather(x: torch.Tensor, axis: str | Sequence[str], dim: int = 0, mesh=None

@@ -5,7 +5,9 @@ of the production mesh, with no world and no card memory.
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out results.json] [--jobs 8]
   python -m repro_torch.launch.dryrun --compare REF.json PORT.json [PORT.json ...]
   (``--compare``: the reference's ``--all --out`` results beside the port's,
-  per cell: its argument + output + temp bytes, each port peak and ratio.)
+  per cell: its argument + output + temp bytes, each port peak and ratio;
+  its FLOPs a rank, each port's and the ratio, none for the LM cells, whose
+  reference counts one scan body.)
   (``--device cpu`` builds a CPU mesh of fake CPU tensors; the default is
   fake ``cuda`` tensors, which needs a CUDA runtime but no card memory.)
 
@@ -566,24 +568,60 @@ def run_all(arch_ids, *, multi_pod: bool, out_path: str | None, device: str = "c
     return results
 
 
+SCAN_NOTE = "reference counts one scan body"
+
+
+def _scans_layers(arch: str) -> bool:
+    """Whether the reference scans ``arch``'s layers (``lax.scan``, the LM
+    family): XLA's ``cost_analysis`` counts a scan body once, so its FLOPs
+    a rank are those of one layer's, not comparable with the port's."""
+    try:
+        return get_arch(arch)[0].family == "lm"
+    except KeyError:
+        return False
+
+
 def compare(ref: list[dict], *ports: list[dict]) -> list[dict]:
     """Each ``ok`` cell of the reference's ``--all`` results beside the
     port's: the reference's per-device plan (XLA's argument + output + temp
-    bytes) and each port run's ``peak_bytes`` with its ratio to that plan."""
+    bytes) and each port run's ``peak_bytes`` with its ratio to that plan;
+    the reference's FLOPs a rank and each port run's with their ratio, but
+    where the reference scans its layers (``flops_note``: its count is one
+    scan body's, so no ratio)."""
     by_cell = [{(r["arch"], r["shape"]): r for r in p} for p in ports]
     rows = []
     for r in ref:
         if r["status"] != "ok":
             continue
         plan = sum(r["memory"][k] for k in ("argument_bytes", "output_bytes", "temp_bytes"))
-        row = {"arch": r["arch"], "shape": r["shape"], "reference_bytes": plan, "port": []}
+        flops = r.get("flops_per_device")
+        note = SCAN_NOTE if _scans_layers(r["arch"]) else None
+        row = {"arch": r["arch"], "shape": r["shape"], "reference_bytes": plan,
+               "reference_flops": flops, "flops_note": note, "port": []}
         for cells in by_cell:
             got = cells.get((r["arch"], r["shape"]), {})
-            peak = got.get("peak_bytes")
-            row["port"].append({"peak_bytes": peak,
-                                "ratio": None if peak is None else round(peak / plan, 2)})
+            peak, port_flops = got.get("peak_bytes"), got.get("flops_per_device")
+            row["port"].append({
+                "peak_bytes": peak, "ratio": None if peak is None else round(peak / plan, 2),
+                "flops": port_flops,
+                "flops_ratio": (None if note or port_flops is None or not flops
+                                else round(port_flops / flops, 2))})
         rows.append(row)
     return rows
+
+
+def _compare_line(row: dict) -> str:
+    """One ``--compare`` line: bytes, then FLOPs a rank."""
+    peaks = " ".join(f"{p['peak_bytes']:,} ({p['ratio']}x)" if p["peak_bytes"] is not None
+                     else "-" for p in row["port"])
+    ref = row["reference_flops"]
+    flops = " ".join("-" if p["flops"] is None else
+                     f"{p['flops']:.4g}" + ("" if p["flops_ratio"] is None
+                                            else f" ({p['flops_ratio']}x)")
+                     for p in row["port"])
+    tail = f" [{row['flops_note']}]" if row["flops_note"] else ""
+    return (f"{row['arch']} {row['shape']} {row['reference_bytes']:,} {peaks} | flops "
+            f"{'-' if ref is None else f'{ref:.4g}'} {flops}{tail}")
 
 
 def main(argv=None):
@@ -602,9 +640,7 @@ def main(argv=None):
     if args.compare:
         ref, *ports = [json.load(open(f)) for f in args.compare]
         for row in compare(ref, *ports):
-            print(f"{row['arch']} {row['shape']} {row['reference_bytes']:,} " + " ".join(
-                f"{p['peak_bytes']:,} ({p['ratio']}x)" if p["peak_bytes"] is not None else "-"
-                for p in row["port"]))
+            print(_compare_line(row))
         return
     if args.all:
         results = run_all(ARCH_IDS, multi_pod=args.multi_pod, out_path=args.out,

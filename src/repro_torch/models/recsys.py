@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.common import nn
 from repro_torch.common.config import ArchConfig
 from repro_torch.common.device import init_generator, resolve_device
-from repro_torch.common.sharding import is_dtensor, local_rows, take_rows
+from repro_torch.common.sharding import constrain, is_dtensor, local_blocks, local_rows, take_rows
 
 # MLPerf DLRM Criteo-1TB per-field vocabulary sizes (26 categorical fields)
 CRITEO_VOCABS = (
@@ -93,27 +93,45 @@ def init_dlrm(seed, cfg: ArchConfig, dtype=torch.float32, *, device="cuda"):
 
 def _dlrm_interact(emb: torch.Tensor) -> torch.Tensor:
     """emb (B, F, D) -> upper-triangle of emb @ embᵀ, (B, F(F-1)/2); on a
-    mesh, on each rank's rows."""
+    mesh, on each rank's rows, split over ``model`` too where it divides
+    them and does not split them yet (the output then laid out so: the
+    caller gathers it), so that the ranks of a model row share the product,
+    as the reference's plan shares it."""
     if is_dtensor(emb):
-        return local_rows(_dlrm_interact, (emb,))
+        mesh = emb.device_mesh
+        names = list(mesh.mesh_dim_names)
+        rows = {a for a, p in zip(names, emb.placements) if p.is_shard(0)}
+        if "model" in names and "model" not in rows and emb.shape[0] % math.prod(
+                mesh.size(names.index(a)) for a in rows | {"model"}) == 0:
+            rows.add("model")
+        spec = (tuple(a for a in names if a in rows) or None,)
+        return local_blocks(_dlrm_interact, [(emb, spec)], spec)
     f = emb.shape[1]
     z = torch.bmm(emb, emb.transpose(1, 2))
     iu, ju = torch.triu_indices(f, f, offset=1, device=emb.device)
     return z[:, iu, ju]
 
 
+def _dlrm_bottom(params, dense: torch.Tensor) -> torch.Tensor:
+    """The bottom MLP, (B, 13) -> (B, D).  On a mesh its three layers run
+    tensor-parallel over ``model``, so the last one's output is split over
+    it: the interaction needs every unit, so this narrow output is gathered
+    here, the one gather of the MLPs."""
+    return constrain(nn.mlp(params["bot"], dense, act=F.relu, final_act=F.relu), "batch", None)
+
+
 def dlrm_forward(params, cfg: ArchConfig, batch) -> torch.Tensor:
-    x = nn.mlp(params["bot"], batch["dense"], act=F.relu, final_act=F.relu)
+    x = _dlrm_bottom(params, batch["dense"])
     embs = [take(t, batch["sparse"][:, i]) for i, t in enumerate(params["tables"])]
     emb = torch.stack([x, *embs], dim=1)  # (B, 27, D)
-    inter = _dlrm_interact(emb)
+    inter = constrain(_dlrm_interact(emb), "batch", None)
     top_in = torch.cat([x, inter], dim=-1)
     return nn.mlp(params["top"], top_in, act=F.relu)[..., 0]
 
 
 def dlrm_retrieval(params, cfg: ArchConfig, batch, candidates: torch.Tensor) -> torch.Tensor:
     """Score 1 user context x C candidate items in sparse field 0."""
-    x = nn.mlp(params["bot"], batch["dense"], act=F.relu, final_act=F.relu)  # (1, D)
+    x = _dlrm_bottom(params, batch["dense"])  # (1, D)
     fixed = [take(t, batch["sparse"][:, i]) for i, t in enumerate(params["tables"]) if i != 0]
     c = candidates.shape[0]
     cand_emb = take(params["tables"][0], candidates)  # (C, D)

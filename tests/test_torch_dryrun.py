@@ -233,5 +233,34 @@ def test_compare_sets_each_port_peak_beside_the_reference_plan():
            {"arch": "a", "shape": "t", "status": "skipped"}]
     rows = dryrun.compare(ref, [{"arch": "a", "shape": "s", "peak_bytes": 300}], [])
     assert rows == [{"arch": "a", "shape": "s", "reference_bytes": 200,
-                     "port": [{"peak_bytes": 300, "ratio": 1.5},
-                              {"peak_bytes": None, "ratio": None}]}]
+                     "reference_flops": None, "flops_note": None,
+                     "port": [{"peak_bytes": 300, "ratio": 1.5, "flops": None,
+                               "flops_ratio": None},
+                              {"peak_bytes": None, "ratio": None, "flops": None,
+                               "flops_ratio": None}]}]
+
+
+def test_compare_sets_flops_a_rank_beside_the_reference_but_for_scanned_layers():
+    """``--compare`` puts each port run's FLOPs a rank and their ratio beside
+    the reference's; an LM cell, whose reference scans its layers (XLA
+    counts one scan body), is marked and gets no ratio."""
+    from repro_torch.launch import dryrun
+
+    mem = {"argument_bytes": 100, "output_bytes": 20, "temp_bytes": 80}
+    ref = [{"arch": "bst", "shape": "serve_p99", "status": "ok", "memory": mem,
+            "flops_per_device": 4.0e6},
+           {"arch": "gemma2-2b", "shape": "train_4k", "status": "ok", "memory": mem,
+            "flops_per_device": 1.0e9}]
+    port = [{"arch": "bst", "shape": "serve_p99", "peak_bytes": 200, "flops_per_device": 5.0e6},
+            {"arch": "gemma2-2b", "shape": "train_4k", "peak_bytes": 100,
+             "flops_per_device": 3.0e10}]
+    bst, lm = dryrun.compare(ref, port)
+    assert (bst["reference_flops"], bst["flops_note"]) == (4.0e6, None)
+    assert bst["port"] == [{"peak_bytes": 200, "ratio": 1.0, "flops": 5.0e6,
+                            "flops_ratio": 1.25}]
+    assert lm["flops_note"] == dryrun.SCAN_NOTE == "reference counts one scan body"
+    assert lm["port"] == [{"peak_bytes": 100, "ratio": 0.5, "flops": 3.0e10,
+                           "flops_ratio": None}]
+    line = dryrun._compare_line(lm)
+    assert line.endswith("[reference counts one scan body]") and "x)" in line.split("|")[0]
+    assert "(1.25x)" in dryrun._compare_line(bst)

@@ -1,16 +1,23 @@
-"""The recsys cells whose lookups split the candidates, at full size on the
-fake 16x16 CPU mesh (``repro_torch.launch.dryrun.dryrun_cell``), against
-the reference's ``dryrun_cell`` of the same cells.
+"""The recsys cells whose lookups split the candidates, and the cells whose
+MLPs run tensor-parallel over ``model``, at full size on the fake 16x16
+CPU mesh (``repro_torch.launch.dryrun.dryrun_cell``), against the
+reference's ``dryrun_cell`` of the same cells.
 
 BST's and MIND's ``retrieval_cand`` (1,000,000 candidates split over
 ``model``, as the item tables' rows are) and MIND's ``train_batch``
 (65,536 histories of 50 items).  The reduced cells have 1,000 candidates
-and cannot show a rank planning every candidate.  One subprocess runs the
-reference's three cells (XLA's plans over 256 host devices) while this
+and cannot show a rank planning every candidate.  BST's ``train_batch``,
+``serve_p99`` and ``serve_bulk``, DLRM's ``train_batch``, ``serve_p99``
+and ``serve_bulk`` and MeshGraphNet's ``full_graph_sm``, ``minibatch_lg``
+and ``molecule``: their rows split over the batch alone, so the MLPs'
+hidden units split over ``model`` (the reference's ``mlp_init`` axes), or
+every rank of a model row repeats its row's dense work.  One subprocess
+runs the reference's cells (XLA's plans over 256 host devices) while this
 process runs the port's; each check is its own test case.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -18,7 +25,13 @@ import pytest
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
-CELLS = [("bst", "retrieval_cand"), ("mind", "retrieval_cand"), ("mind", "train_batch")]
+TP_CELLS = [("bst", "train_batch"), ("bst", "serve_p99"), ("bst", "serve_bulk"),
+            ("dlrm-mlperf", "train_batch"), ("dlrm-mlperf", "serve_p99"),
+            ("dlrm-mlperf", "serve_bulk"), ("meshgraphnet", "full_graph_sm"),
+            ("meshgraphnet", "minibatch_lg"), ("meshgraphnet", "molecule")]
+CELLS = [("bst", "retrieval_cand"), ("mind", "retrieval_cand"), ("mind", "train_batch"),
+         *TP_CELLS]
+MLP_WEIGHT = re.compile(r"(^|\.)\d+\.[wb]$")  # an MLP layer's w or b: "ffn.1.w", "top.4.b"
 
 REF = r"""
 import json, sys
@@ -48,12 +61,23 @@ def runs():
     return got, json.loads(out.strip().splitlines()[-1])
 
 
+def _mlp_weight_shapes(arch: str, shape: str) -> set[tuple]:
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell
+
+    cfg, shapes, _ = get_arch(arch)
+    cell = build_cell(cfg, next(s for s in shapes if s.name == shape))
+    return {tuple(spec.shape) for name, spec in cell.param_specs.items()
+            if MLP_WEIGHT.search(name)}
+
+
 @pytest.mark.parametrize("cell", ["/".join(c) for c in CELLS])
 def test_peak_within_twice_the_reference_plan(runs, cell):
     """A rank's planned peak at most 2x the reference's argument + output +
     temp bytes: the candidates stay split over ``model`` through the
     lookup (and BST's encode), and the table's gradient is summed into its
-    block (26.19x, 11.53x and 3.35x before)."""
+    block (26.19x, 11.53x and 3.35x before); the tensor-parallel MLPs'
+    cells hold theirs (1.84x at most before, MeshGraphNet's)."""
     got, ref = runs
     r = got[cell]
     assert r["status"] == "ok" and ref[cell]["status"] == "ok", r
@@ -79,3 +103,33 @@ def test_mind_train_gathers_no_batch_of_rows(runs):
     for e in r["largest_collectives"]:
         assert [65536, 50, 64] not in e["shape"], e
     assert r["collective_bytes_per_device"].get("all-gather", 0) < 838_860_800
+
+
+@pytest.mark.parametrize("cell", ["/".join(c) for c in TP_CELLS])
+def test_tensor_parallel_mlp_flops_within_1_5x_the_reference(runs, cell):
+    """A rank's FLOPs at most 1.5x the reference's: the MLPs' hidden units
+    split over ``model`` as the reference's ``mlp_init`` lays them out,
+    and DLRM's interaction on rows split over ``model`` too, so a rank
+    plans its share of the dense work, not its model row's whole (6.8x
+    to 15.6x before)."""
+    got, ref = runs
+    r = got[cell]
+    assert r["status"] == "ok" and ref[cell]["status"] == "ok", r
+    port, want = r["flops_per_device"], ref[cell]["flops"]
+    print(f"{cell}: port {port:.4g} FLOPs a rank, reference {want:.4g} ({port / want:.2f}x)")
+    assert port <= 1.5 * want, (port, want)
+
+
+@pytest.mark.parametrize("cell", ["/".join(c) for c in TP_CELLS])
+def test_no_whole_mlp_weight_among_the_largest_collectives(runs, cell):
+    """No whole MLP weight (or bias) among a rank's largest collectives,
+    and BST, whose activations all stay split over the batch, gathers
+    nothing at all (5,413,376 bytes of its MLPs' weights before)."""
+    got, _ = runs
+    r = got[cell]
+    whole = _mlp_weight_shapes(*cell.split("/"))
+    for e in r["largest_collectives"]:
+        for shape in e["shape"]:
+            assert tuple(shape) not in whole, e
+    if cell.startswith("bst/"):
+        assert r["collective_bytes_per_device"].get("all-gather", 0) == 0, r
